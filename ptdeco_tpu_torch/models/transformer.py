@@ -41,7 +41,6 @@ class TransformerConfig:
     hidden_dim: int = 5632
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
-    qkv_bias: bool = False
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.float32
 
@@ -121,9 +120,9 @@ class Attention(torch.nn.Module):
         super().__init__()
         hd = cfg.head_dim
         kw = {"dtype": cfg.dtype, "device": device}
-        self.q_proj = torch.nn.Linear(cfg.dim, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
-        self.k_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
-        self.v_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.q_proj = torch.nn.Linear(cfg.dim, cfg.n_heads * hd, bias=False, **kw)
+        self.k_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=False, **kw)
+        self.v_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=False, **kw)
         self.o_proj = torch.nn.Linear(cfg.n_heads * hd, cfg.dim, bias=False, **kw)
         self.n_heads = cfg.n_heads
         self.n_kv_heads = cfg.n_kv_heads
