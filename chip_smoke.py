@@ -1,28 +1,40 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N] [--profile DIR]
 
-The main path is a dwain decomposition of a TinyLlama-1.1B-width causal LM
+Slice 1 is a dwain decomposition of a TinyLlama-1.1B-width causal LM
 (vocab 32000, dim 2048, 32 heads / 4 kv heads, MLP 5632, bf16), cut to 2
 layers, with random planted-rank weights and synthetic token ids made from
 the seed; then the artifact (decompose_config.json + decompose_state_dict.pt)
 is written, reloaded into a fresh model, and the decomposed model serves a
-probe batch with its factor pairs fused.
+probe batch with its factor pairs fused, and answers through the KV-cached
+``serving.generate``.
 
-Phases, one JSON line each: device, build (the three CUDA kernels, one nvcc
-each, started together), one kernel line per kernel (the kernel against its
-plain PyTorch version at the main path's shapes, with timings), decompose,
-artifact, serve, reference (the served model against the same model on the
-CPU in f32, on a short input), kernels (launch counts).  Then the card's
-name and power limit as nvidia-smi reports them, the kernel table as one
-JSON object, and last {"ok": true, "device": ...}.  Any failed check raises
-and the script exits non-zero; without a CUDA device it exits 1 at once.
+Slice 2 serves a Mixtral-8x7B-v0.1-width MoE (vocab 32000, dim 4096, 32
+heads / 8 kv heads, 8 experts of width 14336, top-2, bf16), cut to 2
+layers, with random weights from a seeded torch.Generator on the card:
+greedy ``generate`` on 4 prompts x 512 tokens with 16 new tokens, in bf16
+and then after ``quantize_for_serving`` in weight-only int8.
+
+Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
+each, started together), one kernel line per kernel and shape (the kernel
+against its plain PyTorch version at the main paths' shapes, with timings),
+decompose, artifact, serve, generate (slice 1's fused model), reference
+(the served model against the same model on the CPU in f32, on a short
+input), moe_serve bf16, moe_reference bf16 (against its f32 twin on the
+card), moe_serve int8, moe_reference int8 (the int8 run's step logits and a
+128-token forward against the quantized model's f32 twin), kernels (launch
+counts of each path).  Then the card's name and power limit as nvidia-smi
+reports them, the kernel table as one JSON object, and last {"ok": true,
+"device": ...}.  Any failed check raises and
+the script exits non-zero; without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -40,8 +52,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
 
 import ptdeco_tpu_torch as ptt  # noqa: E402
-from ptdeco_tpu_torch import dwain, engine, models, nn as pnn, ops, utils  # noqa: E402
-from ptdeco_tpu_torch.ops import _build  # noqa: E402
+from ptdeco_tpu_torch import dwain, engine, models, nn as pnn, ops, quant, serving, utils  # noqa: E402
+from ptdeco_tpu_torch.ops import _build, gmm, gmm_int8  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
@@ -66,6 +78,38 @@ DECOMPOSE_ARGS = dict(
 FUSED_MAX_ABS, FUSED_RMS_REL = 0.0625, 5e-3
 REF_MAX_ABS, REF_RMS_REL = 0.06, 1e-2
 
+# Mixtral-8x7B-v0.1's config.json (mistralai/Mixtral-8x7B-v0.1), the keys
+# the converter reads
+MIXTRAL_8X7B = dict(
+    model_type="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    num_local_experts=8, num_experts_per_tok=2, rms_norm_eps=1e-5, rope_theta=1e6,
+    sliding_window=None, tie_word_embeddings=False,
+)
+MOE_LAYERS = 2
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 512, 16
+MOE_REF_TOKENS = 128
+TINY_PROMPT, TINY_NEW = 128, 8
+
+# Serving gates, about 2-3x the readings on an H100 at seeds 0-2 (PERF.md).
+# An MoE model's reference is routed as the run it checks (``Routing``), so
+# every row is compared; the share of near-ties it overrode is gated too.
+# Cached vs uncached logits: TinyLlama read max 0.031 (one bf16 ulp),
+# RMS-relative 2.4e-3; the Mixtral-width model, bf16 and int8, max
+# 0.023-0.031, RMS-relative 7.8e-3-8.2e-3.
+GEN_MAX_ABS, GEN_RMS_REL = 0.0625, 5e-3
+CACHED_MAX_ABS, CACHED_RMS_REL = 0.0625, 2e-2
+# bf16 vs its f32 twin on the card: max 0.019-0.023, RMS-relative
+# 6.2e-3-6.4e-3; the int8 model against its twin (the same bf16 roundings;
+# the twin dequantizes the same grids in f32) read max 0.021-0.026,
+# RMS-relative 7.2e-3-8.7e-3, and is held to the same limits
+MOE_REF_MAX_ABS, MOE_REF_RMS_REL = 0.0625, 2e-2
+# int8 vs bf16 (the quantization error): max 0.047-0.055, RMS-relative 1.6e-2
+INT8_MAX_ABS, INT8_RMS_REL = 0.15, 5e-2
+# near-ties overridden: at most 68 of 4216 routed (layer, token) pairs (1.6%,
+# int8 against bf16), 3 of 256 (1.2%) against an f32 twin
+MAX_NEAR_TIE_SHARE = 0.05
+
 KERNEL_INFO = {
     "syrk_gram": ("ptdeco_tpu_torch/csrc/syrk_gram.cu", "ptdeco_tpu/ops/gram_pallas.py:45"),
     "flash_attention": (
@@ -76,6 +120,11 @@ KERNEL_INFO = {
         "ptdeco_tpu_torch/csrc/lowrank_matmul.cu",
         "ptdeco_tpu/ops/lowrank_pallas.py:40",
     ),
+    "grouped_matmul": (
+        "ptdeco_tpu_torch/csrc/grouped_matmul.cu",
+        "ptdeco_tpu/models/transformer.py:5252",
+    ),
+    "gmm_int8": ("ptdeco_tpu_torch/csrc/gmm_int8.cu", "ptdeco_tpu/ops/gmm_int8.py:109"),
 }
 
 
@@ -111,10 +160,13 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, shape):
+def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, shape,
+                 extra_fns=None):
     """Hold the kernel against its plain version elementwise: every output
     must satisfy |out - ref| <= tol_fn(ref), a tensor of per-element limits.
-    The record is printed before a failure is raised."""
+    The record is printed before a failure is raised.  ``library_fn`` may
+    be None (no single PyTorch call computes the function); ``extra_fns``
+    maps a name to another route timed beside the kernel."""
     out = kernel_fn().float()
     ref = plain_fn().float()
     torch.cuda.synchronize()
@@ -137,9 +189,10 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, s
     rec.update({
         "ms": time_ms(kernel_fn),
         "plain_ms": time_ms(plain_fn),
-        "library_ms": time_ms(library_fn),
+        "library_ms": None if library_fn is None else time_ms(library_fn),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        **{f"{k}_ms": time_ms(fn) for k, fn in (extra_fns or {}).items()},
     })
     emit({"phase": "kernel", **rec, "bound_us": bound_ms * 1e3})
     return rec
@@ -229,6 +282,128 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     return recs
 
 
+def routed_group_sizes(n_tokens: int, seed: int, n_experts: int = 8, top_k: int = 2):
+    """Group sizes of ``n_tokens`` tokens each routed to ``top_k`` distinct
+    experts, drawn from a seed with uneven expert popularity."""
+    rng = np.random.default_rng(seed)
+    p = rng.dirichlet(np.full(n_experts, 4.0))
+    ids = [rng.choice(n_experts, top_k, replace=False, p=p) for _ in range(n_tokens)]
+    return np.bincount(np.concatenate(ids), minlength=n_experts).astype(np.int32)
+
+
+def single_rounding_tol(ref: torch.Tensor) -> torch.Tensor:
+    """f32 sums of exact bf16 products, rounded once to bf16 on both sides:
+    where the sums round apart they differ by one bf16 ulp, which is up to
+    2^-7 |ref| (just above a power of two); the limit is two such ulps, and
+    2^-9 of the outputs' RMS covers the sums' order near zero."""
+    return 2.0 ** -6 * ref.abs() + 2.0 ** -9 * ref.square().mean().sqrt()
+
+
+def grouped_library(lhs, weights, group_sizes):
+    """One PyTorch call for the same grouped product: ``torch._grouped_mm``
+    where this PyTorch has it and takes these operands, else one dense
+    ``torch.matmul`` over the same rows (named in the record)."""
+    stack = torch.stack(weights)  # (E, N, K), a copy made outside the timing
+    offs = torch.cumsum(group_sizes, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            fn = lambda: torch._grouped_mm(lhs, stack.transpose(1, 2), offs=offs)  # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+            return fn, "torch._grouped_mm"
+        except RuntimeError as exc:
+            emit({"phase": "library", "grouped_mm_refused": str(exc)[:200]})
+    return (lambda: lhs @ stack[0].t()), "torch.matmul (dense, same rows)"
+
+
+def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
+    """The MoE serving path's kernels at Mixtral-8x7B width: the bf16
+    grouped matmul at prefill and decode, the int8 grouped matmul at 8, 16
+    and 512 routed rows, and flash attention at the prefill's head_dim 128."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    dim, hidden = MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["intermediate_size"]
+    n_tokens = MOE_BATCH * MOE_PROMPT
+    for n_tok, (k, n), what in ((n_tokens, (dim, hidden), "prefill gate/up"),
+                                (n_tokens, (hidden, dim), "prefill down"),
+                                (8, (dim, hidden), "decode gate/up"),
+                                (8, (hidden, dim), "decode down")):
+        sizes = routed_group_sizes(n_tok, seed=100 + n_tok + k)
+        m, routed = int(sizes.sum()), int((sizes > 0).sum())
+        lhs = torch.randn(m, k, device=dev, generator=g).to(bf)
+        weights = [(torch.randn(n, k, device=dev, generator=g) / k ** 0.5).to(bf) for _ in sizes]
+        gs = torch.from_numpy(sizes).to(dev)
+        library_fn, library = grouped_library(lhs, weights, gs)
+        recs["grouped_matmul"].append(check_kernel(
+            "grouped_matmul",
+            lambda: ops.grouped_matmul(lhs, weights, gs),
+            lambda: ops.grouped_matmul_plain(lhs, weights, gs),
+            library_fn,
+            flops=2 * m * k * n,
+            nbytes=2 * m * k + 2 * routed * n * k + 4 * len(sizes) + 2 * m * n,
+            tol_fn=single_rounding_tol,
+            shape={"what": what, "M": m, "K": k, "N": n, "experts": len(sizes),
+                   "routed": routed, "group_sizes": sizes.tolist(),
+                   "bm": gmm.block_rows(m, len(sizes)), "dtype": "bf16",
+                   "library": library},
+        ))
+        del lhs, weights, library_fn
+        torch.cuda.empty_cache()
+
+    for n_tok, (k, n), what in ((4, (dim, hidden), "decode gate/up, batch 4"),
+                                (4, (hidden, dim), "decode down, batch 4"),
+                                (8, (dim, hidden), "decode gate/up, batch 8"),
+                                (256, (dim, hidden), "256 tokens gate/up")):
+        sizes = routed_group_sizes(n_tok, seed=200 + n_tok + k)
+        m, e, routed = int(sizes.sum()), len(sizes), int((sizes > 0).sum())
+        gs = torch.from_numpy(sizes).to(dev)
+        xg = torch.randn(m, k, device=dev, generator=g).to(bf)
+        w_q = [torch.randint(-127, 128, (n, k), device=dev, generator=g, dtype=torch.int8)
+               for _ in sizes]
+        scales = [(0.5 + 0.5 * torch.rand(n, device=dev, generator=g)) / (127 * k ** 0.5)
+                  for _ in sizes]
+
+        def dequant_route():  # what MoEMLP._grouped does with int8 experts
+            deq = [w.to(bf) * s.to(bf)[:, None] for w, s in zip(w_q, scales)]
+            return ops.grouped_matmul(xg, deq, gs)
+
+        recs["gmm_int8"].append(check_kernel(
+            "gmm_int8",
+            lambda: ops.grouped_matmul_int8(xg, w_q, scales, gs),
+            lambda: ops.grouped_matmul_int8_plain(xg, w_q, scales, gs),
+            None,
+            flops=2 * m * k * n,
+            nbytes=2 * m * k + routed * n * k + 4 * routed * n + 2 * m * n,
+            tol_fn=single_rounding_tol,
+            shape={"what": what, "M": m, "K": k, "N": n, "experts": e, "routed": routed,
+                   "group_sizes": sizes.tolist(),
+                   "bm": gmm.block_rows(m, e, gmm_int8.KERNEL_BLOCK_ROWS),
+                   "dtype": "int8 weights, bf16 activations"},
+            extra_fns={"dequant_route": dequant_route},
+        ))
+        del xg, w_q, scales
+        torch.cuda.empty_cache()
+
+    b, h, h_kv, s, hd = MOE_BATCH, 32, 8, MOE_PROMPT, 128
+    q = torch.randn(b, h, s, hd, device=dev, generator=g).to(bf)
+    k = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
+    v = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
+    scale = hd ** -0.5
+    rss = attention_term_rss(q, k, v, scale)
+    recs["flash_attention"].append(check_kernel(
+        "flash_attention",
+        lambda: ops.flash_attention(q, k, v, scale),
+        lambda: ops.causal_attention_plain(q, k, v, scale),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True
+        ),
+        flops=2 * 2 * b * h * hd * s * (s + 1) / 2,
+        nbytes=2 * (2 * b * h * s * hd + 2 * b * h_kv * s * hd),
+        tol_fn=lambda ref: 2.0 ** -6 * ref.abs() + 2.0 ** -5 * rss,  # as at head_dim 64
+        shape={"b": b, "h": h, "h_kv": h_kv, "s": s, "head_dim": hd, "dtype": "bf16"},
+    ))
+
+
 def tinyllama_2_layer() -> models.TransformerConfig:
     full = models.TransformerConfig.tinyllama_1_1b(dtype=torch.bfloat16)
     return dataclasses.replace(full, n_layers=N_LAYERS)
@@ -288,6 +463,252 @@ def logits_agree(a: torch.Tensor, b: torch.Tensor, max_abs: float, rms_rel: floa
     return got
 
 
+def require_launches(counts: dict[str, int], names: tuple, what: str) -> None:
+    missing = [n for n in names if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"{what} did not launch {missing}: {counts}")
+
+
+class Routing(contextlib.ContextDecorator):
+    """Records the top-k expert set each MoE layer routes each token to (it
+    wraps the layers' ``_routing``; the expert projections stay unhooked,
+    so the grouped routes still run).
+
+    With ``forced`` (per layer, (b, tokens, k) as ``per_layer`` gives them,
+    the tokens of successive calls joined in order) each token is routed to
+    those experts instead, weighted by the layer's own renormalized router
+    probabilities for them.  A reference routed as the run it checks has no
+    routing flips: a near-tie between the k-th and next expert can break one
+    way in one run and the other way in the other, which changes that
+    token's output by O(1) and, through attention, every later token's.
+    ``near_ties`` counts the (layer, token) pairs whose own top-k differed
+    from the forced one.  Routing as given is bit-identical to the
+    layer's own where they agree."""
+
+    def __init__(self, model, batch: int, forced: dict | None = None) -> None:
+        self.model, self.batch, self.forced = model, batch, forced
+        self.calls, self.near_ties, self.routed = [], 0, 0
+
+    def __enter__(self):
+        self.moes = [(i, layer.mlp) for i, layer in enumerate(self.model.model.layers)
+                     if isinstance(layer.mlp, models.transformer.MoEMLP)]
+        for i, moe in self.moes:
+            moe._routing = self._wrap(i, moe)
+        return self
+
+    def _wrap(self, i, moe):
+        own, done = moe._routing, [0]
+
+        def routing(x):
+            vals, idx = own(x)
+            if self.forced is not None:
+                s = idx.numel() // (moe.top_k * self.batch)
+                ids = self.forced[i][:, done[0]:done[0] + s].reshape(idx.shape)
+                done[0] += s
+                self.near_ties += int((idx.sort(dim=-1).values != ids).any(dim=-1).sum())
+                self.routed += ids.numel() // moe.top_k
+                scores = torch.softmax(moe.gate(x).to(torch.float32), dim=-1)
+                vals = torch.gather(scores, -1, ids)
+                vals, idx = vals / vals.sum(dim=-1, keepdim=True), ids
+            self.calls.append((i, idx.sort(dim=-1).values.reshape(self.batch, -1, moe.top_k)))
+            return vals, idx
+
+        return routing
+
+    def __exit__(self, *exc):
+        for _, moe in self.moes:
+            del moe._routing
+        return False
+
+    def per_layer(self) -> dict[int, torch.Tensor]:
+        """(b, tokens, k) expert sets per layer, the calls joined along the
+        token axis in order."""
+        out: dict[int, list] = {}
+        for i, ids in self.calls:
+            out.setdefault(i, []).append(ids)
+        return {i: torch.cat(v, dim=1) for i, v in out.items()}
+
+    def gate(self, what: str) -> dict:
+        """The near-tie reading, gated at ``MAX_NEAR_TIE_SHARE``."""
+        share = self.near_ties / max(self.routed, 1)
+        got = {"near_ties": self.near_ties, "routed": self.routed, "near_tie_share": share,
+               "limit_near_tie_share": MAX_NEAR_TIE_SHARE}
+        if share > MAX_NEAR_TIE_SHARE:
+            emit({"phase": what, **got, "ok": False})
+            raise AssertionError(f"{what}: {got}")
+        return got
+
+
+def cached_generate(model, prompt, new_tokens: int, what: str,
+                    max_abs: float = CACHED_MAX_ABS, rms_rel: float = CACHED_RMS_REL) -> dict:
+    """Greedy ``generate`` from a zero launch count, then each step's logits
+    held against the uncached forward of the same tokens, routed as the
+    cached run was (for an MoE model)."""
+    b, s_p = prompt.shape
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Routing(model, b) as cached:
+        toks, step_logits = serving.generate(model, prompt, new_tokens, return_logits=True)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    full = torch.cat([prompt, toks[:, :-1]], dim=1)
+    routes = cached.per_layer()
+    with torch.no_grad(), Routing(model, b, forced=routes) as forced:
+        uncached = model({"input_ids": full})[:, s_p - 1:]
+    got = logits_agree(step_logits, uncached, max_abs, rms_rel, what)
+    got.update(forced.gate(what))
+    # the prefill's row alone: the same tokens through the same kernels
+    got["prefill_max_abs_diff"] = float((step_logits[:, 0].float() - uncached[:, 0].float()).abs().max())
+    return {"tokens": toks, "full": full, "uncached": uncached, "counts": counts,
+            "wall_s": wall, "gate": got, "routes": routes, "step_logits": step_logits}
+
+
+def serve_timings(model, prompt, tok) -> dict:
+    """Prefill of the prompt batch and one decode step, CUDA-event medians
+    after warm-up (the cache is rewritten in place each run); then the
+    decode step's host time to enqueue its work, and its device busy time
+    from a short torch.profiler window."""
+    b, s_p = prompt.shape
+    caches = serving.init_cache(model, b, s_p + 1)
+    last_pos = torch.full((b,), s_p - 1, device=prompt.device)
+    prefill = time_ms(lambda: serving.forward_with_cache(model, prompt, caches, 0,
+                                                         last_pos=last_pos), reps=10)
+
+    def step():
+        return serving.forward_with_cache(model, tok, caches, s_p)
+
+    decode = time_ms(step, reps=25)
+    enqueue = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    n = 5
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    return {"prefill_ms": prefill, "decode_step_ms": decode,
+            "decode_enqueue_ms": statistics.median(enqueue),
+            "decode_device_busy_ms": busy_ms, "decode_device_busy_share": busy_ms / decode,
+            "decode_top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 / n for e in top}}
+
+
+def mixtral_2_layer() -> models.TransformerConfig:
+    full = models.TransformerConfig.from_hf_config(MIXTRAL_8X7B, dtype=torch.bfloat16)
+    return dataclasses.replace(full, n_layers=MOE_LAYERS)
+
+
+def f32_twin(model):
+    """A deep copy of ``model`` in f32 on the card.  f32 takes the plain
+    routes by the dtype rule (the plain grouped product, plain attention,
+    int8 grids dequantized exactly in f32), so holding the model against
+    its twin holds the kernels and their wrappers against the plain path
+    end to end."""
+    return copy.deepcopy(model).to(torch.float32)
+
+
+def against_twin(twin, ids: torch.Tensor, routes: dict, logits: torch.Tensor, start: int,
+                 max_abs: float, rms_rel: float, what: str) -> dict:
+    """``logits`` (b, s - start, vocab), the model's for tokens ``ids`` (b,
+    s) from position ``start`` on, against the f32 twin's uncached forward
+    of ``ids`` routed as the model was (``routes``); the twin must launch
+    no kernel."""
+    ops.reset_launch_counts()
+    with torch.no_grad(), Routing(twin, ids.shape[0], forced=routes) as forced:
+        y32 = twin({"input_ids": ids})[:, start:]
+    torch.cuda.synchronize()
+    plain_counts = ops.launch_counts()
+    if any(plain_counts.values()):
+        raise AssertionError(f"{what}: the f32 reference launched kernels: {plain_counts}")
+    return {"tokens": list(ids.shape), **logits_agree(logits, y32, max_abs, rms_rel, what),
+            **forced.gate(what)}
+
+
+def forward_against_twin(model, twin, ids: torch.Tensor, what: str) -> dict:
+    """The model's uncached forward of ``ids`` against its f32 twin's, at
+    the bf16 limits, with the model's launch counts."""
+    ops.reset_launch_counts()
+    with torch.no_grad(), Routing(model, ids.shape[0]) as routes:
+        y = model({"input_ids": ids})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    got = against_twin(twin, ids, routes.per_layer(), y, 0, MOE_REF_MAX_ABS, MOE_REF_RMS_REL,
+                       what)
+    return {**got, "launches": counts}
+
+
+def moe_serve(dev, seed: int) -> dict[str, dict[str, int]]:
+    """Slice 2's path: the Mixtral-width model served in bf16, held against
+    itself in f32 on the card, then quantized to int8 and served again.
+    Returns each run's launch counts."""
+    cfg = mixtral_2_layer()
+    model = models.CausalLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    n_params = utils.get_num_params(model)
+    rng = np.random.default_rng(seed + 10)
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT), dtype=np.int64)
+    ).to(dev)
+
+    bf16 = cached_generate(model, prompt, MOE_NEW, "moe_serve_bf16")
+    require_launches(bf16["counts"], ("grouped_matmul", "flash_attention"), "moe_serve bf16")
+    emit({"phase": "moe_serve", "dtype": "bf16", "layers": cfg.n_layers, "params": n_params,
+          "weight_bytes": sum(t.numel() * t.element_size() for t in model.state_dict().values()),
+          "batch": MOE_BATCH, "prompt": MOE_PROMPT, "new_tokens": MOE_NEW,
+          "generate_wall_s": bf16["wall_s"], **bf16["gate"], "launches": bf16["counts"],
+          **serve_timings(model, prompt, bf16["tokens"][:, :1])})
+
+    # the bf16 model against itself in f32 on the card
+    ref_ids = prompt[:1, :MOE_REF_TOKENS]
+    twin = f32_twin(model)
+    got = forward_against_twin(model, twin, ref_ids, "moe_reference")
+    del twin
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_reference", "dtype": "bf16", **got})
+
+    quant.quantize_for_serving(model)
+    int8 = cached_generate(model, prompt, MOE_NEW, "moe_serve_int8")
+    require_launches(int8["counts"], ("gmm_int8", "grouped_matmul", "flash_attention"),
+                     "moe_serve int8")
+    # int8 against bf16 on the same tokens (the bf16 run's), uncached and
+    # routed as the bf16 run was: the quantization error
+    with torch.no_grad(), Routing(model, MOE_BATCH, forced=bf16["routes"]) as forced:
+        y_int8 = model({"input_ids": bf16["full"]})[:, MOE_PROMPT - 1:]
+    vs_bf16 = {**logits_agree(y_int8, bf16["uncached"], INT8_MAX_ABS, INT8_RMS_REL,
+                              "moe_int8_vs_bf16"),
+               **forced.gate("moe_int8_vs_bf16")}
+    agree = float((int8["tokens"] == bf16["tokens"]).float().mean())
+    emit({"phase": "moe_serve", "dtype": "int8", "generate_wall_s": int8["wall_s"],
+          **int8["gate"], "int8_vs_bf16": vs_bf16,
+          "tokens_equal_to_bf16": agree, "launches": int8["counts"],
+          "weight_bytes": sum(t.numel() * t.element_size() for t in model.state_dict().values()),
+          **serve_timings(model, prompt, int8["tokens"][:, :1])})
+
+    # the int8 model against itself in f32 on the card, at the bf16 limits:
+    # the int8 run's own step logits (prefill's last row, then the decode
+    # steps that took gmm_int8 at 8 rows) against the twin's uncached
+    # forward of the same tokens, and a 128-token forward (256 rows, so
+    # gmm_int8 at its 64-row tile)
+    twin = f32_twin(model)
+    steps = against_twin(twin, int8["full"], int8["routes"], int8["step_logits"],
+                         MOE_PROMPT - 1, CACHED_MAX_ABS, CACHED_RMS_REL,
+                         "moe_reference_int8_steps")
+    forward = forward_against_twin(model, twin, ref_ids, "moe_reference_int8")
+    del twin
+    torch.cuda.empty_cache()
+    require_launches(forward["launches"], ("gmm_int8",), "moe_reference_int8")
+    emit({"phase": "moe_reference", "dtype": "int8", "steps": steps, "forward": forward})
+    return {"moe_bf16": bf16["counts"], "moe_int8": int8["counts"]}
+
+
 def profiler(out_dir):
     if not out_dir:
         return contextlib.nullcontext()
@@ -319,6 +740,9 @@ def main() -> None:
                              "its kernel table to DIR/profile_decompose.txt")
     args = parser.parse_args()
     dev = torch.device("cuda")
+    # the f32 references run in full f32 (not TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind, "count": torch.cuda.device_count(),
@@ -332,6 +756,7 @@ def main() -> None:
           "dir": str(_build.BUILD_DIR)})
 
     recs = kernel_checks(dev)
+    moe_kernel_checks(dev, recs)
 
     # --- main path: decompose -> artifact -> serve ----------------------
     cfg = tinyllama_2_layer()
@@ -413,6 +838,15 @@ def main() -> None:
           "logits_shape": list(y_fused.shape), "ce_fused": ce_fused, "ce_pairs": ce_pairs,
           **got, "lowrank_launches": fused_launches})
 
+    # --- the fused model answers through the KV-cached generate ----------
+    gen_prompt = torch.from_numpy(np.random.default_rng(args.seed + 4).integers(
+        0, cfg.vocab_size, (MOE_BATCH, TINY_PROMPT), dtype=np.int64)).to(dev)
+    gen = cached_generate(model, gen_prompt, TINY_NEW, "generate", GEN_MAX_ABS, GEN_RMS_REL)
+    require_launches(gen["counts"], ("lowrank_matmul", "flash_attention"), "generate")
+    emit({"phase": "generate", "batch": MOE_BATCH, "prompt": TINY_PROMPT,
+          "new_tokens": TINY_NEW, "wall_s": gen["wall_s"], **gen["gate"],
+          "launches": gen["counts"]})
+
     # --- the served model against its plain f32 version on the CPU --------
     short = {"input_ids": probe["input_ids"][:, :128]}
     with torch.no_grad():
@@ -424,14 +858,21 @@ def main() -> None:
           "ce_card": float(models.ce_loss(short, y_card)),
           "ce_cpu_f32": float(models.ce_loss(short, y_cpu))})
 
-    emit({"phase": "kernels", "launches": counts})
+    by_path = {"decompose_serve": counts, "tinyllama_generate": gen["counts"],
+               **moe_serve(dev, args.seed)}
+    emit({"phase": "kernels", "launches": by_path})
+    main_path = {"syrk_gram": "decompose_serve", "flash_attention": "decompose_serve",
+                 "lowrank_matmul": "decompose_serve", "grouped_matmul": "moe_bf16",
+                 "gmm_int8": "moe_int8"}
     table = []
     for name, (source, replaces) in KERNEL_INFO.items():
         main, *other = recs[name]
         table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                      "launches": counts[name],
+                      "launches": by_path[main_path[name]][name],
+                      "launches_by_path": {p: c[name] for p, c in by_path.items()},
                       **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms", "shape")},
+                      **{k: v for k, v in main.items() if k.endswith("route_ms")},
                       "other_shapes": other})
     print(smi, flush=True)
     emit({"kernels": table})

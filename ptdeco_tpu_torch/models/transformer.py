@@ -1,11 +1,14 @@
-"""Decoder-only causal LM, llama subset (Llama / TinyLlama), in PyTorch.
+"""Decoder-only causal LM, llama and Mixtral subset, in PyTorch.
 
-Counterpart of the llama part of ``ptdeco_tpu/models/transformer.py``:
-RMSNorm, HF rotate-half rope, grouped-query attention, SwiGLU MLP,
-pre-norm blocks, and a dict-in/logits-out ``CausalLM``.  Every projection
-is an ``nn.Linear`` site and parameter names follow HF llama
-(``model.layers.0.self_attn.q_proj.weight``), so decompose configs and
-state dicts line up with the JAX package and with HF checkpoints.
+Counterpart of the llama and Mixtral parts of
+``ptdeco_tpu/models/transformer.py``: RMSNorm, HF rotate-half rope at
+absolute positions, grouped-query attention, SwiGLU MLP, the top-k routed
+mixture of SwiGLU experts (``MoEMLP``), pre-norm blocks, and a
+dict-in/logits-out ``CausalLM``.  Every projection is an ``nn.Linear`` site
+and parameter names follow HF llama and the JAX package's MoE layout
+(``model.layers.0.self_attn.q_proj.weight``,
+``model.layers.0.mlp.experts.3.down_proj.weight``), so decompose configs
+and state dicts line up with the JAX package and with HF checkpoints.
 """
 
 from __future__ import annotations
@@ -18,12 +21,16 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import KERNEL_HEAD_DIMS, causal_attention_plain, flash_attention
+from ..ops.gmm import grouped_matmul, grouped_matmul_plain
+from ..ops.gmm_int8 import grouped_matmul_int8
+from ..quant import QuantLinear
 
 __all__ = [
     "TransformerConfig",
     "RMSNorm",
     "Attention",
     "MLP",
+    "MoEMLP",
     "Block",
     "Decoder",
     "CausalLM",
@@ -43,6 +50,11 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.float32
+    # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
+    # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
+    # top-k weights always renormalized
+    n_experts: int = 0
+    n_experts_per_tok: int = 2
 
     @property
     def head_dim(self) -> int:
@@ -52,11 +64,15 @@ class TransformerConfig:
     def from_hf_config(
         hf: dict[str, Any], dtype: torch.dtype = torch.bfloat16
     ) -> "TransformerConfig":
-        """HF ``config.json`` of a llama checkpoint -> config.  Raises
-        ValueError on anything this llama subset does not express."""
+        """HF ``config.json`` of a llama or Mixtral checkpoint -> config.
+        Raises ValueError on anything this subset does not express.  A
+        Mixtral ``sliding_window`` is not applied (full causal attention),
+        as in the JAX package: exact for sequences within the window."""
         mt = hf.get("model_type", "llama")
-        if mt != "llama":
-            raise ValueError(f"model_type={mt!r}: this package has the llama subset only")
+        if mt not in ("llama", "mixtral"):
+            raise ValueError(
+                f"model_type={mt!r}: this package has the llama and mixtral subsets only"
+            )
         if hf.get("rope_scaling") is not None:
             raise ValueError("rope_scaling is not implemented in the llama subset")
         if hf.get("hidden_act", "silu") != "silu":
@@ -79,6 +95,10 @@ class TransformerConfig:
             rope_theta=float(hf.get("rope_theta", 10000.0)),
             tie_embeddings=bool(hf.get("tie_word_embeddings", False)),
             dtype=dtype,
+            # HF MixtralSparseMoeBlock: softmax over all experts, top-k,
+            # always renormalized; experts at intermediate_size
+            n_experts=int(hf["num_local_experts"]) if mt == "mixtral" else 0,
+            n_experts_per_tok=int(hf.get("num_experts_per_tok", 2)),
         )
 
     @staticmethod
@@ -102,14 +122,20 @@ class RMSNorm(torch.nn.Module):
         return (y * self.weight.to(torch.float32)).to(x.dtype)
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """HF llama rotate-half rotary embedding; x: (b, s, heads, hd)."""
-    s, hd = x.shape[1], x.shape[-1]
+def _positions(b: int, s: int, start: int, device: Any) -> torch.Tensor:
+    """(b, s) absolute positions ``start + arange(s)``."""
+    return (start + torch.arange(s, device=device)).expand(b, s)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """HF llama rotate-half rotary embedding at absolute ``positions``
+    (b, s); x: (b, s, heads, hd)."""
+    hd = x.shape[-1]
     half = hd // 2
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half))
-    angles = torch.arange(s, dtype=torch.float32, device=x.device)[:, None] * freqs
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
+    angles = positions[:, :, None].to(torch.float32) * freqs  # (b, s, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -126,17 +152,39 @@ class Attention(torch.nn.Module):
         self.o_proj = torch.nn.Linear(cfg.n_heads * hd, cfg.dim, bias=False, **kw)
         self.n_heads = cfg.n_heads
         self.n_kv_heads = cfg.n_kv_heads
+        self.head_dim = hd
         self.rope_theta = cfg.rope_theta
 
-    def forward(
-        self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None
-    ) -> torch.Tensor:
+    def project_qkv(
+        self, x: torch.Tensor, positions: Optional[torch.Tensor] = None
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Projections and rope at absolute ``positions`` (b, s; arange when
+        None): q (b, s, heads, hd) and k, v (b, s, kv_heads, hd), before any
+        GQA repeat.  The cached attention (``serving.py``) reuses it."""
         b, s, _ = x.shape
         q = self.q_proj(x)
         hd = q.shape[-1] // self.n_heads  # robust to decomposed projections
-        q = _rope(q.reshape(b, s, self.n_heads, hd), self.rope_theta)
-        k = _rope(self.k_proj(x).reshape(b, s, self.n_kv_heads, hd), self.rope_theta)
-        v = self.v_proj(x).reshape(b, s, self.n_kv_heads, hd)
+        k = self.k_proj(x)
+        v = self.v_proj(x)
+        if positions is None:
+            positions = _positions(b, s, 0, x.device)
+        q = _rope(q.reshape(b, s, self.n_heads, hd), positions, self.rope_theta)
+        k = _rope(k.reshape(b, s, self.n_kv_heads, hd), positions, self.rope_theta)
+        return q, k, v.reshape(b, s, self.n_kv_heads, hd)
+
+    def finish(self, merged: torch.Tensor) -> torch.Tensor:
+        """The output projection of the merged heads (b, s, heads * hd)."""
+        return self.o_proj(merged)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        b, s, _ = x.shape
+        q, k, v = self.project_qkv(x, positions)
+        hd = q.shape[-1]
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (b, heads, s, hd)
         scale = hd ** -0.5
         # the model-level gate of transformer.py:4086-4117: bf16 on the card
@@ -152,7 +200,7 @@ class Attention(torch.nn.Module):
             out = flash_attention(q, k, v, scale)
         else:
             out = causal_attention_plain(q, k, v, scale, attn_mask)
-        return self.o_proj(out.transpose(1, 2).reshape(b, s, -1))
+        return self.finish(out.transpose(1, 2).reshape(b, s, -1))
 
 
 class MLP(torch.nn.Module):
@@ -169,18 +217,172 @@ class MLP(torch.nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
+# steps that route at most this many (token, slot) rows over int8 experts
+# take the int8 grouped kernel; larger ones dequantize and take the bf16
+# grouped kernel (the JAX package's rule, transformer.py:5401, set on a TPU)
+INT8_KERNEL_MAX_ROWS = 512
+
+
+def _use_int8_kernel(x: torch.Tensor) -> bool:
+    """The int8 grouped kernel runs on the card, in bf16 (the JAX package's
+    ``_use_int8_gmm``: on the TPU)."""
+    return x.is_cuda and x.dtype == torch.bfloat16
+
+
+def _moe_routing(
+    gate: torch.nn.Module, x: torch.Tensor, top_k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k expert weights (f32) and ids: router logits in f32, softmax over
+    all experts, top-k, renormalized (HF Mixtral)."""
+    scores = torch.softmax(gate(x).to(torch.float32), dim=-1)
+    top_vals, top_idx = torch.topk(scores, top_k, dim=-1)
+    return top_vals / torch.sum(top_vals, dim=-1, keepdim=True), top_idx
+
+
+class MoEMLP(torch.nn.Module):
+    """Top-k routed mixture of SwiGLU experts (Mixtral), with the router at
+    ``gate`` and experts at ``experts.E.{gate,up,down}_proj``.
+
+    Three dispatch routes, as in the JAX package:
+
+    * **grouped**: when every expert is a plain ``MLP`` of exact-type,
+      bias-free ``nn.Linear`` (or uniformly ``QuantLinear``) projections
+      with no hooks, the (token, slot) rows are sorted by expert and each
+      projection is one grouped matmul: the bf16 kernel on the card, the
+      plain per-expert product otherwise (f32).  int8 experts are
+      dequantized into the activation dtype first;
+    * **grouped int8**: int8 experts on a step of at most
+      ``INT8_KERNEL_MAX_ROWS`` rows on the card take the int8 kernel, which
+      reads the int8 grids directly;
+    * **dense masked**: otherwise (hooked projections during calibration,
+      decomposed factor pairs) every expert runs on all tokens with the
+      unrouted ones zeroed, so a capture hook sees exactly the routed rows.
+
+    The grouped routes never call the expert modules, so hooks on them would
+    not fire: a hooked expert makes the layer take the dense route."""
+
+    def __init__(self, cfg: TransformerConfig, device: Any) -> None:
+        super().__init__()
+        self.gate = torch.nn.Linear(
+            cfg.dim, cfg.n_experts, bias=False, dtype=cfg.dtype, device=device
+        )
+        self.experts = torch.nn.ModuleList(MLP(cfg, device) for _ in range(cfg.n_experts))
+        self.top_k = cfg.n_experts_per_tok
+
+    def _experts_are_pristine(self) -> bool:
+        ok = (torch.nn.Linear, QuantLinear)
+        type_sig = None
+        for e in self.experts:
+            if type(e) is not MLP:
+                return False
+            projs = (e.gate_proj, e.up_proj, e.down_proj)
+            if any(type(p) not in ok or p.bias is not None for p in projs):
+                return False
+            if any(m._forward_hooks or m._forward_pre_hooks for m in (e, *projs)):
+                return False
+            sig = tuple(type(p) for p in projs)
+            if type_sig is None:
+                type_sig = sig
+            elif sig != type_sig:
+                return False
+        return True
+
+    def _routing(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return _moe_routing(self.gate, x, self.top_k)
+
+    def _sort_by_expert(self, x: torch.Tensor):
+        """Route, then sort the (token, slot) rows by expert with a stable
+        sort.  Returns (xg, w_sorted, tok_sorted, group_sizes); nothing here
+        waits for the card."""
+        n_experts = len(self.experts)
+        xf = x.reshape(-1, x.shape[-1])
+        top_vals, top_idx = self._routing(xf)
+        expert_ids = top_idx.reshape(-1)  # row-major by token
+        order = torch.argsort(expert_ids, stable=True)
+        tok_sorted = order // self.top_k
+        group_sizes = torch.zeros(n_experts, dtype=torch.int32, device=x.device)
+        group_sizes.scatter_add_(0, expert_ids, torch.ones_like(expert_ids, dtype=torch.int32))
+        w_sorted = top_vals.reshape(-1)[order].to(x.dtype)
+        return xf[tok_sorted], w_sorted, tok_sorted, group_sizes
+
+    def _combine(
+        self, x: torch.Tensor, y: torch.Tensor, w_sorted: torch.Tensor, tok_sorted: torch.Tensor
+    ) -> torch.Tensor:
+        out = torch.zeros((tok_sorted.shape[0] // self.top_k, x.shape[-1]),
+                          dtype=x.dtype, device=x.device)
+        return out.index_add_(0, tok_sorted, y * w_sorted[:, None]).reshape(x.shape)
+
+    def _expert_weights(self, proj: str, dtype: torch.dtype) -> list[torch.Tensor]:
+        ws = []
+        for e in self.experts:
+            p = getattr(e, proj)
+            ws.append(p.dequantized(dtype) if isinstance(p, QuantLinear) else p.weight)
+        return ws
+
+    def _grouped(self, x: torch.Tensor) -> torch.Tensor:
+        xg, w_sorted, tok_sorted, group_sizes = self._sort_by_expert(x)
+        # the JAX dtype rule (transformer.py:5201-5205): bf16 takes the
+        # kernel (on a CUDA tensor), f32 the plain grouped product
+        gdot = grouped_matmul if xg.dtype == torch.bfloat16 else grouped_matmul_plain
+        g = gdot(xg, self._expert_weights("gate_proj", x.dtype), group_sizes)
+        u = gdot(xg, self._expert_weights("up_proj", x.dtype), group_sizes)
+        y = gdot(F.silu(g) * u, self._expert_weights("down_proj", x.dtype), group_sizes)
+        return self._combine(x, y, w_sorted, tok_sorted)
+
+    def _grouped_int8(self, x: torch.Tensor) -> torch.Tensor:
+        """The int8 kernel on each projection, reading the int8 grids of the
+        sorted rows' experts directly (no dequantized copy)."""
+        xg, w_sorted, tok_sorted, group_sizes = self._sort_by_expert(x)
+
+        def gdot(a: torch.Tensor, proj: str) -> torch.Tensor:
+            ps = [getattr(e, proj) for e in self.experts]
+            return grouped_matmul_int8(
+                a, [p.weight_q for p in ps], [p.scale for p in ps], group_sizes
+            )
+
+        h = F.silu(gdot(xg, "gate_proj")) * gdot(xg, "up_proj")
+        return self._combine(x, gdot(h, "down_proj"), w_sorted, tok_sorted)
+
+    def _dense_masked(self, x: torch.Tensor) -> torch.Tensor:
+        top_vals, top_idx = self._routing(x)
+        onehot = F.one_hot(top_idx, len(self.experts)).to(torch.float32)
+        w = torch.einsum("...ke,...k->...e", onehot, top_vals).to(x.dtype)
+        out = torch.zeros_like(x)
+        for e, expert in enumerate(self.experts):
+            w_e = w[..., e : e + 1]
+            x_e = torch.where(w_e > 0, x, torch.zeros_like(x))
+            out = out + expert(x_e) * w_e
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self._experts_are_pristine():
+            return self._dense_masked(x)
+        quant = type(self.experts[0].gate_proj) is QuantLinear
+        n_rows = x.shape[0] * x.shape[1] * self.top_k
+        if quant and _use_int8_kernel(x) and n_rows <= INT8_KERNEL_MAX_ROWS:
+            return self._grouped_int8(x)
+        return self._grouped(x)
+
+
 class Block(torch.nn.Module):
     def __init__(self, cfg: TransformerConfig, device: Any) -> None:
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
         self.self_attn = Attention(cfg, device)
         self.post_attention_layernorm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MoEMLP(cfg, device) if cfg.n_experts > 0 else MLP(cfg, device)
 
     def forward(
-        self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+        self_attn: Optional[Any] = None,
     ) -> torch.Tensor:
-        h = x + self.self_attn(self.input_layernorm(x), attn_mask)
+        """``self_attn`` stands in for the block's attention when given (the
+        cached attention of ``serving.forward_with_cache``)."""
+        attn = self.self_attn if self_attn is None else self_attn
+        h = x + attn(self.input_layernorm(x), attn_mask, positions)
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -236,15 +438,18 @@ class CausalLM(torch.nn.Module):
             elif isinstance(m, torch.nn.Embedding):
                 m.weight.normal_(0.0, 0.02, generator=gen)
 
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """Vocab logits of final-normed hidden states."""
+        if self.lm_head is None:
+            return h @ self.model.embed_tokens.weight.t()
+        return self.lm_head(h)
+
     def forward(self, batch: Any) -> torch.Tensor:
         if isinstance(batch, dict):
             input_ids, attn_mask = batch["input_ids"], batch.get("attention_mask")
         else:
             input_ids, attn_mask = batch, None
-        h = self.model(input_ids, attn_mask)
-        if self.lm_head is None:
-            return h @ self.model.embed_tokens.weight.t()
-        return self.lm_head(h)
+        return self.head(self.model(input_ids, attn_mask))
 
 
 def ce_loss(batch: dict[str, torch.Tensor], logits: torch.Tensor) -> torch.Tensor:

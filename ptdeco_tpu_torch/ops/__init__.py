@@ -6,6 +6,8 @@ read and clear them together.
 """
 
 from .flash_attention import causal_attention_plain, flash_attention
+from .gmm import grouped_matmul, grouped_matmul_plain
+from .gmm_int8 import grouped_matmul_int8, grouped_matmul_int8_plain
 from .gram import should_use_syrk, syrk_gram, syrk_gram_plain
 from .lowrank import lowrank_matmul, lowrank_matmul_plain
 
@@ -13,6 +15,10 @@ __all__ = [
     "KERNEL_WRAPPERS",
     "causal_attention_plain",
     "flash_attention",
+    "grouped_matmul",
+    "grouped_matmul_int8",
+    "grouped_matmul_int8_plain",
+    "grouped_matmul_plain",
     "launch_counts",
     "lowrank_matmul",
     "lowrank_matmul_plain",
@@ -26,6 +32,8 @@ KERNEL_WRAPPERS = {
     "syrk_gram": syrk_gram,
     "flash_attention": flash_attention,
     "lowrank_matmul": lowrank_matmul,
+    "grouped_matmul": grouped_matmul,
+    "gmm_int8": grouped_matmul_int8,
 }
 
 

@@ -11,6 +11,7 @@ install needs neither ``nvcc`` nor a card.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -20,13 +21,21 @@ import subprocess
 import threading
 import time
 
-__all__ = ["KERNELS", "BUILD_DIR", "aligned", "build_all", "load_library", "kernel_function"]
+__all__ = [
+    "KERNELS",
+    "BUILD_DIR",
+    "aligned",
+    "build_all",
+    "load_library",
+    "kernel_function",
+    "pointer_table",
+]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (
     pathlib.Path(__file__).resolve().parents[2] / "build" / "ptdeco_tpu_torch_kernels"
 )
-KERNELS = ("syrk_gram", "flash_attention_fwd", "lowrank_matmul")
+KERNELS = ("syrk_gram", "flash_attention_fwd", "lowrank_matmul", "grouped_matmul", "gmm_int8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -124,3 +133,29 @@ def aligned(t: "torch.Tensor") -> "torch.Tensor":
     loads need (a contiguous view may start at any element)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_tables: "collections.OrderedDict[tuple, torch.Tensor]" = collections.OrderedDict()
+_MAX_TABLES = 256
+
+
+def pointer_table(tensors: "list[torch.Tensor]") -> "torch.Tensor":
+    """An int64 device array of the tensors' data pointers, for kernels that
+    read one matrix per expert.  Tables are cached by the pointers they
+    hold, so a model's unchanged weights cost one host-to-device copy; the
+    copy goes from pinned memory without a host sync."""
+    import torch
+
+    device = tensors[0].device
+    key = (device.index, tuple(t.data_ptr() for t in tensors))
+    with _lock:
+        table = _tables.get(key)
+        if table is None:
+            host = torch.tensor(key[1], dtype=torch.int64).pin_memory()
+            table = host.to(device, non_blocking=True)
+            _tables[key] = table
+            if len(_tables) > _MAX_TABLES:
+                _tables.popitem(last=False)
+        else:
+            _tables.move_to_end(key)
+        return table

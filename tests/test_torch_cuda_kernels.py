@@ -127,3 +127,134 @@ def test_views_with_unaligned_starts(dev):
         ops.lowrank_matmul(x, k1, k2).float(), ops.lowrank_matmul_plain(x, k1, k2, None).float(),
         rtol=2e-2, atol=2e-2,
     )
+
+
+def _bf16_limit(ref):
+    """One bf16 rounding of the f32 sum (at most 2^-7 |ref|), plus room for
+    f32 sums taken in another order near zero."""
+    return 2.0 ** -7 * ref.abs() + 1e-3 * ref.square().mean().sqrt()
+
+
+def _assert_within(out, ref):
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all()
+    assert bool(((out - ref).abs() <= _bf16_limit(ref)).all()), float((out - ref).abs().max())
+
+
+@pytest.mark.parametrize(
+    "sizes,k,n",
+    [
+        ([37, 0, 129, 74], 128, 256),  # an empty expert
+        ([1], 64, 64),  # one row
+        ([5, 0, 0, 300], 200, 333),  # K and N not multiples of the tile
+        ([3, 9], 100, 70),  # a row pitch that is not a multiple of 16 bytes
+        ([0, 0, 77, 0], 512, 160),  # every row routed to one expert
+        ([2, 3, 1, 2, 4, 1, 2, 1], 1024, 512),  # decode: 16-row tiles
+        ([20, 41, 33, 7, 60, 30, 40, 25], 256, 384),  # 64-row tiles
+        ([90, 200, 150, 40, 160, 130, 170, 84], 512, 384),  # 128-row tiles
+    ],
+)
+def test_grouped_matmul(dev, sizes, k, n):
+    m = sum(sizes)
+    lhs = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    weights = [(torch.randn(n, k, device=dev) / k ** 0.5).to(torch.bfloat16) for _ in sizes]
+    group_sizes = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = ops.grouped_matmul.launches
+    out = ops.grouped_matmul(lhs, weights, group_sizes)
+    torch.cuda.synchronize()
+    assert ops.grouped_matmul.launches == before + 1
+    _assert_within(out, ops.grouped_matmul_plain(lhs, weights, group_sizes))
+
+
+def test_grouped_matmul_rejects_unsupported(dev):
+    lhs = torch.randn(4, 8, device=dev)
+    w = [torch.randn(8, 8, device=dev)]
+    with pytest.raises(ValueError):
+        ops.grouped_matmul(lhs, w, torch.tensor([4], device=dev))
+    with pytest.raises(ValueError):
+        ops.grouped_matmul(lhs.bfloat16(), [torch.zeros(8, 9, device=dev, dtype=torch.bfloat16)],
+                           torch.tensor([4], device=dev))
+
+
+def _int8_case(dev, sizes, k, n):
+    m = sum(sizes)
+    lhs = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    w_q = [torch.randint(-127, 128, (n, k), device=dev, dtype=torch.int8) for _ in sizes]
+    scales = [0.01 + torch.rand(n, device=dev) for _ in sizes]
+    return lhs, w_q, scales, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("bm", [16, 64])
+@pytest.mark.parametrize(
+    "sizes,k,n",
+    [
+        ([37, 0, 129, 61], 160, 96),  # an empty expert
+        ([0, 1, 0], 64, 64),  # one row
+        ([5, 0, 13], 208, 333),  # K and N not multiples of the tile
+        ([3, 9], 100, 50),  # a row pitch that is not a multiple of 16 bytes
+        ([0, 0, 40, 0], 512, 256),  # every row routed to one expert
+        ([2, 3, 1, 2, 4, 1, 2, 1], 1024, 512),  # decode
+    ],
+)
+def test_gmm_int8(dev, monkeypatch, sizes, k, n, bm):
+    """Each case at both m-tiles, whatever its mean group size."""
+    from ptdeco_tpu_torch.ops import gmm_int8
+
+    monkeypatch.setattr(gmm_int8, "block_rows", lambda m, e, sizes: bm)
+    lhs, w_q, scales, group_sizes = _int8_case(dev, sizes, k, n)
+    before = ops.grouped_matmul_int8.launches
+    out = ops.grouped_matmul_int8(lhs, w_q, scales, group_sizes)
+    torch.cuda.synchronize()
+    assert ops.grouped_matmul_int8.launches == before + 1
+    _assert_within(out, ops.grouped_matmul_int8_plain(lhs, w_q, scales, group_sizes))
+
+
+@pytest.mark.parametrize("bm", [16, 64])
+def test_gmm_int8_reads_no_weight_for_an_empty_tile(dev, bm):
+    """An unrouted expert's pointers are null: any read of them (by its own
+    tile slot or by a trailing empty slot) faults, so a clean run shows that
+    empty slots read no weight."""
+    from ptdeco_tpu_torch.ops import _build, gmm_int8
+
+    sizes, k, n = [3, 0, 5, 0], 256, 384
+    lhs, w_q, scales, group_sizes = _int8_case(dev, sizes, k, n)
+    live = [s > 0 for s in sizes]
+    ptrs = torch.tensor([w.data_ptr() if ok else 0 for w, ok in zip(w_q, live)], device=dev)
+    sptrs = torch.tensor([s.data_ptr() if ok else 0 for s, ok in zip(scales, live)], device=dev)
+    out = torch.empty(lhs.shape[0], n, device=dev, dtype=torch.bfloat16)
+    fn = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8", gmm_int8._ARGTYPES)
+    rc = fn(lhs.data_ptr(), ptrs.data_ptr(), sptrs.data_ptr(), group_sizes.data_ptr(),
+            len(sizes), out.data_ptr(), lhs.shape[0], k, n, bm,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    _assert_within(out, ops.grouped_matmul_int8_plain(lhs, w_q, scales, group_sizes))
+
+
+def test_gmm_int8_rejects_unsupported(dev):
+    lhs, w_q, scales, group_sizes = _int8_case(dev, [4, 4], 64, 32)
+    with pytest.raises(ValueError):
+        ops.grouped_matmul_int8(lhs, w_q, scales, group_sizes[:1])
+    with pytest.raises(ValueError):
+        ops.grouped_matmul_int8(lhs.float(), w_q, scales, group_sizes)
+
+
+def test_moe_layer_routes_through_the_kernels(dev):
+    from ptdeco_tpu_torch import models, quant
+
+    cfg = models.TransformerConfig(
+        vocab_size=64, dim=64, n_layers=1, n_heads=4, n_kv_heads=2, hidden_dim=128,
+        n_experts=4, dtype=torch.bfloat16,
+    )
+    moe = models.CausalLM(cfg, device=dev).model.layers[0].mlp
+    x = torch.randn(2, 5, 64, device=dev, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        y = moe(x)
+        assert ops.launch_counts()["grouped_matmul"] == 3
+        dense = moe._dense_masked(x)
+        torch.testing.assert_close(y.float(), dense.float(), rtol=2e-2, atol=2e-2)
+        quant.quantize_for_serving(moe)
+        y8 = moe(x)
+    assert ops.launch_counts()["gmm_int8"] == 3
+    torch.testing.assert_close(y8.float(), y.float(), rtol=5e-2, atol=5e-2)

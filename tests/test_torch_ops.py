@@ -107,4 +107,18 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.syrk_gram(torch.randn(64, 600, dtype=torch.bfloat16))
     ops.flash_attention(*(torch.randn(1, 2, 8, 64, dtype=torch.bfloat16) for _ in range(3)), 0.125)
     ops.lowrank_matmul(torch.randn(4, 8), torch.randn(8, 2), torch.randn(2, 8), torch.randn(8))
-    assert ops.launch_counts() == {"syrk_gram": 0, "flash_attention": 0, "lowrank_matmul": 0}
+    sizes = torch.tensor([3, 0, 2], dtype=torch.int32)
+    lhs = torch.randn(5, 16, dtype=torch.bfloat16)
+    ops.grouped_matmul(lhs, [torch.randn(8, 16, dtype=torch.bfloat16)] * 3, sizes)
+    ops.grouped_matmul_int8(lhs, [torch.ones(8, 16, dtype=torch.int8)] * 3,
+                            [torch.ones(8)] * 3, sizes)
+    assert ops.launch_counts() == {"syrk_gram": 0, "flash_attention": 0, "lowrank_matmul": 0,
+                                   "grouped_matmul": 0, "gmm_int8": 0}
+
+
+def test_block_rows_picks_the_smallest_tile_holding_a_mean_group():
+    from ptdeco_tpu_torch.ops.gmm import block_rows
+
+    assert [block_rows(m, 8) for m in (8, 128, 129, 512, 513, 4096)] == [16, 16, 64, 64, 128, 128]
+    assert [block_rows(m, 8, (16, 64)) for m in (16, 512, 4096)] == [16, 64, 64]
+    assert block_rows(0, 0) == 16
