@@ -140,8 +140,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+def time_ms(fn, reps: int = 25, warmup: int = 3, graph: bool = False) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up.
+    With ``graph`` the call is captured once in a CUDA graph and the
+    replays are timed: the device time of its launches without the host's
+    Python and launch overhead, which is larger than a small kernel."""
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            fn()
+        fn = captured.replay
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -161,12 +175,14 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, shape,
-                 extra_fns=None):
+                 extra_fns=None, graph=False):
     """Hold the kernel against its plain version elementwise: every output
     must satisfy |out - ref| <= tol_fn(ref), a tensor of per-element limits.
     The record is printed before a failure is raised.  ``library_fn`` may
     be None (no single PyTorch call computes the function); ``extra_fns``
-    maps a name to another route timed beside the kernel."""
+    maps a name to another route timed beside the kernel.  With ``graph``
+    the kernel, plain and library times are CUDA-graph replays (device
+    time) and ``eager_ms`` is the kernel's wrapper called from Python."""
     out = kernel_fn().float()
     ref = plain_fn().float()
     torch.cuda.synchronize()
@@ -187,9 +203,10 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, s
         raise AssertionError(f"{name} {shape}: max |out - ref| / tolerance = {err_to_tol} > 1")
     del out, ref, diff, tol
     rec.update({
-        "ms": time_ms(kernel_fn),
-        "plain_ms": time_ms(plain_fn),
-        "library_ms": None if library_fn is None else time_ms(library_fn),
+        "ms": time_ms(kernel_fn, graph=graph),
+        "plain_ms": time_ms(plain_fn, graph=graph),
+        "library_ms": None if library_fn is None else time_ms(library_fn, graph=graph),
+        **({"eager_ms": time_ms(kernel_fn)} if graph else {}),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         **{f"{k}_ms": time_ms(fn) for k, fn in (extra_fns or {}).items()},
@@ -228,6 +245,7 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
             # f32 sums of exact bf16 products, in another order
             tol_fn=lambda ref: torch.full_like(ref, 1e-4 * float(ref.abs().max())),
             shape={"N": SEQ, "d": d, "dtype": "bf16"},
+            graph=True,
         ))
 
     b, h, h_kv, s, hd = 1, 32, 4, SEQ, 64
@@ -256,15 +274,18 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
 
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
-    # then wider ranks with a bias
-    n = SEQ
-    shapes = ((2048, 32, 5632, False), (5632, 32, 2048, False),
-              (2048, 256, 5632, True), (2048, 44, 5632, True))
-    for d_in, r, d_out, with_bias in shapes:
+    # then wider ranks with a bias, then the rows `generate` runs them at:
+    # a decode step of the batch of 4 and its 4 x 128 prefill
+    shapes = ((SEQ, 2048, 32, 5632, False), (SEQ, 5632, 32, 2048, False),
+              (SEQ, 2048, 256, 5632, True), (SEQ, 2048, 44, 5632, True),
+              (4, 2048, 32, 5632, False), (4, 5632, 32, 2048, False),
+              (512, 2048, 32, 5632, False), (512, 5632, 32, 2048, False))
+    for n, d_in, r, d_out, with_bias in shapes:
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
-        k1 = (torch.randn(d_in, r, device=dev, generator=g) / d_in ** 0.5).to(bf)
-        k2 = (torch.randn(r, d_out, device=dev, generator=g) / r ** 0.5).to(bf)
+        # the factors as a fused pair holds them: views of the Linear weights
+        k1 = (torch.randn(r, d_in, device=dev, generator=g) / d_in ** 0.5).to(bf).t()
+        k2 = (torch.randn(d_out, r, device=dev, generator=g) / r ** 0.5).to(bf).t()
         recs["lowrank_matmul"].append(check_kernel(
             "lowrank_matmul",
             lambda: ops.lowrank_matmul(x, k1, k2, bias),
@@ -278,6 +299,7 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
             tol_fn=lambda ref: 2.0 ** -6 * (ref.abs() + ref.square().mean().sqrt()),
             shape={"n": n, "d_in": d_in, "r": r, "d_out": d_out, "bias": with_bias,
                    "dtype": "bf16"},
+            graph=True,
         ))
     return recs
 

@@ -5,39 +5,55 @@
 //
 // What bounds it on an H100: bytes, closely followed by operations.  For Y
 // of shape (N, d) the lower triangle costs N*d*d flops (half of the full
-// 2*N*d*d product) against N*d*2 bytes read and d*d*4 bytes written; at the
-// slice's shapes (N = 1024, d = 5632) that is ~32 GFLOP over ~139 MB, about
-// 235 flops per byte, just under the card's bf16 ridge of ~295.  Writing
-// the f32 Gram dominates the bytes, so the tile is written once per side.
+// 2*N*d*d product) against N*d*2 bytes read and d*d*4 bytes written; at
+// N = 1024, d = 5632 that is ~32 GFLOP over ~139 MB, about 235 flops per
+// byte, just under the card's bf16 ridge of ~295.  Writing the f32 Gram
+// dominates the bytes, so every tile is written once per side, in full
+// coalesced rows, and the math has to keep pace with those stores.
 //
-// Design:
+// Design (bf16, the engine's path):
 //   * one block per lower-triangle 128x128 output tile (i >= j); the block
 //     derives (i, j) from blockIdx.x itself (the TPU kernel streamed the
 //     pairs in by scalar prefetch);
-//   * a loop inside the block walks N in 32-row steps; each step stages the
-//     two 32x128 column panels of Y in shared memory, transposed so that
-//     the tensor-core fragments are 32-bit loads along N;
-//   * bf16 input: 8 warps, each a 64x32 sub-tile of mma.sync m16n8k16
-//     products with f32 accumulators in registers;  f32 input: the same
-//     tiling on the CUDA cores in exact f32 (the TPU kernel took both);
-//   * the epilogue writes tile (i, j) and its transpose (j, i), replacing
-//     the TPU version's separate mirror pass (gram_pallas.py:102-105);
-//   * ragged N and d are masked in the kernel (zero rows and columns are
-//     exact no-ops for a Gram), so nothing is padded in device memory.
-// Not yet done (later work): a TMA/wgmma pipeline and a larger k-step;
-// today each block re-reads its two panels from L2.
+//   * the block walks N in 32-row steps through a 6-stage ring in shared
+//     memory, loads running 4 steps ahead; each stage holds the two 32x128
+//     column panels of Y (one on a diagonal tile) as TMA boxes of 32 rows x
+//     64 columns, read along Y's rows as they lie and written by the TMA
+//     unit in wgmma's MN-major layout with the 128-byte swizzle, so nothing
+//     is transposed: Y^T is the A operand and Y the B operand, both
+//     MN-major; one thread issues a stage's boxes, an mbarrier a stage
+//     counts their bytes; the TMA unit zero-fills past ragged N and d.  A d
+//     that is not a multiple of 8 (no TMA: its row pitch is not 16 bytes)
+//     takes 4-byte or scalar cp.async copies into the same layout;
+//   * two warpgroups, each a 64x128 half of the tile with wgmma
+//     m64n128k16 (f32 accumulators in registers); 96 KB of shared memory,
+//     two blocks an SM;
+//   * the epilogue stages the f32 tile in the freed ring, row-major for
+//     tile (i, j) and transposed for its mirror (j, i), and writes each as
+//     16-byte row stores (a diagonal tile once), replacing the TPU version's
+//     separate mirror pass (gram_pallas.py:102-105);
+//   * nothing is padded in device memory.
+// What held the first wgmma version back: its 16-byte cp.async copies
+// could not stream the panels from L2 fast enough (without the loads it
+// ran in half the time); TMA moves the same bytes with one instruction a
+// box.
+// f32 input (not on the engine's path; should_use_syrk takes bf16 only):
+// the first design's tiling on the CUDA cores in exact f32, transposing
+// through shared memory, with 4-byte mirror stores.
+// Not yet done (later work): TMA multicast across a cluster of tiles that
+// share a panel, a producer warp, a persistent walk over the triangle.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "tma.cuh"
 
 namespace {
 
 constexpr int kTile = 128;      // output tile edge
-constexpr int kStep = 32;       // rows of Y per k-step
-constexpr int kPad = kStep + 8; // padded row of a transposed bf16 panel
+constexpr int kStep = 32;       // rows of Y per k-step (f32 path)
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ void triangle_tile(int t, int* ti, int* tj) {
@@ -56,102 +72,222 @@ __device__ __forceinline__ void store_sym(float* g, int d, int r, int c,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    syrk_bf16_kernel(const __nv_bfloat16* __restrict__ y,
-                     float* __restrict__ g, int n, int d) {
+// bf16 path: row-major panels through a TMA ring into wgmma's
+// MN-major layout (128-byte swizzle), two consumer warpgroups, an epilogue staged
+// through shared memory.
+constexpr int kBK = 32;                  // rows of Y per pipeline step
+constexpr int kStages = 6;               // ring depth; loads run kStages - 2 steps ahead
+constexpr int kPanel = kBK * kTile;      // elements of one 32 x 128 panel
+constexpr int kKGroup = 8 * 64;          // elements of 8 k-rows of a 64-wide atom (SBO)
+constexpr int kAtom = kBK / 8 * kKGroup;  // elements of one 32 x 64 atom column (LBO)
+constexpr int kOutLd = kTile + 4;        // f32 staging row
+constexpr int kRingBytes = kStages * 2 * kPanel * 2;
+constexpr int kBf16Smem = kRingBytes + kStages * 8;  // + one mbarrier a stage
+constexpr int kBoxBytes = kBK * 64 * 2;              // one TMA box: 32 rows x 64 columns
+static_assert(kTile * kOutLd * 4 <= kRingBytes, "the staged tile reuses the ring");
+
+// Offset of element (k, m) of a 32 x 128 panel in wgmma's MN-major layout
+// with the 128-byte swizzle: 64 consecutive m (128 bytes) make a row, 8
+// k-rows a 1 KB swizzle atom in which the 16-byte chunk index is XORed
+// with the row; the 4 atoms along k lie 1 KB apart (SBO), the two halves
+// of m 4 KB apart (LBO).
+__device__ __forceinline__ int panel_offset(int k, int m) {
+  return (m >> 6) * kAtom + (k >> 3) * kKGroup + (k & 7) * 64 + ((((m >> 3) & 7) ^ (k & 7)) << 3) +
+         (m & 7);
+}
+
+// rows [row0, row0 + kBK) x columns [col0, col0 + kTile) of y into a
+// panel with cp.async, zero outside y: the path for a d that is not a
+// multiple of 8, which TMA cannot address (4-byte copies for an even d)
+__device__ __forceinline__ void load_panel(__nv_bfloat16* dst, const __nv_bfloat16* y, int n,
+                                           int d, int row0, int col0, int vec) {
+  if (vec == 2) {
+    for (int e = threadIdx.x; e < kBK * kTile / 2; e += kThreads) {
+      const int r = e / (kTile / 2), c = (e % (kTile / 2)) * 2;
+      const bool ok = row0 + r < n && col0 + c < d;
+      ptdeco::cp_async4_zfill(dst + panel_offset(r, c),
+                              ok ? y + static_cast<size_t>(row0 + r) * d + col0 + c : y, ok);
+    }
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    for (int e = threadIdx.x; e < kBK * kTile; e += kThreads) {
+      const int r = e / kTile, c = e % kTile;
+      const bool ok = row0 + r < n && col0 + c < d;
+      dst[panel_offset(r, c)] = ok ? y[static_cast<size_t>(row0 + r) * d + col0 + c] : zero;
+    }
+  }
+}
+
+// wgmma shared-memory descriptor: start address, LBO and SBO in 16-byte
+// units, 128-byte swizzle (layout type 1); every start is 1 KB aligned
+__device__ __forceinline__ uint64_t panel_desc(const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kAtom * 2 / 16) << 16) |    // LBO: the next 64 of m or n
+         (static_cast<uint64_t>(kKGroup * 2 / 16) << 32) |  // SBO: the next 8 rows of k
+         (1ull << 62);
+}
+
+// d (64 x 128, f32, the warpgroup's accumulator fragment) += A B for A
+// (64 x 16) and B (16 x 128) both MN-major in shared memory
+__device__ __forceinline__ void wgmma_m64n128k16(float d[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// tie the accumulator registers to the preceding wgmma wait, so that no
+// read of them is moved above it
+__device__ __forceinline__ void fence_acc(float d[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// kTma: panels by TMA from `map` (d a multiple of 8), else by cp.async
+template <bool kTma>
+__global__ void __launch_bounds__(kThreads, 2)
+    syrk_bf16_kernel(const __grid_constant__ CUtensorMap map,
+                     const __nv_bfloat16* __restrict__ y, float* __restrict__ g, int n, int d,
+                     int vec_in, int vec_out) {
   int ti, tj;
   triangle_tile(blockIdx.x, &ti, &tj);
   const int i0 = ti * kTile, j0 = tj * kTile;
+  const bool diag = ti == tj;  // one panel serves both sides
 
-  // sa[m][k] = y[k0 + k][i0 + m],  sb[m][k] = y[k0 + k][j0 + m]
-  __shared__ __align__(16) __nv_bfloat16 sa[kTile][kPad];
-  __shared__ __align__(16) __nv_bfloat16 sb[kTile][kPad];
+  // stage s: panel A = y[k0 : k0 + kBK, i0 : i0 + kTile] and panel B the
+  // same at j0, both read along the rows as they lie in memory
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 2;  // 64-row half of the tile
-  const int wn = warp & 3;   // 32-column quarter of the tile
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  const bool vec = (d & 7) == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  const int wg = warp >> 2;  // warpgroup: 64-row half of the tile
+  const int steps = (n + kBK - 1) / kBK;
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kStep) {
-    if (vec) {
-      // 16-byte loads of 8 consecutive columns, scattered transposed
-      for (int e = tid; e < kStep * kTile / 8; e += kThreads) {
-        const int kk = e / (kTile / 8), m = (e % (kTile / 8)) * 8;
-        const int row = k0 + kk;
-        uint4 va = make_uint4(0u, 0u, 0u, 0u), vb = va;
-        if (row < n && i0 + m < d)
-          va = *reinterpret_cast<const uint4*>(y + static_cast<size_t>(row) * d + i0 + m);
-        if (row < n && j0 + m < d)
-          vb = *reinterpret_cast<const uint4*>(y + static_cast<size_t>(row) * d + j0 + m);
-        const __nv_bfloat16* pa = reinterpret_cast<const __nv_bfloat16*>(&va);
-        const __nv_bfloat16* pb = reinterpret_cast<const __nv_bfloat16*>(&vb);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          sa[m + q][kk] = pa[q];
-          sb[m + q][kk] = pb[q];
-        }
-      }
-    } else {
-      for (int e = tid; e < kStep * kTile; e += kThreads) {
-        const int kk = e / kTile, m = e % kTile;
-        const int row = k0 + kk;
-        __nv_bfloat16 va = zero, vb = zero;
-        if (row < n) {
-          if (i0 + m < d) va = y[static_cast<size_t>(row) * d + i0 + m];
-          if (j0 + m < d) vb = y[static_cast<size_t>(row) * d + j0 + m];
-        }
-        sa[m][kk] = va;
-        sb[m][kk] = vb;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kStep; ks += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + g8;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(&sa[r][ks + 2 * t4]);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(&sa[r + 8][ks + 2 * t4]);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(&sa[r][ks + 2 * t4 + 8]);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(&sa[r + 8][ks + 2 * t4 + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = wn * 32 + nt * 8 + g8;
-        bf[nt][0] = *reinterpret_cast<const uint32_t*>(&sb[c][ks + 2 * t4]);
-        bf[nt][1] = *reinterpret_cast<const uint32_t*>(&sb[c][ks + 2 * t4 + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) ptdeco::mma_16816(acc[mt][nt], af[mt], bf[nt]);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRingBytes);  // [kStages]
+  if (kTma) {
+    if (tid == 0) {
+      for (int i = 0; i < kStages; ++i)
+        ptdeco::mbar_init(&full[i]);
+      ptdeco::fence_barrier_init();
     }
     __syncthreads();
   }
 
-  const bool mirror = ti != tj;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int r = i0 + wm * 64 + mt * 16 + g8;
-      const int c = j0 + wn * 32 + nt * 8 + 2 * t4;
-      store_sym(g, d, r, c, acc[mt][nt][0], mirror);
-      store_sym(g, d, r, c + 1, acc[mt][nt][1], mirror);
-      store_sym(g, d, r + 8, c, acc[mt][nt][2], mirror);
-      store_sym(g, d, r + 8, c + 1, acc[mt][nt][3], mirror);
+  auto load_step = [&](int s) {
+    __nv_bfloat16* pa = ring + (s % kStages) * 2 * kPanel;
+    if (kTma) {
+      if (tid == 0) {
+        uint64_t* bar = &full[s % kStages];
+        ptdeco::mbar_expect(bar, (diag ? 2 : 4) * kBoxBytes);
+        ptdeco::tma_box(pa, &map, i0, s * kBK, bar);
+        ptdeco::tma_box(pa + kAtom, &map, i0 + 64, s * kBK, bar);
+        if (!diag) {
+          ptdeco::tma_box(pa + kPanel, &map, j0, s * kBK, bar);
+          ptdeco::tma_box(pa + kPanel + kAtom, &map, j0 + 64, s * kBK, bar);
+        }
+      }
+    } else {
+      load_panel(pa, y, n, d, s * kBK, i0, vec_in);
+      if (!diag) load_panel(pa + kPanel, y, n, d, s * kBK, j0, vec_in);
     }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 2; ++s) {
+    if (s < steps) load_step(s);
+    ptdeco::async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    if (kTma) {
+      ptdeco::mbar_wait(&full[s % kStages], (s / kStages) & 1);
+    } else {
+      ptdeco::async_wait<kStages - 3>();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+    }
+    // step s landed everywhere; step s - 2's products, the last readers of
+    // the stage loaded next, are done (each warpgroup waited for them)
+    __syncthreads();
+    if (s + kStages - 2 < steps) load_step(s + kStages - 2);
+    ptdeco::async_commit();
+    const __nv_bfloat16* pa = ring + (s % kStages) * 2 * kPanel;
+    const __nv_bfloat16* pb = diag ? pa : pa + kPanel;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_m64n128k16(acc, panel_desc(pa + wg * kAtom + kk * 2 * kKGroup),
+                       panel_desc(pb + kk * 2 * kKGroup));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  }
+  fence_acc(acc);
+  ptdeco::async_wait<0>();
+  __syncthreads();  // the ring is free: stage the tile there
+
+  // tile (i, j) row by row, then for an off-diagonal tile its mirror (j, i);
+  // accumulator fragment: register 4q + e holds row 16 (warp % 4) + g8
+  // (+ 8 for e >= 2), column 8q + 2 t4 + (e & 1) of the warpgroup's rows
+  float* st = reinterpret_cast<float*>(smem);  // [kTile][kOutLd]
+  const int mrow = wg * 64 + (warp & 3) * 16 + g8;
+  for (int side = 0; side < (diag ? 1 : 2); ++side) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int c = q * 8 + 2 * t4;
+      if (side == 0) {
+        *reinterpret_cast<float2*>(&st[mrow * kOutLd + c]) =
+            make_float2(acc[4 * q], acc[4 * q + 1]);
+        *reinterpret_cast<float2*>(&st[(mrow + 8) * kOutLd + c]) =
+            make_float2(acc[4 * q + 2], acc[4 * q + 3]);
+      } else {
+        st[c * kOutLd + mrow] = acc[4 * q];
+        st[(c + 1) * kOutLd + mrow] = acc[4 * q + 1];
+        st[c * kOutLd + mrow + 8] = acc[4 * q + 2];
+        st[(c + 1) * kOutLd + mrow + 8] = acc[4 * q + 3];
+      }
+    }
+    __syncthreads();
+    const int r0 = side == 0 ? i0 : j0, c0 = side == 0 ? j0 : i0;
+    for (int e = tid; e < kTile * (kTile / 4); e += kThreads) {
+      const int m = e / (kTile / 4), c = (e % (kTile / 4)) * 4;
+      const int gr = r0 + m, gc = c0 + c;
+      if (gr >= d || gc >= d) continue;
+      const float4 v = *reinterpret_cast<const float4*>(&st[m * kOutLd + c]);
+      float* dst = g + static_cast<size_t>(gr) * d + gc;
+      if (vec_out) {
+        *reinterpret_cast<float4*>(dst) = v;
+      } else {
+        dst[0] = v.x;
+        if (gc + 1 < d) dst[1] = v.y;
+        if (gc + 2 < d) dst[2] = v.z;
+        if (gc + 3 < d) dst[3] = v.w;
+      }
+    }
+    __syncthreads();
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -220,8 +356,34 @@ extern "C" int ptdeco_syrk_gram(const void* y, void* g, int n, int d,
   const int blocks = tiles * (tiles + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    syrk_bf16_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(y), static_cast<float*>(g), n, d);
+    static unsigned opted_in = 0;  // once per device, as lowrank_matmul.cu does
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= 32 || !(opted_in & (1u << dev))) {
+      const void* kernels[2] = {reinterpret_cast<const void*>(syrk_bf16_kernel<true>),
+                                reinterpret_cast<const void*>(syrk_bf16_kernel<false>)};
+      for (const void* fn : kernels) {
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kBf16Smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+      if (dev < 32) opted_in |= 1u << dev;
+    }
+    const uintptr_t ya = reinterpret_cast<uintptr_t>(y);
+    const int vec_out = d % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+    CUtensorMap map = {};
+    if (n > 0 && d % 8 == 0 && ya % 16 == 0) {
+      // y as a (n, d) row-major tensor, read in 32-row x 64-column boxes
+      const int rc = ptdeco::encode_rows(&map, y, n, d, kBK);
+      if (rc != 0) return rc;
+      syrk_bf16_kernel<true><<<blocks, kThreads, kBf16Smem, s>>>(
+          map, static_cast<const __nv_bfloat16*>(y), static_cast<float*>(g), n, d, 8, vec_out);
+    } else {
+      const int vec_in = d % 2 == 0 && ya % 4 == 0 ? 2 : 1;
+      syrk_bf16_kernel<false><<<blocks, kThreads, kBf16Smem, s>>>(
+          map, static_cast<const __nv_bfloat16*>(y), static_cast<float*>(g), n, d, vec_in,
+          vec_out);
+    }
   } else {
     syrk_f32_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const float*>(y),
                                                 static_cast<float*>(g), n, d);

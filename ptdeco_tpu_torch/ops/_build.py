@@ -28,6 +28,7 @@ __all__ = [
     "build_all",
     "load_library",
     "kernel_function",
+    "launch",
     "pointer_table",
 ]
 
@@ -43,6 +44,7 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -122,10 +124,31 @@ def load_library(name: str) -> ctypes.CDLL:
 def kernel_function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     """C entry point ``symbol`` of kernel ``name``, typed to return the
     CUDA error code as an int."""
-    fn = getattr(load_library(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn = _fns.get((name, symbol))
+    if fn is None:  # typed once: a wrapper's call pays a dict lookup only
+        fn = getattr(load_library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
     return fn
+
+
+def launch(what: str, fn: ctypes._CFuncPtr, device: "torch.device", *args) -> None:
+    """Call kernel entry ``fn(*args, stream)`` with ``device`` current and
+    its current stream, and raise if the launch failed.  When ``device`` is
+    current already (the usual case) the call neither switches devices nor
+    builds a stream object: a small kernel runs for less time than the
+    host spends on its call."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
 def aligned(t: "torch.Tensor") -> "torch.Tensor":

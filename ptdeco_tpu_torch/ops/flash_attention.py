@@ -76,12 +76,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float) 
     if o.numel() == 0:
         return o
     fn = _build.kernel_function("flash_attention_fwd", "ptdeco_flash_attention_fwd", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                b, h, k.shape[1], s, d, float(sm_scale),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
+    _build.launch("flash_attention", fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), b, h, k.shape[1], s, d, float(sm_scale))
     flash_attention.launches += 1
     return o
 

@@ -87,11 +87,8 @@ def grouped_matmul(
     table = _build.pointer_table(weights)
     sizes = group_sizes.to(torch.int32).contiguous()
     fn = _build.kernel_function("grouped_matmul", "ptdeco_grouped_matmul", _ARGTYPES)
-    with torch.cuda.device(lhs.device):
-        rc = fn(lhs.data_ptr(), table.data_ptr(), sizes.data_ptr(), e, out.data_ptr(),
-                m, k, n, block_rows(m, e), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"grouped_matmul kernel launch failed: cudaError {rc}")
+    _build.launch("grouped_matmul", fn, lhs.device, lhs.data_ptr(), table.data_ptr(),
+                  sizes.data_ptr(), e, out.data_ptr(), m, k, n, block_rows(m, e))
     grouped_matmul.launches += 1
     return out
 

@@ -95,12 +95,9 @@ def grouped_matmul_int8(
     s_table = _build.pointer_table(scales)
     sizes = group_sizes.to(torch.int32).contiguous()
     fn = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8", _ARGTYPES)
-    with torch.cuda.device(lhs.device):
-        rc = fn(lhs.data_ptr(), w_table.data_ptr(), s_table.data_ptr(), sizes.data_ptr(), e,
-                out.data_ptr(), m, k, n, block_rows(m, e, KERNEL_BLOCK_ROWS),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"grouped_matmul_int8 kernel launch failed: cudaError {rc}")
+    _build.launch("grouped_matmul_int8", fn, lhs.device, lhs.data_ptr(), w_table.data_ptr(),
+                  s_table.data_ptr(), sizes.data_ptr(), e, out.data_ptr(), m, k, n,
+                  block_rows(m, e, KERNEL_BLOCK_ROWS))
     grouped_matmul_int8.launches += 1
     return out
 

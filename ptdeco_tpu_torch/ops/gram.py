@@ -51,11 +51,8 @@ def syrk_gram(y: torch.Tensor) -> torch.Tensor:
     if d == 0:
         return g
     fn = _build.kernel_function("syrk_gram", "ptdeco_syrk_gram", _ARGTYPES)
-    with torch.cuda.device(y.device):
-        rc = fn(y.data_ptr(), g.data_ptr(), n, d, int(y.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"syrk_gram kernel launch failed: cudaError {rc}")
+    _build.launch("syrk_gram", fn, y.device, y.data_ptr(), g.data_ptr(), n, d,
+                  int(y.dtype == torch.bfloat16))
     syrk_gram.launches += 1
     return g
 

@@ -13,16 +13,114 @@ version runs.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 
-__all__ = ["lowrank_matmul", "lowrank_matmul_plain", "MAX_SHARED_BYTES"]
+__all__ = [
+    "lowrank_matmul",
+    "lowrank_matmul_plain",
+    "launch_shape",
+    "LaunchShape",
+    "smem_bytes",
+    "MAX_RANK",
+    "MAX_SHARED_BYTES",
+]
 
 # shared memory one block may use on Hopper (227 KB)
 MAX_SHARED_BYTES = 232448
+SM_SHARED_BYTES = 233472  # shared memory of one H100 SM (228 KB)
+# CTAs a launch aims to put in flight (about one for each of an H100's
+# 132 SMs, of the two an SM can hold)
+TARGET_CTAS = 128
+# every column group recomputes its row tile's hidden, so a group takes at
+# least this many output columns a CTA (a decode step ran fastest with
+# fewer, wider groups; tools/lowrank_sweep.py)
+MIN_COLS_PER_CTA = 64
+ROW_TILES = (8, 16, 32, 64)  # rows a CTA takes (csrc/lowrank_matmul.cu)
+MAX_CLUSTER = 8
+_NT, _BK, _STAGES = 128, 64, 3  # the kernel's tile width, k-step and ring depth
+
+
+class LaunchShape(NamedTuple):
+    bm: int  # rows a CTA takes
+    cluster: int  # CTAs splitting the d_in contraction of one row tile
+    groups: int  # column groups, each recomputing its row tile's hidden
+    cols_per_cta: int  # output columns a CTA writes (a multiple of 8)
+    row_tiles: int
+
+    @property
+    def ctas(self) -> int:
+        return self.cluster * self.groups * self.row_tiles
+
+
+def smem_bytes(bm: int, r: int) -> int:
+    """Dynamic shared memory of one CTA (``smem_bytes`` in the kernel): the
+    3-stage ring of (bm + 128) x 64 bf16 tiles (in phase 2 the warps' own
+    rings and output staging), the bf16 hidden of bm x (r padded to 64,
+    + 8), the f32 partial of bm x (one hidden chunk of at most 128
+    columns, + 4), and 27 mbarriers."""
+    r_pad = -(-r // _BK) * _BK
+    return (_STAGES * (bm + _NT) * _BK * 2 + bm * (r_pad + 8) * 2
+            + bm * (min(r_pad, _NT) + 4) * 4 + (_STAGES + 8 * _STAGES) * 8)
+
+
+# the largest rank that fits at the smallest row tile
+MAX_RANK = max(r for r in range(_BK, 16384, _BK)
+               if smem_bytes(ROW_TILES[0], r) <= MAX_SHARED_BYTES)
+
+
+def _ctas_per_sm(bm: int, r: int) -> int:
+    """CTAs of the kernel an SM holds at once: shared memory (228 KB an SM,
+    1 KB reserved a block) and registers (8 warps at 128 registers fill
+    half of an SM's) both allow at most two."""
+    return min(2, SM_SHARED_BYTES // (smem_bytes(bm, r) + 1024))
+
+
+def _check_rank(r: int) -> None:
+    if r < 1:
+        raise ValueError(f"lowrank_matmul: rank {r} < 1")
+    if r > MAX_RANK:
+        raise ValueError(
+            f"lowrank_matmul: rank {r} needs {smem_bytes(ROW_TILES[0], r)} bytes of shared "
+            f"memory per block, over the {MAX_SHARED_BYTES} a block may use "
+            f"(the kernel takes ranks up to {MAX_RANK})"
+        )
+
+
+@functools.lru_cache(maxsize=256)
+def launch_shape(n: int, d_in: int, r: int, d_out: int) -> LaunchShape:
+    """Grid of the fused kernel for n rows.
+
+    The row tile is the smallest that holds n (64 above), halved while the
+    hidden does not fit or, where n takes several tiles anyway, until two
+    CTAs fit on an SM.  The cluster splits d_in (at most one CTA per
+    64-wide step, at most 8) and column groups split d_out (at least
+    MIN_COLS_PER_CTA columns a CTA) until about TARGET_CTAS CTAs are in
+    flight; larger clusters first, since they share one row tile's hidden.
+    With two CTAs an SM, 30 clusters of 8 fit on the card at once (15 with
+    one: a grid of 16 then ran in two waves), so the grid runs in one
+    wave; tools/lowrank_sweep.py times the alternatives."""
+    if n < 1 or d_out < 1 or d_in < 0:
+        raise ValueError(f"lowrank_matmul: no launch for n {n} d_in {d_in} d_out {d_out}")
+    _check_rank(r)
+    bm = next((b for b in ROW_TILES if b >= n), ROW_TILES[-1])
+    while bm > ROW_TILES[0] and (
+        smem_bytes(bm, r) > MAX_SHARED_BYTES or (n > bm and _ctas_per_sm(bm, r) < 2)
+    ):
+        bm //= 2
+    row_tiles = -(-n // bm)
+    k_steps = max(1, -(-d_in // _BK))
+    cluster = 1
+    while cluster * 2 <= min(MAX_CLUSTER, k_steps) and row_tiles * cluster * 2 <= TARGET_CTAS:
+        cluster *= 2
+    groups = max(1, min(TARGET_CTAS // (cluster * row_tiles),
+                        d_out // (MIN_COLS_PER_CTA * cluster)))
+    cols_per_cta = -(-d_out // (groups * cluster * 8)) * 8
+    return LaunchShape(bm, cluster, groups, cols_per_cta, row_tiles)
 
 
 def lowrank_matmul_plain(
@@ -36,7 +134,7 @@ def lowrank_matmul_plain(
     return y.to(x.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def lowrank_matmul(
@@ -61,16 +159,7 @@ def lowrank_matmul(
     tensors = [x2, k1, k2] + ([bias] if bias is not None else [])
     if any(t.dtype != torch.bfloat16 or t.device != x.device for t in tensors):
         raise ValueError("lowrank_matmul: the kernel takes bf16 tensors on one device")
-    if r < 1:
-        raise ValueError(f"lowrank_matmul: rank {r} < 1")
-    smem = _build.kernel_function(
-        "lowrank_matmul", "ptdeco_lowrank_smem_bytes", [ctypes.c_int]
-    )(r)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"lowrank_matmul: rank {r} needs {smem} bytes of shared memory "
-            f"per block, over the {MAX_SHARED_BYTES} a block may use"
-        )
+    _check_rank(r)
     x2 = _build.aligned(x2)
     w1 = _build.aligned(k1.t())  # (r, d_in): a no-op for a Linear weight's view
     w2 = _build.aligned(k2.t())  # (d_out, r)
@@ -79,13 +168,11 @@ def lowrank_matmul(
     out = torch.empty((n, d_out), dtype=x.dtype, device=x.device)
     if n == 0 or d_out == 0:
         return out.reshape(*lead, d_out)
+    shape = launch_shape(n, d_in, r, d_out)
     fn = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_matmul", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x2.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                b.data_ptr() if b is not None else None, out.data_ptr(),
-                n, d_in, r, d_out, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lowrank_matmul kernel launch failed: cudaError {rc}")
+    _build.launch("lowrank_matmul", fn, x.device, x2.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                  b.data_ptr() if b is not None else None, out.data_ptr(), n, d_in, r, d_out,
+                  shape.bm, shape.cluster, shape.groups, shape.cols_per_cta)
     lowrank_matmul.launches += 1
     return out.reshape(*lead, d_out)
 

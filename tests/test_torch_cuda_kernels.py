@@ -6,10 +6,13 @@ one.  This file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import ctypes
+
 import pytest
 import torch
 
 from ptdeco_tpu_torch import nn as tnn, ops
+from ptdeco_tpu_torch.ops import _build, lowrank
 
 pytestmark = pytest.mark.cuda
 
@@ -22,7 +25,11 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,d", [(1024, 512), (100, 300), (37, 1030), (5, 129), (0, 256)])
+@pytest.mark.parametrize(
+    "n,d",
+    [(100, 300), (37, 1030), (5, 129), (0, 256), (1, 130), (64, 2050)]
+    + [(n, d) for d in (512, 600, 5632) for n in (1, 37, 1024)],
+)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_syrk_gram(dev, n, d, dtype):
     y = torch.randn(n, d, device=dev).to(dtype)
@@ -69,7 +76,12 @@ def test_flash_attention_rejects_unsupported(dev):
 @pytest.mark.parametrize(
     "n,d_in,r,d_out,bias",
     [(256, 256, 128, 512, True), (1000, 2048, 44, 5632, True), (3, 70, 1, 9, False),
-     (17, 130, 33, 257, True), (64, 512, 1024, 640, False)],
+     (17, 130, 33, 257, True), (64, 512, 1024, 640, False), (4, 64, 7184, 72, True)]
+    # the served site's row counts (a decode step of 4, a 4 x 128 prefill,
+    # one row), ranks from 1 to past the 16-row tile's limit, d_out that is
+    # a multiple of no tile
+    + [(n, 576, r, 1001, bias) for n in (1, 4, 512) for r in (1, 17, 256, 1500)
+       for bias in (True, False)],
 )
 def test_lowrank_matmul(dev, n, d_in, r, d_out, bias):
     x = torch.randn(n, d_in, device=dev, dtype=torch.bfloat16)
@@ -88,9 +100,18 @@ def test_lowrank_matmul_rejects_unsupported(dev):
     with pytest.raises(ValueError):
         ops.lowrank_matmul(x, torch.randn(8, 2, device=dev), torch.randn(2, 8, device=dev))
     xb = x.to(torch.bfloat16)
-    with pytest.raises(ValueError):  # a hidden over the shared-memory limit
-        ops.lowrank_matmul(xb, torch.zeros(8, 8000, device=dev, dtype=torch.bfloat16),
-                           torch.zeros(8000, 8, device=dev, dtype=torch.bfloat16))
+    r = 12000  # a hidden over the shared-memory limit (MAX_RANK, 10944)
+    with pytest.raises(ValueError, match=str(lowrank.MAX_RANK)):
+        ops.lowrank_matmul(xb, torch.zeros(8, r, device=dev, dtype=torch.bfloat16),
+                           torch.zeros(r, 8, device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("bm", lowrank.ROW_TILES)
+def test_lowrank_smem_bytes_agree(dev, bm):
+    fn = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_smem_bytes",
+                                [ctypes.c_int, ctypes.c_int])
+    for r in (1, 32, 64, 65, 256, 1500, lowrank.MAX_RANK):
+        assert fn(r, bm) == lowrank.smem_bytes(bm, r)
 
 
 def test_fused_linear_pair_launches_the_kernel(dev):
@@ -122,11 +143,12 @@ def test_views_with_unaligned_starts(dev):
         ops.flash_attention(q, k, v, 0.125).float(),
         ops.causal_attention_plain(q, k, v, 0.125).float(), rtol=0, atol=3e-2,
     )
-    x, k1, k2 = view(8, 64), view(64, 16), view(16, 32)
-    torch.testing.assert_close(
-        ops.lowrank_matmul(x, k1, k2).float(), ops.lowrank_matmul_plain(x, k1, k2, None).float(),
-        rtol=2e-2, atol=2e-2,
-    )
+    for n, d_in, r, d_out in ((8, 64, 16, 32), (512, 2048, 32, 5632)):
+        x, k1, k2, b = view(n, d_in), view(d_in, r) / d_in ** 0.5, view(r, d_out), view(d_out)
+        torch.testing.assert_close(
+            ops.lowrank_matmul(x, k1, k2, b).float(),
+            ops.lowrank_matmul_plain(x, k1, k2, b).float(), rtol=2e-2, atol=2e-2,
+        )
 
 
 def _bf16_limit(ref):

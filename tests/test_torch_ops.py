@@ -11,6 +11,7 @@ from ptdeco_tpu.ops.flash_attention import flash_attention as jax_flash
 from ptdeco_tpu.ops.gram_pallas import syrk_gram as jax_syrk
 from ptdeco_tpu.ops.lowrank_pallas import lowrank_matmul as jax_lowrank
 from ptdeco_tpu_torch import ops
+from ptdeco_tpu_torch.ops import lowrank
 
 JNP_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
@@ -122,3 +123,36 @@ def test_block_rows_picks_the_smallest_tile_holding_a_mean_group():
     assert [block_rows(m, 8) for m in (8, 128, 129, 512, 513, 4096)] == [16, 16, 64, 64, 128, 128]
     assert [block_rows(m, 8, (16, 64)) for m in (16, 512, 4096)] == [16, 64, 64]
     assert block_rows(0, 0) == 16
+
+
+@pytest.mark.parametrize("n", [1, 4, 17, 512, 1000, 1024])
+@pytest.mark.parametrize(
+    "d_in,r,d_out",
+    [(2048, 32, 5632), (5632, 32, 2048), (2048, 256, 5632), (70, 1, 9), (576, 1500, 1001),
+     (64, lowrank.MAX_RANK, 640)],
+)
+def test_lowrank_launch_shape_covers_the_output_once(n, d_in, r, d_out):
+    s = lowrank.launch_shape(n, d_in, r, d_out)
+    assert s.bm in lowrank.ROW_TILES and lowrank.smem_bytes(s.bm, r) <= lowrank.MAX_SHARED_BYTES
+    assert 1 <= s.cluster <= min(8, -(-d_in // 64)) and s.cluster & (s.cluster - 1) == 0
+    assert s.cols_per_cta % 8 == 0
+    # rows: tile t holds [t * bm, (t + 1) * bm); columns: slot q of the
+    # cluster * groups slots holds [q * cols, (q + 1) * cols), cut at d_out
+    rows = np.zeros(n, np.int64)
+    for t in range(s.row_tiles):
+        rows[t * s.bm:(t + 1) * s.bm] += 1
+    cols = np.zeros(d_out, np.int64)
+    for q in range(s.cluster * s.groups):
+        cols[q * s.cols_per_cta:(q + 1) * s.cols_per_cta] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    assert (s.row_tiles - 1) * s.bm < n
+    if d_out == 5632 and n in (4, 512, 1024):
+        assert s.ctas >= 64
+
+
+def test_lowrank_rank_limit():
+    assert lowrank.smem_bytes(8, lowrank.MAX_RANK) <= lowrank.MAX_SHARED_BYTES
+    assert lowrank.smem_bytes(8, lowrank.MAX_RANK + 1) > lowrank.MAX_SHARED_BYTES
+    assert lowrank.MAX_RANK >= 7184  # every rank the 16-row first design took
+    with pytest.raises(ValueError, match=str(lowrank.MAX_RANK)):
+        lowrank.launch_shape(4, 64, lowrank.MAX_RANK + 1, 64)
