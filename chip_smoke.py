@@ -175,14 +175,17 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, shape,
-                 extra_fns=None, graph=False):
+                 extra_fns=None, graph=False, plain_graph=True, path=None):
     """Hold the kernel against its plain version elementwise: every output
     must satisfy |out - ref| <= tol_fn(ref), a tensor of per-element limits.
     The record is printed before a failure is raised.  ``library_fn`` may
     be None (no single PyTorch call computes the function); ``extra_fns``
     maps a name to another route timed beside the kernel.  With ``graph``
     the kernel, plain and library times are CUDA-graph replays (device
-    time) and ``eager_ms`` is the kernel's wrapper called from Python."""
+    time) and ``eager_ms`` is the kernel's wrapper called from Python;
+    ``plain_graph=False`` times a plain version that syncs with the host
+    (which a graph cannot capture) by events.  ``path`` names the kernel's
+    route for this shape."""
     out = kernel_fn().float()
     ref = plain_fn().float()
     torch.cuda.synchronize()
@@ -193,6 +196,7 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, s
     bound_ms, bound_by = bound(flops, nbytes)
     rec = {
         "name": name,
+        **({"path": path} if path else {}),
         "shape": shape,
         "max_abs_err": float(diff.max()),
         "max_rel_err": float(diff.max()) / max(float(ref.abs().max()), 1e-30),
@@ -204,7 +208,7 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, s
     del out, ref, diff, tol
     rec.update({
         "ms": time_ms(kernel_fn, graph=graph),
-        "plain_ms": time_ms(plain_fn, graph=graph),
+        "plain_ms": time_ms(plain_fn, graph=graph and plain_graph),
         "library_ms": None if library_fn is None else time_ms(library_fn, graph=graph),
         **({"eager_ms": time_ms(kernel_fn)} if graph else {}),
         "bound_ms": bound_ms,
@@ -270,6 +274,7 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
         # room for 5-sigma tails over the 2M outputs
         tol_fn=lambda ref: 2.0 ** -6 * ref.abs() + 2.0 ** -5 * rss,
         shape={"b": b, "h": h, "h_kv": h_kv, "s": s, "head_dim": hd, "dtype": "bf16"},
+        graph=True, path="tma_wgmma",
     ))
 
     # the served pairs' shapes first (bias-free; every site is accepted at
@@ -368,6 +373,8 @@ def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
                    "routed": routed, "group_sizes": sizes.tolist(),
                    "bm": gmm.block_rows(m, len(sizes)), "dtype": "bf16",
                    "library": library},
+            # the plain version reads the group sizes on the host
+            graph=True, plain_graph=False, path=gmm.kernel_route(m, k, n, len(sizes)),
         ))
         del lhs, weights, library_fn
         torch.cuda.empty_cache()
@@ -423,6 +430,7 @@ def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
         nbytes=2 * (2 * b * h * s * hd + 2 * b * h_kv * s * hd),
         tol_fn=lambda ref: 2.0 ** -6 * ref.abs() + 2.0 ** -5 * rss,  # as at head_dim 64
         shape={"b": b, "h": h, "h_kv": h_kv, "s": s, "head_dim": hd, "dtype": "bf16"},
+        graph=True, path="tma_wgmma",
     ))
 
 
@@ -575,6 +583,7 @@ def cached_generate(model, prompt, new_tokens: int, what: str,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    grouped_routes = dict(ops.grouped_matmul.route_launches)
     full = torch.cat([prompt, toks[:, :-1]], dim=1)
     routes = cached.per_layer()
     with torch.no_grad(), Routing(model, b, forced=routes) as forced:
@@ -584,6 +593,7 @@ def cached_generate(model, prompt, new_tokens: int, what: str,
     # the prefill's row alone: the same tokens through the same kernels
     got["prefill_max_abs_diff"] = float((step_logits[:, 0].float() - uncached[:, 0].float()).abs().max())
     return {"tokens": toks, "full": full, "uncached": uncached, "counts": counts,
+            "grouped_routes": grouped_routes,
             "wall_s": wall, "gate": got, "routes": routes, "step_logits": step_logits}
 
 
@@ -682,10 +692,13 @@ def moe_serve(dev, seed: int) -> dict[str, dict[str, int]]:
 
     bf16 = cached_generate(model, prompt, MOE_NEW, "moe_serve_bf16")
     require_launches(bf16["counts"], ("grouped_matmul", "flash_attention"), "moe_serve bf16")
+    # the prefill's grouped products take the wgmma route, decode's mma.sync
+    require_launches(bf16["grouped_routes"], ("wgmma", "mma_sync"), "moe_serve bf16 routes")
     emit({"phase": "moe_serve", "dtype": "bf16", "layers": cfg.n_layers, "params": n_params,
           "weight_bytes": sum(t.numel() * t.element_size() for t in model.state_dict().values()),
           "batch": MOE_BATCH, "prompt": MOE_PROMPT, "new_tokens": MOE_NEW,
           "generate_wall_s": bf16["wall_s"], **bf16["gate"], "launches": bf16["counts"],
+          "grouped_routes": bf16["grouped_routes"],
           **serve_timings(model, prompt, bf16["tokens"][:, :1])})
 
     # the bf16 model against itself in f32 on the card
@@ -711,6 +724,7 @@ def moe_serve(dev, seed: int) -> dict[str, dict[str, int]]:
     emit({"phase": "moe_serve", "dtype": "int8", "generate_wall_s": int8["wall_s"],
           **int8["gate"], "int8_vs_bf16": vs_bf16,
           "tokens_equal_to_bf16": agree, "launches": int8["counts"],
+          "grouped_routes": int8["grouped_routes"],
           "weight_bytes": sum(t.numel() * t.element_size() for t in model.state_dict().values()),
           **serve_timings(model, prompt, int8["tokens"][:, :1])})
 
@@ -894,6 +908,7 @@ def main() -> None:
                       "launches_by_path": {p: c[name] for p, c in by_path.items()},
                       **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms", "shape")},
+                      **{k: main[k] for k in ("path", "eager_ms") if k in main},
                       **{k: v for k, v in main.items() if k.endswith("route_ms")},
                       "other_shapes": other})
     print(smi, flush=True)

@@ -2,231 +2,425 @@
 //
 // Replaces: ptdeco_tpu/ops/flash_attention.py:_core, which on a TPU calls
 // the library Pallas kernel jax.experimental.pallas.ops.tpu.flash_attention
-// (causal=True); every calibration and metric forward of an LLM runs it.
+// (causal=True); every calibration and metric forward of an LLM runs it,
+// and every prefill of the served models.
 //
-// What bounds it on an H100: operations.  Per (batch, head) the causal
-// products cost about 2 * 2 * s*s/2 * d flops against 4 * s*d*2 bytes of
-// q, k, v and o; at the slice's shapes (s = 1024, d = 64) that is ~256
-// flops per byte per head, at the card's bf16 ridge.  What a naive
+// What bounds it on an H100: operations at long sequences, bytes at short
+// ones.  Per (batch, head) the causal products cost about 2 * 2 * s*s/2 * d
+// flops against s*d*2 bytes each of q and o and (s*d*2 bytes each of k and
+// v) / (heads per kv head); at s = 1024, d = 64 that is ~256 flops a byte,
+// at the card's bf16 ridge, and at the Mixtral prefill (s = 512, d = 128,
+// 4 kv heads a group) the bytes bound it (0.0125 ms).  What a naive
 // attention loses is the s x s f32 logits tensor in device memory (128 MB
 // per layer at 32 heads); this kernel never writes it.
 //
-// Design:
-//   * one block of 4 warps per (batch, head, 64-row query tile); each warp
-//     owns 16 query rows, whose Q fragments stay in registers;
-//   * the block walks the key/value tiles of 64 up to the causal diagonal
-//     (tiles above it are never loaded), staging K and V in shared memory;
-//   * S = Q K^T and O += P V are mma.sync m16n8k16 bf16 products with f32
-//     accumulators; the running row max and row sum are f32 (online
-//     softmax in base 2), and P is re-packed from the S accumulators into
-//     A fragments in registers, so it never touches shared memory;
-//   * grouped-query attention: k and v keep their h_kv heads and query
-//     head h reads kv head h / (h / h_kv), so no repeated copy is made;
-//   * head_dim is a template parameter (64 and 128); a sequence length
-//     that is not a multiple of 64 is masked in the kernel, so the TPU
-//     path's s % 128 == 0 tiling rule does not apply here.
-// Not yet done (later work): wgmma, TMA loads, double-buffered K/V tiles.
+// Design (after FlashAttention-3):
+//   * a persistent grid of one CTA an SM walks the (batch, head, 128-row
+//     query tile) tiles, heaviest first; a CTA is three warpgroups: a
+//     producer warpgroup whose one thread issues TMA loads (its registers
+//     handed to the consumers with setmaxnreg), and two consumer warpgroups
+//     of 64 query rows each;
+//   * for each tile the producer loads Q (once the consumers are done with
+//     the last tile's), then the K and V tiles of 128 keys up to the causal
+//     diagonal (tiles above it are never loaded) into a 2-stage ring (3
+//     and 4 stages measured no faster), each tile completing on its own
+//     mbarrier; a consumer warp arrives on the stage's "empty" barrier when
+//     its products have read it.  The tensor maps are 4D (head_dim, seq,
+//     heads, batch) with the caller's strides, so the model's transposed
+//     (b, s, h, d) views are read as they lie, and a box that runs past seq
+//     is zero-filled instead of reading the next head's rows;
+//   * S = Q K^T is wgmma m64n128k16 with Q and K both K-major (head_dim
+//     contiguous) in 128-byte-swizzled shared memory, a 128-wide head_dim
+//     being two 64-column swizzle atoms;
+//   * online softmax in base 2 and f32 on the accumulator layout, each
+//     thread holding two rows, the scale folded into one FMA before the
+//     special-function unit's 2^x; only the diagonal tile is masked (key >
+//     row, and key >= seq, which TMA's zeros would not hide: a zero key
+//     gives a logit of 0, not -inf);
+//   * P is rounded to bf16 in registers and re-packed from the S
+//     accumulators into wgmma's register A fragments, and O += P V is
+//     wgmma m64n{64,128}k16 in its register-A form with V as an MN-major B
+//     operand (the transpose bit); O is normalised once at the end;
+//   * the tiles with the most key tiles come first (ops/flash_attention.py:
+//     flash_schedule), so the causal tail is short, and the next tile's Q
+//     and first K/V tiles load while the last tile's products and stores
+//     finish;
+//   * grouped-query attention: query head h reads kv head h / (h / h_kv), so
+//     no repeated copy is made;
+//   * each consumer warpgroup pipelines its own work (FlashAttention-3's
+//     intra-warpgroup overlap): S_j = Q K_j^T is issued before
+//     P_{j-1} V_{j-1}, and the softmax of S_j runs while that product is
+//     on the tensor cores.
+// Not yet done (later work): explicit ping-pong scheduling of the two
+// consumer warpgroups, TMA stores of O.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;  // query rows per block (16 per warp)
-constexpr int kKeys = 64;  // keys per tile
-constexpr int kThreads = 128;
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 128;  // query rows a CTA: 64 a consumer warpgroup
+constexpr int kBN = 128;  // keys a K/V tile
+// K/V ring depth, chosen by measurement (tools/tile_sweep.py; PERF.md)
+constexpr int kStages = 2;
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int h, int h_kv, int s,
-                     float scale_log2) {
-  constexpr int KS = D / 16;  // k-steps of the QK^T product
-  constexpr int DT = D / 8;   // n-tiles of the PV product
-  constexpr int LD = D + 8;   // padded shared-memory row
+struct Layout {
+  static constexpr int kAtoms = D / 64;    // 64-column swizzle atoms of a row
+  static constexpr int kQ = kBM * D;       // elements of the Q tile
+  static constexpr int kKV = kBN * D;      // elements of one K or V tile
+  static constexpr int kTiles = kQ + 2 * kStages * kKV;
+  static constexpr int kBarriers = 2 + 4 * kStages;
+  // + 1 KB to align the tiles (each swizzle atom must be 1 KB aligned)
+  static constexpr int kSmemBytes = kTiles * 2 + kBarriers * 8 + 1024;
+  static_assert(kSmemBytes <= 232448, "shared memory of a CTA");
+};
 
-  __shared__ __align__(16) __nv_bfloat16 ks[kKeys][LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kKeys][LD];
+// 2^x on the special-function unit, subnormal results flushed to zero
+// (a probability below 2^-126 of the row's largest is zero either way)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / h, head = bh % h;
-  const int kvh = head / (h / h_kv);
-  const size_t q_off = static_cast<size_t>(bh) * s * D;
-  const size_t kv_off = static_cast<size_t>(b * h_kv + kvh) * s * D;
-  const __nv_bfloat16* qp = q + q_off;
-  const __nv_bfloat16* kp = k + kv_off;
-  const __nv_bfloat16* vp = v + kv_off;
-  __nv_bfloat16* op = o + q_off;
+template <int D>
+__device__ __forceinline__ void pv_product(float* o, const uint32_t* p, uint64_t db) {
+  if constexpr (D == 64) {
+    ptdeco::wgmma::rs_m64n64k16<1>(o, p, db, 1);
+  } else {
+    ptdeco::wgmma::rs_m64n128k16<1>(o, p, db, 1);
+  }
+}
+
+// The tile a CTA takes in its turn: the grid's CTAs walk the (batch * head,
+// q-tile) tiles in the order t = 0, 1, ..., CTA c taking t = c, c + grid,
+// ...; tile t is head bh = t % bh_count and q-tile n_q - 1 - t / bh_count,
+// so the tiles with the most causal key tiles (qt + 1) come first
+// (ops/flash_attention.py:flash_schedule).
+struct TileOf {
+  int b, head, qt;
+  __device__ TileOf(int t, int bh_count, int h, int n_q) {
+    const int bh = t % bh_count;
+    qt = n_q - 1 - t / bh_count;
+    b = bh / h;
+    head = bh % h;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
+                     int bh_count, int h, int h_kv, int s, int n_q, float scale_log2,
+                     long long o_sb, long long o_sh, long long o_ss) {
+  using L = Layout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (ptdeco::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + L::kQ;             // [kStages][kKV]
+  bf16* vs = ks + kStages * L::kKV;  // [kStages][kKV]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * L::kKV);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+  const int n_tiles = bh_count * n_q;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    ptdeco::mbar_init(q_full, 1);
+    ptdeco::mbar_init(q_empty, kConsumerWarps);
+    for (int i = 0; i < kStages; ++i) {
+      ptdeco::mbar_init(&k_full[i], 1);
+      ptdeco::mbar_init(&v_full[i], 1);
+      ptdeco::mbar_init(&k_empty[i], kConsumerWarps);
+      ptdeco::mbar_init(&v_empty[i], kConsumerWarps);
+    }
+    ptdeco::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // producer: one thread keeps the ring full across this CTA's tiles, so
+    // the next tile's Q and first K/V tiles load while the consumers finish
+    // the current one; no barrier follows that would need the others
+    ptdeco::wgmma::regs_dec<24>();
+    if (warp == 0 && lane == 0) {
+      int it = 0;  // K/V tiles loaded so far: ring stage it % kStages
+      for (int t = blockIdx.x, tc = 0; t < n_tiles; t += gridDim.x, ++tc) {
+        const TileOf tile(t, bh_count, h, n_q);
+        const int kvh = tile.head / (h / h_kv);
+        const int n_blocks = tile.qt + 1;  // key tiles up to the diagonal (kBN == kBM)
+        ptdeco::mbar_wait(q_empty, (tc & 1) ^ 1);
+        ptdeco::mbar_expect(q_full, L::kQ * 2);
+#pragma unroll
+        for (int a = 0; a < L::kAtoms; ++a)
+          ptdeco::tma_box4(qs + a * kBM * 64, &qmap, a * 64, tile.qt * kBM, tile.head, tile.b,
+                           q_full);
+        for (int j = 0; j < n_blocks; ++j, ++it) {
+          const int st = it % kStages, ph = (it / kStages) & 1;
+          ptdeco::mbar_wait(&k_empty[st], ph ^ 1);
+          ptdeco::mbar_expect(&k_full[st], L::kKV * 2);
+#pragma unroll
+          for (int a = 0; a < L::kAtoms; ++a)
+            ptdeco::tma_box4(ks + st * L::kKV + a * kBN * 64, &kmap, a * 64, j * kBN, kvh,
+                             tile.b, &k_full[st]);
+          ptdeco::mbar_wait(&v_empty[st], ph ^ 1);
+          ptdeco::mbar_expect(&v_full[st], L::kKV * 2);
+#pragma unroll
+          for (int a = 0; a < L::kAtoms; ++a)
+            ptdeco::tma_box4(vs + st * L::kKV + a * kBN * 64, &vmap, a * 64, j * kBN, kvh,
+                             tile.b, &v_full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  ptdeco::wgmma::regs_inc<240>();
+  const int wg = (warp >> 2) - 1;  // consumer warpgroup: query rows 64 wg .. of a tile
   const int g8 = lane >> 2, t4 = lane & 3;
-  const int r0 = qt * kRows + warp * 16;  // this warp's first query row
-  const int row_a = r0 + g8, row_b = r0 + g8 + 8;
+  const bf16* qw = qs + wg * 64 * 64;  // this warpgroup's rows in each Q atom
 
-  uint32_t qf[KS][4];
+  // S fragment: register 4 q + e holds row row_a (row_b for e >= 2), key
+  // 8 q + 2 t4 + (e & 1) of the tile; O's the same with head_dim columns
+  float sacc[kBN / 2];
+  float oacc[D / 2];
+  uint32_t pf[kBN / 16][4];  // P of the tile whose P V is next
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * t4;
-    qf[kk][0] = ptdeco::load_pair(qp, row_a, c, s, D, D);
-    qf[kk][1] = ptdeco::load_pair(qp, row_b, c, s, D, D);
-    qf[kk][2] = ptdeco::load_pair(qp, row_a, c + 8, s, D, D);
-    qf[kk][3] = ptdeco::load_pair(qp, row_b, c + 8, s, D, D);
-  }
+  for (int i = 0; i < kBN / 2; ++i) sacc[i] = 0.f;
 
-  float oacc[DT][4];
+  int it = 0;  // K/V tiles consumed so far, as the producer counts them
+  for (int t = blockIdx.x, tc = 0; t < n_tiles; t += gridDim.x, ++tc) {
+    const TileOf tile(t, bh_count, h, n_q);
+    const int n_blocks = tile.qt + 1;  // key tiles up to the diagonal (kBN == kBM)
+    const int row_a = tile.qt * kBM + wg * 64 + (warp & 3) * 16 + g8, row_b = row_a + 8;
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    // running max (base 2, scaled) and this thread's share of the row sums
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();
-    for (int e = tid; e < kKeys * D / 8; e += kThreads) {
-      const int rr = e / (D / 8), cc = (e % (D / 8)) * 8;
-      const int key = kt * kKeys + rr;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (key < s) {
-        kv = *reinterpret_cast<const uint4*>(kp + static_cast<size_t>(key) * D + cc);
-        vv = *reinterpret_cast<const uint4*>(vp + static_cast<size_t>(key) * D + cc);
+    // S = Q K^T of key tile j into sacc, in 16-wide steps of head_dim, 4 to
+    // a swizzle atom (issued, not waited for)
+    auto s_product = [&](int j) {
+      const bf16* kb = ks + ((it + j) % kStages) * L::kKV;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int atom = kk >> 2, col = (kk & 3) * 16;
+        ptdeco::wgmma::ss_m64n128k16<0, 0>(
+            sacc, ptdeco::wgmma::desc(qw + atom * kBM * 64 + col, 16, 1024),
+            ptdeco::wgmma::desc(kb + atom * kBN * 64 + col, 16, 1024), kk > 0 ? 1 : 0);
       }
-      *reinterpret_cast<uint4*>(&ks[rr][cc]) = kv;
-      *reinterpret_cast<uint4*>(&vs[rr][cc]) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float sc[8][4];
+    };
+    // O += P V of key tile j, in 16-key steps (8 KB of V rows each)
+    auto pv = [&](int j) {
+      const bf16* vb = vs + ((it + j) % kStages) * L::kKV;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        pv_product<D>(oacc, pf[kk], ptdeco::wgmma::desc(vb + kk * 16 * 64, kBN * 64 * 2, 1024));
+    };
+    // the online softmax of key tile j's logits in sacc: on the diagonal
+    // tile mask keys past the row or seq, raise the running max (base 2,
+    // scaled: sm_scale > 0, so the scaled max is the max scaled), leave
+    // exp2(logit * scale - max) in sacc, rescale the row sums; returns the
+    // factors by which O's rows must be rescaled
+    auto softmax = [&](int j, float& alpha_a, float& alpha_b) {
+      if (j == n_blocks - 1) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+        for (int q = 0; q < kBN / 8; ++q) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t bfr[2];
-        bfr[0] = *reinterpret_cast<const uint32_t*>(&ks[nt * 8 + g8][kk * 16 + 2 * t4]);
-        bfr[1] = *reinterpret_cast<const uint32_t*>(&ks[nt * 8 + g8][kk * 16 + 2 * t4 + 8]);
-        ptdeco::mma_16816(sc[nt], qf[kk], bfr);
+          for (int e = 0; e < 4; ++e) {
+            const int key = j * kBN + q * 8 + 2 * t4 + (e & 1);
+            if (key > (e < 2 ? row_a : row_b) || key >= s) sacc[4 * q + e] = -INFINITY;
+          }
+        }
       }
-    }
-
-    // scale (to base 2), causal and ragged-edge mask, row max
-    float mx_a = -INFINITY, mx_b = -INFINITY;
+      float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row_a : row_b;
-        const int key = kt * kKeys + nt * 8 + 2 * t4 + (e & 1);
-        float val = sc[nt][e] * scale_log2;
-        if (key > row || key >= s) val = -INFINITY;
-        sc[nt][e] = val;
+      for (int q = 0; q < kBN / 8; ++q) {
+        mx_a = fmaxf(mx_a, fmaxf(sacc[4 * q], sacc[4 * q + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sacc[4 * q + 2], sacc[4 * q + 3]));
       }
-      mx_a = fmaxf(mx_a, fmaxf(sc[nt][0], sc[nt][1]));
-      mx_b = fmaxf(mx_b, fmaxf(sc[nt][2], sc[nt][3]));
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a * scale_log2), mn_b = fmaxf(m_b, mx_b * scale_log2);
+      // a row with every key masked so far keeps a finite base (no inf - inf)
+      const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+      const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+      alpha_a = ex2(m_a - base_a);
+      alpha_b = ex2(m_b - base_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int q = 0; q < kBN / 8; ++q) {
+        sacc[4 * q] = ex2(fmaf(sacc[4 * q], scale_log2, -base_a));
+        sacc[4 * q + 1] = ex2(fmaf(sacc[4 * q + 1], scale_log2, -base_a));
+        sacc[4 * q + 2] = ex2(fmaf(sacc[4 * q + 2], scale_log2, -base_b));
+        sacc[4 * q + 3] = ex2(fmaf(sacc[4 * q + 3], scale_log2, -base_b));
+        sum_a += sacc[4 * q] + sacc[4 * q + 1];
+        sum_b += sacc[4 * q + 2] + sacc[4 * q + 3];
+      }
+      l_a = l_a * alpha_a + sum_a;
+      l_b = l_b * alpha_b + sum_b;
+    };
+    // P in bf16 as the A fragments of the 16-key steps: step kk is S's
+    // n8-blocks 2 kk and 2 kk + 1
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        pf[kk][0] = ptdeco::pack_f32_as_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+        pf[kk][1] = ptdeco::pack_f32_as_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        pf[kk][2] = ptdeco::pack_f32_as_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        pf[kk][3] = ptdeco::pack_f32_as_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+      }
+    };
+    auto rescale_o = [&](float alpha_a, float alpha_b) {
+#pragma unroll
+      for (int q = 0; q < D / 8; ++q) {
+        oacc[4 * q] *= alpha_a;
+        oacc[4 * q + 1] *= alpha_a;
+        oacc[4 * q + 2] *= alpha_b;
+        oacc[4 * q + 3] *= alpha_b;
+      }
+    };
+    auto stage = [&](int j) { return (it + j) % kStages; };
+    auto phase = [&](int j) { return ((it + j) / kStages) & 1; };
+
+    // Software pipeline (FlashAttention-3's intra-warpgroup overlap): while
+    // the tensor cores run P_{j-1} V_{j-1}, this warpgroup's softmax of S_j
+    // runs; S_j itself is issued before P_{j-1} V_{j-1}.
+    float alpha_a, alpha_b;
+    ptdeco::mbar_wait(q_full, tc & 1);
+    if (n_blocks > 0) {  // always, but never wait for a tile no one loads
+      ptdeco::mbar_wait(&k_full[stage(0)], phase(0));
+      ptdeco::wgmma::fence_acc<kBN / 2>(sacc);
+      ptdeco::wgmma::fence();
+      s_product(0);
+      ptdeco::wgmma::commit();
+      ptdeco::wgmma::wait<0>();
+      ptdeco::wgmma::fence_acc<kBN / 2>(sacc);
+      if (lane == 0) ptdeco::mbar_arrive(&k_empty[stage(0)]);
+      softmax(0, alpha_a, alpha_b);
+      pack_p();
+      for (int j = 1; j < n_blocks; ++j) {
+        ptdeco::mbar_wait(&k_full[stage(j)], phase(j));
+        ptdeco::mbar_wait(&v_full[stage(j - 1)], phase(j - 1));
+        ptdeco::wgmma::fence_acc<kBN / 2>(sacc);
+        ptdeco::wgmma::fence_acc<D / 2>(oacc);
+        ptdeco::wgmma::fence();
+        s_product(j);
+        ptdeco::wgmma::commit();
+        pv(j - 1);
+        ptdeco::wgmma::commit();
+        ptdeco::wgmma::wait<1>();  // S_j is done; P_{j-1} V_{j-1} may still run
+        ptdeco::wgmma::fence_acc<kBN / 2>(sacc);
+        if (lane == 0) ptdeco::mbar_arrive(&k_empty[stage(j)]);
+        softmax(j, alpha_a, alpha_b);
+        ptdeco::wgmma::wait<0>();
+        ptdeco::wgmma::fence_acc<D / 2>(oacc);
+        if (lane == 0) ptdeco::mbar_arrive(&v_empty[stage(j - 1)]);
+        rescale_o(alpha_a, alpha_b);
+        pack_p();
+      }
+      const int last = n_blocks - 1;
+      ptdeco::mbar_wait(&v_full[stage(last)], phase(last));
+      ptdeco::wgmma::fence_acc<D / 2>(oacc);
+      ptdeco::wgmma::fence();
+      pv(last);
+      ptdeco::wgmma::commit();
+      ptdeco::wgmma::wait<0>();
+      ptdeco::wgmma::fence_acc<D / 2>(oacc);
+      if (lane == 0) ptdeco::mbar_arrive(&v_empty[stage(last)]);
     }
+    // every product that reads this tile's Q is done: the next tile's Q may land
+    if (lane == 0) ptdeco::mbar_arrive(q_empty);
+    it += n_blocks;
+
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
     }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    // a row with every key masked so far keeps a finite base (no inf - inf)
-    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
-    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float alpha_a = exp2f(m_a - base_a), alpha_b = exp2f(m_b - base_b);
-
-    float rs_a = 0.f, rs_b = 0.f;
+    const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+    const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+    bf16* ob = o + tile.b * o_sb + tile.head * o_sh;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      sc[nt][0] = exp2f(sc[nt][0] - base_a);
-      sc[nt][1] = exp2f(sc[nt][1] - base_a);
-      sc[nt][2] = exp2f(sc[nt][2] - base_b);
-      sc[nt][3] = exp2f(sc[nt][3] - base_b);
-      rs_a += sc[nt][0] + sc[nt][1];
-      rs_b += sc[nt][2] + sc[nt][3];
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      rs_a += __shfl_xor_sync(0xffffffffu, rs_a, off);
-      rs_b += __shfl_xor_sync(0xffffffffu, rs_b, off);
-    }
-    l_a = l_a * alpha_a + rs_a;
-    l_b = l_b * alpha_b + rs_b;
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      oacc[dt][0] *= alpha_a;
-      oacc[dt][1] *= alpha_a;
-      oacc[dt][2] *= alpha_b;
-      oacc[dt][3] *= alpha_b;
-    }
-
-    // O += P V; the S accumulators of key tiles 2j, 2j+1 are the A
-    // fragment of the j-th 16-key step
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t pa[4];
-      pa[0] = ptdeco::pack_f32_as_bf16(sc[2 * j][0], sc[2 * j][1]);
-      pa[1] = ptdeco::pack_f32_as_bf16(sc[2 * j][2], sc[2 * j][3]);
-      pa[2] = ptdeco::pack_f32_as_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]);
-      pa[3] = ptdeco::pack_f32_as_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3]);
-      const int key = j * 16 + 2 * t4;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const int col = dt * 8 + g8;
-        uint32_t bfr[2];
-        bfr[0] = ptdeco::pack_bf16(vs[key][col], vs[key + 1][col]);
-        bfr[1] = ptdeco::pack_bf16(vs[key + 8][col], vs[key + 9][col]);
-        ptdeco::mma_16816(oacc[dt], pa, bfr);
-      }
+    for (int q = 0; q < D / 8; ++q) {
+      const int col = q * 8 + 2 * t4;
+      if (row_a < s)
+        *reinterpret_cast<uint32_t*>(ob + row_a * o_ss + col) =
+            ptdeco::pack_f32_as_bf16(oacc[4 * q] * inv_a, oacc[4 * q + 1] * inv_a);
+      if (row_b < s)
+        *reinterpret_cast<uint32_t*>(ob + row_b * o_ss + col) =
+            ptdeco::pack_f32_as_bf16(oacc[4 * q + 2] * inv_b, oacc[4 * q + 3] * inv_b);
     }
   }
+}
 
-  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
-  const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = dt * 8 + 2 * t4;
-    if (row_a < s)
-      *reinterpret_cast<uint32_t*>(op + static_cast<size_t>(row_a) * D + col) =
-          ptdeco::pack_f32_as_bf16(oacc[dt][0] * inv_a, oacc[dt][1] * inv_a);
-    if (row_b < s)
-      *reinterpret_cast<uint32_t*>(op + static_cast<size_t>(row_b) * D + col) =
-          ptdeco::pack_f32_as_bf16(oacc[dt][2] * inv_b, oacc[dt][3] * inv_b);
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int h, int h_kv, int s,
+           float scale_log2, const long long* st, cudaStream_t stream) {
+  static int sms[32] = {};  // each device's SM count, the persistent grid's size, once
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Layout<D>::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  CUtensorMap qmap, kmap, vmap;
+  int rc = ptdeco::encode_heads(&qmap, q, b, h, s, D, st[0], st[1], st[2], kBM);
+  if (rc == 0) rc = ptdeco::encode_heads(&kmap, k, b, h_kv, s, D, st[3], st[4], st[5], kBN);
+  if (rc == 0) rc = ptdeco::encode_heads(&vmap, v, b, h_kv, s, D, st[6], st[7], st[8], kBN);
+  if (rc != 0) return rc;
+  const int n_q = (s + kBM - 1) / kBM;
+  const long long n_tiles = static_cast<long long>(b) * h * n_q;
+  const int grid = static_cast<int>(n_tiles < sms[dev] ? n_tiles : sms[dev]);
+  flash_fwd_kernel<D><<<grid, kThreads, Layout<D>::kSmemBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<bf16*>(o), b * h, h, h_kv, s, n_q, scale_log2, st[9], st[10],
+      st[11]);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, o: (b, h, s, d); k, v: (b, h_kv, s, d); all contiguous bf16 with
-// 16-byte aligned rows, h % h_kv == 0, d in {64, 128}.  Launches on
-// `stream`, allocates nothing, returns cudaGetLastError() (or
-// cudaErrorInvalidValue for an unsupported head_dim).
-extern "C" int ptdeco_flash_attention_fwd(const void* q, const void* k,
-                                          const void* v, void* o, int b, int h,
-                                          int h_kv, int s, int d,
-                                          float sm_scale, void* stream) {
-  const dim3 grid((s + kRows - 1) / kRows, b * h);
+// q, o: (b, h, s, d); k, v: (b, h_kv, s, d); bf16, d contiguous, h % h_kv
+// == 0, d in {64, 128}, sm_scale > 0.  strides: the (batch, head, seq) element strides
+// of q, k, v and o in that order (12 values), each a multiple of 8; every
+// base 16-byte aligned.  Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported head_dim or
+// a layout TMA cannot address).
+extern "C" int ptdeco_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                          int b, int h, int h_kv, int s, int d, float sm_scale,
+                                          const long long* strides, void* stream) {
   const float scale_log2 = sm_scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  auto* ob = static_cast<__nv_bfloat16*>(o);
-  if (d == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, h, h_kv, s, scale_log2);
-  } else if (d == 128) {
-    flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, h, h_kv, s, scale_log2);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d == 64) return launch<64>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
+  if (d == 128) return launch<128>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dynamic shared memory of one CTA at head_dim d (0 for another d)
+extern "C" int ptdeco_flash_smem_bytes(int d) {
+  return d == 64 ? Layout<64>::kSmemBytes : d == 128 ? Layout<128>::kSmemBytes : 0;
 }

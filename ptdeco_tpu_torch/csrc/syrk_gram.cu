@@ -49,6 +49,7 @@
 
 #include "mma_bf16.cuh"
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -118,48 +119,10 @@ __device__ __forceinline__ void load_panel(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-// wgmma shared-memory descriptor: start address, LBO and SBO in 16-byte
-// units, 128-byte swizzle (layout type 1); every start is 1 KB aligned
+// wgmma descriptor of a panel: LBO the next 64 of m or n, SBO the next 8
+// rows of k (wgmma.cuh); every start is 1 KB aligned
 __device__ __forceinline__ uint64_t panel_desc(const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kAtom * 2 / 16) << 16) |    // LBO: the next 64 of m or n
-         (static_cast<uint64_t>(kKGroup * 2 / 16) << 32) |  // SBO: the next 8 rows of k
-         (1ull << 62);
-}
-
-// d (64 x 128, f32, the warpgroup's accumulator fragment) += A B for A
-// (64 x 16) and B (16 x 128) both MN-major in shared memory
-__device__ __forceinline__ void wgmma_m64n128k16(float d[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// tie the accumulator registers to the preceding wgmma wait, so that no
-// read of them is moved above it
-__device__ __forceinline__ void fence_acc(float d[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  return ptdeco::wgmma::desc(p, kAtom * 2, kKGroup * 2);
 }
 
 // kTma: panels by TMA from `map` (d a multiple of 8), else by cp.async
@@ -235,16 +198,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     ptdeco::async_commit();
     const __nv_bfloat16* pa = ring + (s % kStages) * 2 * kPanel;
     const __nv_bfloat16* pb = diag ? pa : pa + kPanel;
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    ptdeco::wgmma::fence_acc<64>(acc);
+    ptdeco::wgmma::fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_m64n128k16(acc, panel_desc(pa + wg * kAtom + kk * 2 * kKGroup),
-                       panel_desc(pb + kk * 2 * kKGroup));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      ptdeco::wgmma::ss_m64n128k16<1, 1>(acc, panel_desc(pa + wg * kAtom + kk * 2 * kKGroup),
+                                         panel_desc(pb + kk * 2 * kKGroup), 1);
+    ptdeco::wgmma::commit();
+    ptdeco::wgmma::wait<0>();
   }
-  fence_acc(acc);
+  ptdeco::wgmma::fence_acc<64>(acc);
   ptdeco::async_wait<0>();
   __syncthreads();  // the ring is free: stage the tile there
 

@@ -1,7 +1,8 @@
 // Tensor Memory Accelerator (TMA) helpers shared by the port's Hopper
 // kernels: the host side encodes a 2D tensor map of a row-major bf16
-// matrix; the device side copies one box into shared memory, 128-byte
-// swizzled, and counts its bytes on an mbarrier.
+// matrix, or a 4D one of (batch, heads, seq, head_dim) attention tensors
+// with the caller's strides; the device side copies one box into shared
+// memory, 128-byte swizzled, and counts its bytes on an mbarrier.
 //
 // The 128-byte swizzle: a box row of 64 bf16 (128 bytes) holds 8 chunks of
 // 16 bytes, and chunk c of row r lands at chunk c ^ (r % 8); a box's
@@ -56,6 +57,30 @@ inline int encode_rows(CUtensorMap* map, const void* base, int rows, int cols, i
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Tensor map of a (batch, heads, seq, d) bf16 tensor with element strides
+// stride_b, stride_h, stride_s (d contiguous) read in boxes of box_rows
+// positions x 64 of d for one (batch, head), 128-byte swizzled.  Each head
+// is its own row range: a box that runs past seq is zero-filled, never read
+// from the next head.  The strides must be multiples of 8 elements.
+inline int encode_heads(CUtensorMap* map, const void* base, int batch, int heads, int seq, int d,
+                        long long stride_b, long long stride_h, long long stride_s,
+                        int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(stride_s) * 2,
+                                 static_cast<cuuint64_t>(stride_h) * 2,
+                                 static_cast<cuuint64_t>(stride_b) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -70,9 +95,26 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int c
       : "memory");
 }
 
-// one arrival expected; call fence_barrier_init() and a barrier after
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)));
+// the box at (c0, c1, c2, c3) of a 4D `map` into dst; completion on `bar`
+__device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                         int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `count` arrivals expected (the producer's one, or a consumer warp's
+// each); call fence_barrier_init() and a barrier after
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
+}
+
+// one plain arrival (no bytes announced)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
 }
 
 __device__ __forceinline__ void fence_barrier_init() {

@@ -44,3 +44,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    for route in grouped_matmul.route_launches:
+        grouped_matmul.route_launches[route] = 0

@@ -30,6 +30,7 @@ __all__ = [
     "kernel_function",
     "launch",
     "pointer_table",
+    "host_pointers",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -182,3 +183,22 @@ def pointer_table(tensors: "list[torch.Tensor]") -> "torch.Tensor":
         else:
             _tables.move_to_end(key)
         return table
+
+
+_host_arrays: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
+
+
+def host_pointers(tensors: "list[torch.Tensor]") -> ctypes.Array:
+    """A host array of the tensors' data pointers (uint64), for kernels that
+    encode a TMA tensor map per matrix at launch; cached by the pointers."""
+    key = tuple(t.data_ptr() for t in tensors)
+    with _lock:
+        arr = _host_arrays.get(key)
+        if arr is None:
+            arr = (ctypes.c_uint64 * len(key))(*key)
+            _host_arrays[key] = arr
+            if len(_host_arrays) > _MAX_TABLES:
+                _host_arrays.popitem(last=False)
+        else:
+            _host_arrays.move_to_end(key)
+        return arr

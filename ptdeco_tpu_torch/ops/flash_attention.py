@@ -5,22 +5,57 @@ the forward launches the hand-written Hopper kernel
 (``csrc/flash_attention_fwd.cu``) and the backward recomputes through the
 plain version, exactly as the JAX op's ``_bwd`` does; on a CPU tensor the
 plain version runs.  k and v may carry fewer (grouped) heads than q:
-query head h reads kv head ``h // (heads // kv_heads)``.
+query head h reads kv head ``h // (heads // kv_heads)``.  The kernel reads
+q, k and v through TMA tensor maps with the caller's strides, so the
+model's transposed (b, s, h, d) views are read as they lie and the output
+takes q's layout; a tensor whose strides TMA cannot address is first
+copied contiguous (``_tma_layout``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "causal_attention_plain", "KERNEL_HEAD_DIMS"]
+__all__ = [
+    "flash_attention",
+    "causal_attention_plain",
+    "KERNEL_HEAD_DIMS",
+    "flash_schedule",
+    "smem_bytes",
+]
 
 # head_dim values the kernel is compiled for (a template parameter)
 KERNEL_HEAD_DIMS = (64, 128)
+# query rows and keys a CTA takes at a time, K/V ring depth
+# (csrc/flash_attention_fwd.cu: kBM, kBN, kStages)
+BLOCK_M, BLOCK_N, STAGES = 128, 128, 2
+
+
+def smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one CTA: the Q tile, the K and V ring, the
+    mbarriers (Q full and empty, K and V full and empty a stage), 1 KB of
+    alignment slack."""
+    tiles = BLOCK_M * head_dim + 2 * STAGES * BLOCK_N * head_dim
+    return tiles * 2 + (2 + 4 * STAGES) * 8 + 1024
+
+
+def flash_schedule(b: int, h: int, s: int, n_ctas: int) -> list[list[tuple[int, int]]]:
+    """The ``(batch * heads + head, q-tile)`` tiles each CTA of the kernel's
+    persistent grid takes, in order.  The grid is ``min(tiles, n_ctas)``
+    CTAs (the kernel passes the card's SM count); tile t of the walk is
+    head ``t % (b * h)`` and q-tile ``n_q - 1 - t // (b * h)``, so the
+    tiles with the most causal key tiles (``qt + 1``) come first, and CTA
+    c takes tiles c, c + grid, ...  (csrc/flash_attention_fwd.cu:TileOf)."""
+    n_q, bh = -(-s // BLOCK_M), b * h
+    walk = [(t % bh, n_q - 1 - t // bh) for t in range(bh * n_q)]
+    grid = min(len(walk), n_ctas)
+    return [walk[c::grid] for c in range(grid)]
 
 
 def _repeat_kv(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -51,10 +86,28 @@ def causal_attention_plain(
     return torch.matmul(probs.to(torch.float32), v.to(torch.float32)).to(q.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 2
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _tma_strides(t: torch.Tensor) -> Optional[list[int]]:
+    """The (batch, head, seq) element strides of ``t`` as its TMA tensor map
+    takes them, or None where TMA cannot address it: head_dim must be
+    contiguous, the start 16-byte aligned and every stride a positive
+    multiple of 8 elements.  A size-1 dimension's stride is never used, so
+    it is given as head_dim."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    strides = [t.stride(i) if t.shape[i] > 1 else t.shape[-1] for i in range(3)]
+    return strides if all(st > 0 and st % 8 == 0 for st in strides) else None
+
+
+def _tma_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it lies when TMA can address it, else a contiguous aligned
+    copy (which it always can, at the kernel's head_dims)."""
+    return t if _tma_strides(t) is not None else _build.aligned(t)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad shapes {q.shape} {k.shape} {v.shape}")
     b, h, s, d = q.shape
@@ -66,18 +119,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: head_dim {d} not in {KERNEL_HEAD_DIMS}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
+    if not (math.isfinite(sm_scale) and sm_scale > 0):
+        raise ValueError(f"flash_attention: the kernel takes a positive sm_scale, not {sm_scale}")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float) -> torch.Tensor:
-    _check(q, k, v)
-    q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
+    _check(q, k, v, sm_scale)
+    q, k, v = _tma_layout(q), _tma_layout(k), _tma_layout(v)
     b, h, s, d = q.shape
-    o = torch.empty_like(q)
+    o = torch.empty_like(q)  # q's layout: the model's transposed view stays one
     if o.numel() == 0:
         return o
+    strides = [_tma_strides(t) for t in (q, k, v, o)]
+    if strides[3] is None:  # empty_like of an addressable q is addressable
+        raise RuntimeError(f"flash_attention: output strides {o.stride()} not addressable")
+    packed = (ctypes.c_longlong * 12)(*(st for t in strides for st in t))
     fn = _build.kernel_function("flash_attention_fwd", "ptdeco_flash_attention_fwd", _ARGTYPES)
     _build.launch("flash_attention", fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), b, h, k.shape[1], s, d, float(sm_scale))
+                  o.data_ptr(), b, h, k.shape[1], s, d, float(sm_scale), packed)
     flash_attention.launches += 1
     return o
 

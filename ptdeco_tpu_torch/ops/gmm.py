@@ -8,7 +8,11 @@ layout (or one stacked (E, N, K) tensor).  On a CUDA tensor
 ``grouped_matmul`` launches the hand-written Hopper kernel
 (``csrc/grouped_matmul.cu``), which reads the group offsets on the card and
 masks each group's ragged edge, so rows are not padded to the TPU's
-512-row tile; on a CPU tensor the plain version runs.
+512-row tile; on a CPU tensor the plain version runs.  The kernel has two
+routes, chosen by shape alone (``kernel_route``): a TMA + wgmma tile for
+the 64- and 128-row m-tiles of prefill, and the ``mma.sync`` tile of
+``gmm_tile.cuh`` for the 16-row decode tile and the shapes TMA cannot
+address.
 """
 
 from __future__ import annotations
@@ -20,7 +24,14 @@ import torch
 
 from . import _build
 
-__all__ = ["grouped_matmul", "grouped_matmul_plain", "block_rows"]
+__all__ = [
+    "grouped_matmul",
+    "grouped_matmul_plain",
+    "block_rows",
+    "kernel_route",
+    "grouped_schedule",
+    "wgmma_smem_bytes",
+]
 
 
 def grouped_matmul_plain(
@@ -49,6 +60,61 @@ def block_rows(m: int, n_experts: int, sizes: Sequence[int] = KERNEL_BLOCK_ROWS)
     their tile here."""
     mean = m / max(n_experts, 1)
     return next((s for s in sizes if mean <= s), sizes[-1])
+
+
+# the wgmma route's tile: BM (64 or 128) x 256 columns, BK 64, 4 stages
+# (csrc/grouped_matmul.cu:WgTile); its tensor maps are kernel parameters,
+# at most MAX_TMA_EXPERTS of them
+WGMMA_BLOCK_COLS = 256
+WGMMA_BLOCK_K = 64
+WGMMA_STAGES = 4
+MAX_TMA_EXPERTS = 16
+
+
+def kernel_route(m: int, k: int, n: int, n_experts: int) -> str:
+    """The grouped kernel's route for ``m`` rows of ``k`` over ``n_experts``
+    (n, k) weights: ``"wgmma"`` (TMA + wgmma) for the 64- and 128-row
+    m-tiles when both row pitches are multiples of 16 bytes (TMA's rule)
+    and the experts' tensor maps fit the kernel's parameters; otherwise
+    ``"mma_sync"``: the 16-row decode tile (already near its byte bound)
+    and the shapes TMA cannot address."""
+    if block_rows(m, n_experts) == 16:
+        return "mma_sync"
+    if k == 0 or k % 8 or n % 8 or not 1 <= n_experts <= MAX_TMA_EXPERTS:
+        return "mma_sync"
+    return "wgmma"
+
+
+def wgmma_smem_bytes(bm: int) -> int:
+    """Dynamic shared memory of one wgmma-route CTA: the ring of lhs and
+    weight boxes (the bf16 output tile is staged in it), a full and an
+    empty mbarrier a stage, 1 KB of alignment slack."""
+    stage = (bm + WGMMA_BLOCK_COLS) * WGMMA_BLOCK_K * 2
+    return WGMMA_STAGES * stage + 2 * WGMMA_STAGES * 8 + 1024
+
+
+def grouped_schedule(group_sizes: Sequence[int], m: int, n: int, bm: int,
+                     bn: int) -> list[tuple[int, int, int, int]]:
+    """The tiles the kernel runs, in launch order: ``(expert, r0, r1, n0)``
+    for each CTA that works, rows [r0, r1) of one expert's group against
+    columns [n0, n0 + bn).  The grid is (ceil(m / bm) + E slots) x
+    ceil(n / bn) with the slot the fast dimension, so the CTAs in flight
+    run every m-tile of every expert for a few n-tiles together; slot t
+    is ``gmm_tile.cuh:group_slot``: the t-th bm-row tile of the groups laid
+    end to end, each group cut on its own (no tile crosses a group), and
+    nothing for a slot past the last group's last tile."""
+    slots = []
+    off = 0
+    for e, size in enumerate(group_sizes):
+        size = max(int(size), 0)
+        for r0 in range(off, off + size, bm):
+            r1 = min(r0 + bm, off + size, m)
+            if r0 < r1:
+                slots.append((e, r0, r1))
+        off += size
+    n_slots = -(-m // bm) + len(group_sizes)
+    return [(*slots[x], y * bn) for y in range(-(-n // bn)) for x in range(n_slots)
+            if x < len(slots)]
 
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
@@ -84,13 +150,22 @@ def grouped_matmul(
         return out
     lhs = _build.aligned(lhs)
     weights = [_build.aligned(w) for w in weights]
-    table = _build.pointer_table(weights)
     sizes = group_sizes.to(torch.int32).contiguous()
-    fn = _build.kernel_function("grouped_matmul", "ptdeco_grouped_matmul", _ARGTYPES)
-    _build.launch("grouped_matmul", fn, lhs.device, lhs.data_ptr(), table.data_ptr(),
-                  sizes.data_ptr(), e, out.data_ptr(), m, k, n, block_rows(m, e))
+    route = kernel_route(m, k, n, e)
+    if route == "wgmma":
+        # the kernel encodes one tensor map per expert from host pointers
+        ptrs = _build.host_pointers(weights)
+        fn = _build.kernel_function("grouped_matmul", "ptdeco_grouped_matmul_wgmma", _ARGTYPES)
+    else:
+        ptrs = _build.pointer_table(weights).data_ptr()
+        fn = _build.kernel_function("grouped_matmul", "ptdeco_grouped_matmul", _ARGTYPES)
+    _build.launch("grouped_matmul", fn, lhs.device, lhs.data_ptr(), ptrs, sizes.data_ptr(), e,
+                  out.data_ptr(), m, k, n, block_rows(m, e))
     grouped_matmul.launches += 1
+    grouped_matmul.route_launches[route] += 1
     return out
 
 
 grouped_matmul.launches = 0
+# launches by route, for tests and chip_smoke.py to show which route ran
+grouped_matmul.route_launches = {"wgmma": 0, "mma_sync": 0}

@@ -58,6 +58,59 @@ def test_flash_attention(dev, b, h, h_kv, s, d):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=3e-2)
 
 
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 127, 129, 1000])
+def test_flash_attention_edges(dev, s, d, rep):
+    """Sequences shorter than, one past and ragged against the 128-row tile,
+    at both head dims and grouped-query repeats of 1, 4 and 8."""
+    h = 8
+    q = torch.randn(1, h, s, d, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(1, h // rep, s, d, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(1, h // rep, s, d, device=dev, dtype=torch.bfloat16)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    ref = ops.causal_attention_plain(q, k, v, d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=3e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_strided_views(dev, d):
+    """The model's transposed (b, s, h, d) views are read as they lie and the
+    output takes q's layout; a view whose seq stride TMA cannot address
+    (not a multiple of 8 elements) is copied first, with the same result."""
+    from ptdeco_tpu_torch.ops.flash_attention import _tma_strides
+
+    b, s, h, h_kv = 2, 200, 8, 2
+    q = torch.randn(b, s, h, d, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.randn(b, s, h_kv, d, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    v = torch.randn(b, s, h_kv, d, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    assert all(_tma_strides(t) is not None for t in (q, k, v))
+    out = ops.flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride()
+    ref = ops.causal_attention_plain(q, k, v, d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=3e-2)
+    odd = torch.randn(b, h, s, d + 4, device=dev, dtype=torch.bfloat16)[..., :d]
+    assert _tma_strides(odd) is None
+    out = ops.flash_attention(odd, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    ref = ops.causal_attention_plain(odd, k, v, d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=3e-2)
+
+
+def test_flash_smem_bytes_agree(dev):
+    import importlib
+
+    fa = importlib.import_module("ptdeco_tpu_torch.ops.flash_attention")
+    fn = _build.kernel_function("flash_attention_fwd", "ptdeco_flash_smem_bytes", [ctypes.c_int])
+    for d in fa.KERNEL_HEAD_DIMS:
+        assert fn(d) == fa.smem_bytes(d)
+    assert fn(96) == 0
+
+
 def test_flash_attention_backward_recomputes(dev):
     q, k, v = (torch.randn(1, 2, 64, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
                for _ in range(3))
@@ -71,6 +124,9 @@ def test_flash_attention_rejects_unsupported(dev):
         ops.flash_attention(q, q, q, 0.1)
     with pytest.raises(ValueError):
         ops.flash_attention(q.float(), q.float(), q.float(), 0.1)
+    q = torch.randn(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="sm_scale"):  # the kernel takes the max before scaling
+        ops.flash_attention(q, q, q, -0.125)
 
 
 @pytest.mark.parametrize(
@@ -186,6 +242,102 @@ def test_grouped_matmul(dev, sizes, k, n):
     torch.cuda.synchronize()
     assert ops.grouped_matmul.launches == before + 1
     _assert_within(out, ops.grouped_matmul_plain(lhs, weights, group_sizes))
+
+
+def _grouped_route_launches():
+    return dict(ops.grouped_matmul.route_launches)
+
+
+@pytest.mark.parametrize(
+    "sizes,k,n",
+    [
+        ([300, 0, 211, 190], 200, 392),  # 128-row tiles: empty expert, ragged M, N, K
+        ([40, 0, 90, 33], 136, 264),  # 64-row tiles: the same edges
+        ([513, 130, 7, 900], 4096, 512),  # K of the served model, groups ending mid-tile
+    ],
+)
+def test_grouped_matmul_wgmma_edges(dev, sizes, k, n):
+    """The TMA + wgmma route at the edges it must mask: an empty expert, M
+    not a multiple of the m-tile, N not a multiple of 256, K not a multiple
+    of 64."""
+    from ptdeco_tpu_torch.ops import gmm
+
+    m = sum(sizes)
+    assert gmm.kernel_route(m, k, n, len(sizes)) == "wgmma"
+    lhs = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    weights = [(torch.randn(n, k, device=dev) / k ** 0.5).to(torch.bfloat16) for _ in sizes]
+    group_sizes = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = _grouped_route_launches()
+    out = ops.grouped_matmul(lhs, weights, group_sizes)
+    torch.cuda.synchronize()
+    assert _grouped_route_launches()["wgmma"] == before["wgmma"] + 1
+    _assert_within(out, ops.grouped_matmul_plain(lhs, weights, group_sizes))
+
+
+@pytest.mark.parametrize("sizes", [[200, 312, 77, 435], [50, 90, 33, 70]])
+def test_grouped_matmul_wgmma_keeps_to_its_group(dev, sizes):
+    """Groups that end inside an m-tile (128 rows, then 64): the tile's rows
+    past its group are multiplied by the wrong expert, so a store of them
+    would overwrite the next group's output.  Small integers make every
+    product and sum exact, so the output must equal the plain version's
+    exactly, neighbouring rows included."""
+    from ptdeco_tpu_torch.ops import gmm
+
+    m, k, n = sum(sizes), 256, 512
+    assert gmm.kernel_route(m, k, n, len(sizes)) == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(3)
+    lhs = torch.randint(-2, 3, (m, k), device=dev, generator=g).to(torch.bfloat16)
+    weights = [torch.randint(-2, 3, (n, k), device=dev, generator=g).to(torch.bfloat16)
+               for _ in sizes]
+    group_sizes = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    out = ops.grouped_matmul(lhs, weights, group_sizes)
+    torch.cuda.synchronize()
+    ref = ops.grouped_matmul_plain(lhs, weights, group_sizes)
+    ends = torch.tensor(sizes).cumsum(0)[:-1].tolist()
+    for end in ends:  # the next group's first rows
+        assert torch.equal(out[end:end + 64], ref[end:end + 64]), end
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize(
+    "sizes,k,n,route",
+    [
+        ([300, 200, 100, 400], 256, 512, "wgmma"),  # prefill, 128-row tiles
+        ([60, 40, 50, 70], 256, 512, "wgmma"),  # 64-row tiles
+        ([2, 3, 1, 2], 256, 512, "mma_sync"),  # the 16-row decode tile
+        ([300, 200, 100, 400], 100, 512, "mma_sync"),  # K * 2 not a multiple of 16 bytes
+        ([300, 200, 100, 400], 256, 333, "mma_sync"),  # N * 2 not a multiple of 16 bytes
+        ([40] * 17, 256, 512, "mma_sync"),  # more experts than tensor-map slots
+    ],
+)
+def test_grouped_matmul_route_rule(dev, sizes, k, n, route):
+    """One case per rule of ``kernel_route``, asserting the route taken."""
+    from ptdeco_tpu_torch.ops import gmm
+
+    m = sum(sizes)
+    assert gmm.kernel_route(m, k, n, len(sizes)) == route
+    lhs = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    weights = [(torch.randn(n, k, device=dev) / k ** 0.5).to(torch.bfloat16) for _ in sizes]
+    group_sizes = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = _grouped_route_launches()
+    out = ops.grouped_matmul(lhs, weights, group_sizes)
+    torch.cuda.synchronize()
+    after = _grouped_route_launches()
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in ("wgmma", "mma_sync")}
+    _assert_within(out, ops.grouped_matmul_plain(lhs, weights, group_sizes))
+
+
+def test_grouped_wgmma_smem_bytes_agree(dev):
+    from ptdeco_tpu_torch.ops import gmm
+
+    fn = _build.kernel_function("grouped_matmul", "ptdeco_grouped_wgmma_smem_bytes",
+                                [ctypes.c_int])
+    for bm in (64, 128):
+        assert fn(bm) == gmm.wgmma_smem_bytes(bm)
+    assert fn(16) == 0
+    most = _build.kernel_function("grouped_matmul", "ptdeco_grouped_wgmma_max_experts", [])
+    assert most() == gmm.MAX_TMA_EXPERTS
 
 
 def test_grouped_matmul_rejects_unsupported(dev):

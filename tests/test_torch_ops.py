@@ -156,3 +156,65 @@ def test_lowrank_rank_limit():
     assert lowrank.MAX_RANK >= 7184  # every rank the 16-row first design took
     with pytest.raises(ValueError, match=str(lowrank.MAX_RANK)):
         lowrank.launch_shape(4, 64, lowrank.MAX_RANK + 1, 64)
+
+
+@pytest.mark.parametrize("n_ctas", [132, 7, 10_000])
+@pytest.mark.parametrize("b,h,s", [(1, 8, 1), (2, 4, 127), (1, 3, 129), (2, 8, 1000), (4, 32, 512)])
+def test_flash_schedule_covers_every_tile_once_heaviest_first(b, h, s, n_ctas):
+    from ptdeco_tpu_torch.ops.flash_attention import BLOCK_M, flash_schedule
+
+    per_cta = flash_schedule(b, h, s, n_ctas)
+    n_q = -(-s // BLOCK_M)
+    tiles = [tile for cta in per_cta for tile in cta]
+    assert sorted(tiles) == [(bh, qt) for bh in range(b * h) for qt in range(n_q)]
+    assert len(per_cta) == min(n_ctas, b * h * n_q)
+    # each CTA takes its heaviest tile (qt + 1 causal key tiles) first, and
+    # the first round of tiles is the heaviest of the walk
+    for cta in per_cta:
+        work = [qt + 1 for _, qt in cta]
+        assert work == sorted(work, reverse=True)
+    first = [cta[0][1] for cta in per_cta]
+    rest = [qt for cta in per_cta for _, qt in cta[1:]]
+    assert not rest or min(first) >= max(rest)
+
+
+def test_flash_smem_fits_a_cta():
+    from ptdeco_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS, smem_bytes
+
+    assert all(smem_bytes(d) <= 232448 for d in KERNEL_HEAD_DIMS)
+
+
+@pytest.mark.parametrize(
+    "sizes,n,bm",
+    [([300, 0, 211, 190], 392, 128), ([40, 0, 90, 33], 264, 64), ([513, 130, 7, 900], 512, 128),
+     ([0, 0, 77, 0], 256, 128), ([128, 128, 1], 256, 128), ([0, 5], 300, 64)],
+)
+def test_grouped_schedule_covers_each_group_tile_once(sizes, n, bm):
+    from ptdeco_tpu_torch.ops.gmm import WGMMA_BLOCK_COLS, grouped_schedule
+
+    m, bn = sum(sizes), WGMMA_BLOCK_COLS
+    tiles = grouped_schedule(sizes, m, n, bm, bn)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    cover = np.zeros((m, -(-n // bn)), np.int64)
+    for e, r0, r1, n0 in tiles:
+        # no m-tile crosses its group, none is empty or over bm rows
+        assert starts[e] <= r0 < r1 <= starts[e + 1] and r1 - r0 <= bm
+        assert n0 % bn == 0 and n0 < n
+        cover[r0:r1, n0 // bn] += 1
+    assert (cover == 1).all()
+    # the slot is the fast grid dimension: one n-tile's slots before the next's
+    assert [t[3] for t in tiles] == sorted(t[3] for t in tiles)
+
+
+def test_grouped_route_rule():
+    from ptdeco_tpu_torch.ops.gmm import MAX_TMA_EXPERTS, kernel_route, wgmma_smem_bytes
+
+    assert kernel_route(4096, 4096, 14336, 8) == "wgmma"  # Mixtral prefill, 128-row tiles
+    assert kernel_route(4096, 14336, 4096, 8) == "wgmma"
+    assert kernel_route(512, 4096, 14336, 8) == "wgmma"  # 64-row tiles
+    assert kernel_route(16, 4096, 14336, 8) == "mma_sync"  # the 16-row decode tile
+    assert kernel_route(4096, 100, 512, 8) == "mma_sync"  # K * 2 not a multiple of 16 bytes
+    assert kernel_route(4096, 256, 333, 8) == "mma_sync"  # N * 2 not a multiple of 16 bytes
+    assert kernel_route(4096, 0, 512, 8) == "mma_sync"
+    assert kernel_route(40 * 17, 256, 512, MAX_TMA_EXPERTS + 1) == "mma_sync"
+    assert all(wgmma_smem_bytes(bm) <= 232448 for bm in (64, 128))

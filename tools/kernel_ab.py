@@ -1,4 +1,4 @@
-"""Time the fused low-rank and SYRK Gram kernels of one checkout of the port.
+"""Time the hand-written kernels of one checkout of the port.
 
     python3 tools/kernel_ab.py [--root DIR] [--tag NAME]      (on a CUDA machine)
 
@@ -10,8 +10,12 @@ kernels under its own ``build/``.  Prints one JSON line per shape: the
 kernel's median time over 25 CUDA-event runs after 3 warm-up runs, inputs
 warm in L2, called from Python (``eager_ms``) and replayed from a CUDA
 graph (``ms``, device time), as ``chip_smoke.py`` times them; the device
-time of its kernels from torch.profiler (``device_ms``); and the card's
-name and power limit.
+time of its kernels from torch.profiler (``device_ms``); for flash
+attention and the bf16 grouped matmul the one PyTorch call that computes
+the same function, replayed from a graph (``library_ms``); the grouped
+kernel's route where the checkout names one (``path``); and the card's
+name and power limit.  ``--only NAME`` (repeatable) times one kernel's
+shapes.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 # (n, d_in, r, d_out, bias): the served TinyLlama pairs at the forward's
@@ -34,6 +39,25 @@ LOWRANK_SHAPES = (
     (512, 2048, 32, 5632, False), (512, 5632, 32, 2048, False),
 )
 SYRK_SHAPES = ((1024, 5632), (1024, 2048))  # (N, d), bf16
+# (b, h, h_kv, s, head_dim): the TinyLlama decompose forward and the
+# Mixtral-width prefill of 4 x 512
+FLASH_SHAPES = ((1, 32, 4, 1024, 64), (4, 32, 8, 512, 128))
+# (tokens routed top-2 over 8 experts, K, N, group-size seed): chip_smoke.py's
+# Mixtral-width prefill (4 x 512 tokens) and decode (batch 8) shapes
+GROUPED_SHAPES = ((2048, 4096, 14336, 100 + 2048 + 4096),
+                  (2048, 14336, 4096, 100 + 2048 + 14336),
+                  (8, 4096, 14336, 100 + 8 + 4096), (8, 14336, 4096, 100 + 8 + 14336))
+GMM_INT8_SHAPES = ((4, 4096, 14336, 200 + 4 + 4096), (4, 14336, 4096, 200 + 4 + 14336),
+                   (8, 4096, 14336, 200 + 8 + 4096), (256, 4096, 14336, 200 + 256 + 4096))
+
+
+def routed_group_sizes(n_tokens: int, seed: int, n_experts: int = 8, top_k: int = 2):
+    """chip_smoke.py's group sizes: ``n_tokens`` tokens each routed to
+    ``top_k`` distinct experts, with uneven expert popularity."""
+    rng = np.random.default_rng(seed)
+    p = rng.dirichlet(np.full(n_experts, 4.0))
+    ids = [rng.choice(n_experts, top_k, replace=False, p=p) for _ in range(n_tokens)]
+    return np.bincount(np.concatenate(ids), minlength=n_experts).astype(np.int32)
 
 
 def time_ms(fn, reps: int = 25, warmup: int = 3, graph: bool = False) -> float:
@@ -74,19 +98,31 @@ def device_ms(fn, reps: int = 25) -> float:
     return us / reps / 1e3
 
 
-def times(fn) -> dict:
-    return {"eager_ms": time_ms(fn), "device_ms": device_ms(fn), "ms": time_ms(fn, graph=True)}
+def times(fn, library=None) -> dict:
+    out = {"eager_ms": time_ms(fn), "device_ms": device_ms(fn), "ms": time_ms(fn, graph=True)}
+    if library is not None:
+        try:
+            out["library_ms"] = time_ms(library, graph=True)
+        except RuntimeError as exc:  # a call that cannot be captured
+            out["library_ms"], out["library_error"] = None, str(exc)[:200]
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="this")
+    ap.add_argument("--only", action="append",
+                    choices=["lowrank_matmul", "syrk_gram", "flash_attention", "grouped_matmul",
+                             "gmm_int8"])
     args = ap.parse_args()
+    want = set(args.only or ["lowrank_matmul", "syrk_gram", "flash_attention", "grouped_matmul",
+                             "gmm_int8"])
     if not torch.cuda.is_available():
         sys.exit("kernel_ab.py needs a CUDA device")
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
     from ptdeco_tpu_torch import ops
+    from ptdeco_tpu_torch.ops import gmm
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -94,7 +130,7 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(1)
-    for n, d_in, r, d_out, with_bias in LOWRANK_SHAPES:
+    for n, d_in, r, d_out, with_bias in LOWRANK_SHAPES if "lowrank_matmul" in want else ():
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         # the factors as a fused pair holds them: views of the Linear weights
         k1 = (torch.randn(r, d_in, device=dev, generator=g) / d_in ** 0.5).to(bf).t()
@@ -104,11 +140,52 @@ def main() -> None:
         print(json.dumps({"tag": args.tag, "kernel": "lowrank_matmul", "n": n, "d_in": d_in,
                           "r": r, "d_out": d_out, "bias": with_bias, **t, "card": card}),
               flush=True)
-    for n, d in SYRK_SHAPES:
+    for n, d in SYRK_SHAPES if "syrk_gram" in want else ():
         y = torch.randn(n, d, device=dev, generator=g).to(bf)
         t = times(lambda: ops.syrk_gram(y))
         print(json.dumps({"tag": args.tag, "kernel": "syrk_gram", "N": n, "d": d, **t,
                           "card": card}), flush=True)
+    for b, h, h_kv, s, hd in FLASH_SHAPES if "flash_attention" in want else ():
+        q = torch.randn(b, h, s, hd, device=dev, generator=g).to(bf)
+        k = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
+        v = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
+        scale = hd ** -0.5
+        t = times(lambda: ops.flash_attention(q, k, v, scale),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+        print(json.dumps({"tag": args.tag, "kernel": "flash_attention", "b": b, "h": h,
+                          "h_kv": h_kv, "s": s, "head_dim": hd, **t, "card": card}), flush=True)
+        del q, k, v
+    for n_tok, k, n, seed in GROUPED_SHAPES if "grouped_matmul" in want else ():
+        sizes = routed_group_sizes(n_tok, seed)
+        m = int(sizes.sum())
+        lhs = torch.randn(m, k, device=dev, generator=g).to(bf)
+        weights = [(torch.randn(n, k, device=dev, generator=g) / k ** 0.5).to(bf) for _ in sizes]
+        gs = torch.from_numpy(sizes).to(dev)
+        stack = torch.stack(weights).transpose(1, 2)
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+        t = times(lambda: ops.grouped_matmul(lhs, weights, gs),
+                  lambda: torch._grouped_mm(lhs, stack, offs=offs))
+        path = gmm.kernel_route(m, k, n, len(sizes)) if hasattr(gmm, "kernel_route") else None
+        print(json.dumps({"tag": args.tag, "kernel": "grouped_matmul", "M": m, "K": k, "N": n,
+                          "group_sizes": sizes.tolist(), "path": path, **t, "card": card}),
+              flush=True)
+        del lhs, weights, stack
+        torch.cuda.empty_cache()
+    for n_tok, k, n, seed in GMM_INT8_SHAPES if "gmm_int8" in want else ():
+        sizes = routed_group_sizes(n_tok, seed)
+        m = int(sizes.sum())
+        gs = torch.from_numpy(sizes).to(dev)
+        xg = torch.randn(m, k, device=dev, generator=g).to(bf)
+        w_q = [torch.randint(-127, 128, (n, k), device=dev, generator=g, dtype=torch.int8)
+               for _ in sizes]
+        scales = [(0.5 + 0.5 * torch.rand(n, device=dev, generator=g)) / (127 * k ** 0.5)
+                  for _ in sizes]
+        t = times(lambda: ops.grouped_matmul_int8(xg, w_q, scales, gs))
+        print(json.dumps({"tag": args.tag, "kernel": "gmm_int8", "M": m, "K": k, "N": n,
+                          "group_sizes": sizes.tolist(), **t, "card": card}), flush=True)
+        del xg, w_q, scales
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
