@@ -345,8 +345,9 @@ def grouped_library(lhs, weights, group_sizes):
 
 def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
     """The MoE serving path's kernels at Mixtral-8x7B width: the bf16
-    grouped matmul at prefill and decode, the int8 grouped matmul at 8, 16
-    and 512 routed rows, and flash attention at the prefill's head_dim 128."""
+    grouped matmul at prefill and decode, the int8 grouped matmul at 8, 16,
+    512 and 4096 routed rows, and flash attention at the prefill's head_dim
+    128."""
     g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
     dim, hidden = MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["intermediate_size"]
@@ -379,10 +380,15 @@ def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
         del lhs, weights, library_fn
         torch.cuda.empty_cache()
 
+    # the int8 kernel at the decode steps (8 and 16 rows), 512 rows and the
+    # prefill's 4096, beside the dequantize route that MoEMLP._grouped takes
+    # (every grid dequantized to bf16, then the bf16 grouped kernel)
     for n_tok, (k, n), what in ((4, (dim, hidden), "decode gate/up, batch 4"),
                                 (4, (hidden, dim), "decode down, batch 4"),
                                 (8, (dim, hidden), "decode gate/up, batch 8"),
-                                (256, (dim, hidden), "256 tokens gate/up")):
+                                (256, (dim, hidden), "256 tokens gate/up"),
+                                (n_tokens, (dim, hidden), "prefill gate/up"),
+                                (n_tokens, (hidden, dim), "prefill down")):
         sizes = routed_group_sizes(n_tok, seed=200 + n_tok + k)
         m, e, routed = int(sizes.sum()), len(sizes), int((sizes > 0).sum())
         gs = torch.from_numpy(sizes).to(dev)
@@ -396,6 +402,11 @@ def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
             deq = [w.to(bf) * s.to(bf)[:, None] for w, s in zip(w_q, scales)]
             return ops.grouped_matmul(xg, deq, gs)
 
+        route = gmm_int8.kernel_route(m, k, n, e)
+        tile = ({"bn": gmm_int8.batch_rows(m, e)} if route == "batch" else dict(zip(
+            ("k_split", "k_steps_a_split"),
+            gmm_int8.decode_split(m, k, n, e, gmm_int8._sm_count(dev.index or 0),
+                                  gmm_int8.DECODE_BLOCK_K, gmm_int8.DECODE_COLS))))
         recs["gmm_int8"].append(check_kernel(
             "gmm_int8",
             lambda: ops.grouped_matmul_int8(xg, w_q, scales, gs),
@@ -405,9 +416,11 @@ def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
             nbytes=2 * m * k + routed * n * k + 4 * routed * n + 2 * m * n,
             tol_fn=single_rounding_tol,
             shape={"what": what, "M": m, "K": k, "N": n, "experts": e, "routed": routed,
-                   "group_sizes": sizes.tolist(),
-                   "bm": gmm.block_rows(m, e, gmm_int8.KERNEL_BLOCK_ROWS),
+                   "group_sizes": sizes.tolist(), **tile,
                    "dtype": "int8 weights, bf16 activations"},
+            # the plain version reads the group sizes on the host; the
+            # dequantize route allocates its copies each call: both by events
+            graph=True, plain_graph=False, path=route,
             extra_fns={"dequant_route": dequant_route},
         ))
         del xg, w_q, scales
@@ -584,6 +597,7 @@ def cached_generate(model, prompt, new_tokens: int, what: str,
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     grouped_routes = dict(ops.grouped_matmul.route_launches)
+    int8_routes = dict(ops.grouped_matmul_int8.route_launches)
     full = torch.cat([prompt, toks[:, :-1]], dim=1)
     routes = cached.per_layer()
     with torch.no_grad(), Routing(model, b, forced=routes) as forced:
@@ -593,7 +607,7 @@ def cached_generate(model, prompt, new_tokens: int, what: str,
     # the prefill's row alone: the same tokens through the same kernels
     got["prefill_max_abs_diff"] = float((step_logits[:, 0].float() - uncached[:, 0].float()).abs().max())
     return {"tokens": toks, "full": full, "uncached": uncached, "counts": counts,
-            "grouped_routes": grouped_routes,
+            "grouped_routes": grouped_routes, "int8_routes": int8_routes,
             "wall_s": wall, "gate": got, "routes": routes, "step_logits": step_logits}
 
 
@@ -711,8 +725,13 @@ def moe_serve(dev, seed: int) -> dict[str, dict[str, int]]:
 
     quant.quantize_for_serving(model)
     int8 = cached_generate(model, prompt, MOE_NEW, "moe_serve_int8")
-    require_launches(int8["counts"], ("gmm_int8", "grouped_matmul", "flash_attention"),
-                     "moe_serve int8")
+    require_launches(int8["counts"], ("gmm_int8", "flash_attention"), "moe_serve int8")
+    # the card's int8 route takes every row count: the prefill's 4096 rows
+    # take the batch route, the decode steps' 8 the decode route, and
+    # nothing is dequantized for the bf16 grouped kernel
+    require_launches(int8["int8_routes"], ("batch", "decode"), "moe_serve int8 routes")
+    if int8["counts"]["grouped_matmul"]:
+        raise AssertionError(f"moe_serve int8 dequantized its experts: {int8['counts']}")
     # int8 against bf16 on the same tokens (the bf16 run's), uncached and
     # routed as the bf16 run was: the quantization error
     with torch.no_grad(), Routing(model, MOE_BATCH, forced=bf16["routes"]) as forced:
@@ -724,7 +743,7 @@ def moe_serve(dev, seed: int) -> dict[str, dict[str, int]]:
     emit({"phase": "moe_serve", "dtype": "int8", "generate_wall_s": int8["wall_s"],
           **int8["gate"], "int8_vs_bf16": vs_bf16,
           "tokens_equal_to_bf16": agree, "launches": int8["counts"],
-          "grouped_routes": int8["grouped_routes"],
+          "int8_routes": int8["int8_routes"],
           "weight_bytes": sum(t.numel() * t.element_size() for t in model.state_dict().values()),
           **serve_timings(model, prompt, int8["tokens"][:, :1])})
 
@@ -732,7 +751,7 @@ def moe_serve(dev, seed: int) -> dict[str, dict[str, int]]:
     # the int8 run's own step logits (prefill's last row, then the decode
     # steps that took gmm_int8 at 8 rows) against the twin's uncached
     # forward of the same tokens, and a 128-token forward (256 rows, so
-    # gmm_int8 at its 64-row tile)
+    # gmm_int8's batch route at its 128-row tile)
     twin = f32_twin(model)
     steps = against_twin(twin, int8["full"], int8["routes"], int8["step_logits"],
                          MOE_PROMPT - 1, CACHED_MAX_ABS, CACHED_RMS_REL,

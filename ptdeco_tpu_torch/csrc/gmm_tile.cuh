@@ -1,5 +1,6 @@
-// The block-level tile product shared by the port's two grouped expert
-// matmuls (grouped_matmul.cu, bf16 weights; gmm_int8.cu, int8 weights):
+// The block-level tile product of the bf16 grouped expert matmul's
+// mma.sync route (grouped_matmul.cu), and the walk over the group sizes
+// that both grouped kernels (grouped_matmul.cu, gmm_int8.cu) share:
 //
 //   acc[BM x BN] = lhs[rows r0 .. r0+BM) @ W[cols n0 .. n0+BN)^T
 //
@@ -12,12 +13,12 @@
 // past N, K past the last full step, or a row pitch that is not a multiple
 // of 16 bytes) are loaded element by element with zeros outside the matrix.
 //
-// Fragments are read from shared memory with 64-bit (A, bf16 B) or 32-bit
-// (int8 B) loads by permuting the 16 contraction indices of each mma step:
-// lane t supplies actual k = 4t..4t+3 where mma.sync expects k = 2t, 2t+1,
-// 2t+8, 2t+9.  The product sums over k, and A and B use the same
-// permutation, so the result is unchanged.  Row pitches are padded so that
-// these loads are free of bank conflicts.
+// Fragments are read from shared memory with 64-bit loads by permuting the
+// 16 contraction indices of each mma step: lane t supplies actual k =
+// 4t..4t+3 where mma.sync expects k = 2t, 2t+1, 2t+8, 2t+9.  The product
+// sums over k, and A and B use the same permutation, so the result is
+// unchanged.  Row pitches are padded so that these loads are free of bank
+// conflicts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,14 +44,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Two int8 values (the low two bytes of v) as a packed bf16 pair; exact,
-// since every int8 value is a bf16 value.
-__device__ __forceinline__ uint32_t int8x2_as_bf16x2(uint32_t v) {
-  const float lo = static_cast<float>(static_cast<int8_t>(v & 0xffu));
-  const float hi = static_cast<float>(static_cast<int8_t>((v >> 8) & 0xffu));
-  return pack_f32_as_bf16(lo, hi);
-}
-
 template <typename WT>
 struct Weight;
 
@@ -63,17 +56,6 @@ struct Weight<__nv_bfloat16> {
     const uint2 v = *reinterpret_cast<const uint2*>(p);
     b[0] = v.x;
     b[1] = v.y;
-  }
-};
-
-template <>
-struct Weight<int8_t> {
-  static constexpr int kBytes = 1;
-  static constexpr int kPad = 16;  // pitch = 16 (mod 32) bytes: 8 rows, distinct banks
-  __device__ __forceinline__ static void frag(const unsigned char* p, uint32_t b[2]) {
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
-    b[0] = int8x2_as_bf16x2(v);
-    b[1] = int8x2_as_bf16x2(v >> 16);
   }
 };
 

@@ -1,8 +1,9 @@
 // Tensor Memory Accelerator (TMA) helpers shared by the port's Hopper
-// kernels: the host side encodes a 2D tensor map of a row-major bf16
-// matrix, or a 4D one of (batch, heads, seq, head_dim) attention tensors
-// with the caller's strides; the device side copies one box into shared
-// memory, 128-byte swizzled, and counts its bytes on an mbarrier.
+// kernels: the host side encodes a 2D tensor map of a row-major bf16 or
+// int8 matrix, or a 4D one of (batch, heads, seq, head_dim) attention
+// tensors with the caller's strides; the device side copies one box into
+// shared memory, swizzled, or a contiguous run of bytes (a bulk copy), and
+// counts its bytes on an mbarrier.
 //
 // The 128-byte swizzle: a box row of 64 bf16 (128 bytes) holds 8 chunks of
 // 16 bytes, and chunk c of row r lands at chunk c ^ (r % 8); a box's
@@ -57,6 +58,25 @@ inline int encode_rows(CUtensorMap* map, const void* base, int rows, int cols, i
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Tensor map of a row-major (rows x cols) int8 matrix read in boxes of
+// box_rows x 64 bytes, 64-byte swizzled: 16-byte chunk c of box row r lands
+// at chunk c ^ ((r >> 1) & 3), and a box's destination must be 512-byte
+// aligned.  cols must be a multiple of 16.  Returns a CUDA error code.
+inline int encode_int8_rows(CUtensorMap* map, const void* base, int rows, int cols,
+                            int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Tensor map of a (batch, heads, seq, d) bf16 tensor with element strides
 // stride_b, stride_h, stride_s (d contiguous) read in boxes of box_rows
 // positions x 64 of d for one (batch, head), 128-byte swizzled.  Each head
@@ -103,6 +123,15 @@ __device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map, int 
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       :: "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
          "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global src into dst; completion on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -217,15 +217,14 @@ class MLP(torch.nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-# steps that route at most this many (token, slot) rows over int8 experts
-# take the int8 grouped kernel; larger ones dequantize and take the bf16
-# grouped kernel (the JAX package's rule, transformer.py:5401, set on a TPU)
-INT8_KERNEL_MAX_ROWS = 512
-
-
 def _use_int8_kernel(x: torch.Tensor) -> bool:
     """The int8 grouped kernel runs on the card, in bf16 (the JAX package's
-    ``_use_int8_gmm``: on the TPU)."""
+    ``_use_int8_gmm``: on the TPU), at every row count.  The JAX package
+    takes it only up to 512 rows (transformer.py:5401), a limit set on a
+    TPU, where its padded kernel lost at prefill; on an H100 the kernel
+    beats dequantizing every expert for the bf16 grouped kernel at 8, 16,
+    512 and 4096 rows in both projections (chip_smoke.py's gmm_int8
+    lines; PERF.md §6), so there is no limit."""
     return x.is_cuda and x.dtype == torch.bfloat16
 
 
@@ -251,9 +250,8 @@ class MoEMLP(torch.nn.Module):
       projection is one grouped matmul: the bf16 kernel on the card, the
       plain per-expert product otherwise (f32).  int8 experts are
       dequantized into the activation dtype first;
-    * **grouped int8**: int8 experts on a step of at most
-      ``INT8_KERNEL_MAX_ROWS`` rows on the card take the int8 kernel, which
-      reads the int8 grids directly;
+    * **grouped int8**: int8 experts on the card take the int8 kernel,
+      which reads the int8 grids directly;
     * **dense masked**: otherwise (hooked projections during calibration,
       decomposed factor pairs) every expert runs on all tokens with the
       unrouted ones zeroed, so a capture hook sees exactly the routed rows.
@@ -358,8 +356,7 @@ class MoEMLP(torch.nn.Module):
         if not self._experts_are_pristine():
             return self._dense_masked(x)
         quant = type(self.experts[0].gate_proj) is QuantLinear
-        n_rows = x.shape[0] * x.shape[1] * self.top_k
-        if quant and _use_int8_kernel(x) and n_rows <= INT8_KERNEL_MAX_ROWS:
+        if quant and _use_int8_kernel(x):
             return self._grouped_int8(x)
         return self._grouped(x)
 

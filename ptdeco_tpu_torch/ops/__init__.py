@@ -44,5 +44,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
-    for route in grouped_matmul.route_launches:
-        grouped_matmul.route_launches[route] = 0
+    for fn in (grouped_matmul, grouped_matmul_int8):
+        for route in fn.route_launches:
+            fn.route_launches[route] = 0

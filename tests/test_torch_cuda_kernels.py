@@ -358,59 +358,126 @@ def _int8_case(dev, sizes, k, n):
     return lhs, w_q, scales, torch.tensor(sizes, dtype=torch.int32, device=dev)
 
 
-@pytest.mark.parametrize("bm", [16, 64])
+# (sizes, k, n): one case per edge of the two routes
+_INT8_CASES = [
+    ([37, 0, 129, 61], 160, 96),  # an empty expert
+    ([0, 1, 0], 64, 64),  # one row
+    ([5, 0, 13], 208, 333),  # K and N not multiples of the tile
+    ([3, 9], 100, 50),  # a row pitch that is not a multiple of 16 bytes
+    ([0, 0, 40, 0], 512, 256),  # every row routed to one expert
+    ([2, 3, 1, 2, 4, 1, 2, 1], 1024, 512),  # decode
+    ([60, 40, 50, 70], 256, 392),  # 128-row batch tiles, an N tail
+    ([100, 130, 120, 150], 4112, 256),  # K not a multiple of 64
+    ([0, 1, 7, 64, 65, 256, 257, 600], 512, 392),  # groups of every size around the tiles
+    ([0, 0, 600, 0], 4160, 136),  # all rows in one expert, K not a multiple of 256
+]
+
+
+def _batch_takes(k, n, e):
+    return k % 16 == 0 and n % 8 == 0 and e <= 16
+
+
 @pytest.mark.parametrize(
-    "sizes,k,n",
-    [
-        ([37, 0, 129, 61], 160, 96),  # an empty expert
-        ([0, 1, 0], 64, 64),  # one row
-        ([5, 0, 13], 208, 333),  # K and N not multiples of the tile
-        ([3, 9], 100, 50),  # a row pitch that is not a multiple of 16 bytes
-        ([0, 0, 40, 0], 512, 256),  # every row routed to one expert
-        ([2, 3, 1, 2, 4, 1, 2, 1], 1024, 512),  # decode
-    ],
+    "sizes,k,n,route",
+    [(*c, r) for c in _INT8_CASES for r in ("decode", "batch")
+     if r == "decode" or _batch_takes(c[1], c[2], len(c[0]))],
 )
-def test_gmm_int8(dev, monkeypatch, sizes, k, n, bm):
-    """Each case at both m-tiles, whatever its mean group size."""
+def test_gmm_int8(dev, monkeypatch, sizes, k, n, route):
+    """Each case on each route that takes its shape, whatever its mean
+    group size; the launch is counted once, on that route."""
     from ptdeco_tpu_torch.ops import gmm_int8
 
-    monkeypatch.setattr(gmm_int8, "block_rows", lambda m, e, sizes: bm)
+    monkeypatch.setattr(gmm_int8, "kernel_route", lambda m, k, n, e: route)
     lhs, w_q, scales, group_sizes = _int8_case(dev, sizes, k, n)
     before = ops.grouped_matmul_int8.launches
+    routes = dict(ops.grouped_matmul_int8.route_launches)
     out = ops.grouped_matmul_int8(lhs, w_q, scales, group_sizes)
     torch.cuda.synchronize()
     assert ops.grouped_matmul_int8.launches == before + 1
+    assert ops.grouped_matmul_int8.route_launches[route] == routes[route] + 1
     _assert_within(out, ops.grouped_matmul_int8_plain(lhs, w_q, scales, group_sizes))
 
 
-@pytest.mark.parametrize("bm", [16, 64])
-def test_gmm_int8_reads_no_weight_for_an_empty_tile(dev, bm):
+@pytest.mark.parametrize("k,n", [(4096, 1024), (14336, 512), (4160, 392)])
+def test_gmm_int8_split_k_is_deterministic(dev, k, n):
+    """The decode route at decode's rows with K split over a cluster: the
+    partials are summed in a fixed order, so two runs give the same bits."""
+    from ptdeco_tpu_torch.ops import gmm_int8
+
+    sizes = [2, 1, 0, 2, 1, 1, 0, 1]
+    m = sum(sizes)
+    assert gmm_int8.kernel_route(m, k, n, len(sizes)) == "decode"
+    ks, _ = gmm_int8.decode_split(m, k, n, len(sizes), gmm_int8._sm_count(dev.index or 0))
+    assert ks > 1
+    lhs, w_q, scales, group_sizes = _int8_case(dev, sizes, k, n)
+    first = ops.grouped_matmul_int8(lhs, w_q, scales, group_sizes)
+    second = ops.grouped_matmul_int8(lhs, w_q, scales, group_sizes)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_within(first, ops.grouped_matmul_int8_plain(lhs, w_q, scales, group_sizes))
+
+
+@pytest.mark.parametrize("route", ["decode", "batch"])
+def test_gmm_int8_reads_no_weight_for_an_empty_tile(dev, route):
     """An unrouted expert's pointers are null: any read of them (by its own
     tile slot or by a trailing empty slot) faults, so a clean run shows that
-    empty slots read no weight."""
+    empty slots read no weight.  The batch route encodes no tensor map for
+    a null grid."""
     from ptdeco_tpu_torch.ops import _build, gmm_int8
 
-    sizes, k, n = [3, 0, 5, 0], 256, 384
+    sizes, k, n = ([3, 0, 5, 0], 256, 384) if route == "decode" else ([90, 0, 70, 0], 256, 384)
     lhs, w_q, scales, group_sizes = _int8_case(dev, sizes, k, n)
+    m, e = lhs.shape[0], len(sizes)
+    assert gmm_int8.kernel_route(m, k, n, e) == route
     live = [s > 0 for s in sizes]
-    ptrs = torch.tensor([w.data_ptr() if ok else 0 for w, ok in zip(w_q, live)], device=dev)
     sptrs = torch.tensor([s.data_ptr() if ok else 0 for s, ok in zip(scales, live)], device=dev)
-    out = torch.empty(lhs.shape[0], n, device=dev, dtype=torch.bfloat16)
-    fn = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8", gmm_int8._ARGTYPES)
-    rc = fn(lhs.data_ptr(), ptrs.data_ptr(), sptrs.data_ptr(), group_sizes.data_ptr(),
-            len(sizes), out.data_ptr(), lhs.shape[0], k, n, bm,
-            torch.cuda.current_stream().cuda_stream)
+    out = torch.empty(m, n, device=dev, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    if route == "decode":
+        ptrs = torch.tensor([w.data_ptr() if ok else 0 for w, ok in zip(w_q, live)], device=dev)
+        ks, steps = gmm_int8.decode_split(m, k, n, e, gmm_int8._sm_count(dev.index or 0))
+        fn = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_decode",
+                                    gmm_int8._DECODE_ARGTYPES)
+        rc = fn(lhs.data_ptr(), ptrs.data_ptr(), sptrs.data_ptr(), group_sizes.data_ptr(), e,
+                out.data_ptr(), m, k, n, ks, steps, gmm_int8.DECODE_COLS,
+                gmm_int8.DECODE_BLOCK_K, stream)
+    else:
+        ptrs = (ctypes.c_uint64 * e)(*[w.data_ptr() if ok else 0 for w, ok in zip(w_q, live)])
+        fn = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_batch", gmm_int8._BATCH_ARGTYPES)
+        rc = fn(lhs.data_ptr(), ptrs, sptrs.data_ptr(), group_sizes.data_ptr(), e,
+                out.data_ptr(), m, k, n, gmm_int8.batch_rows(m, e), stream)
     assert rc == 0
     torch.cuda.synchronize()
     _assert_within(out, ops.grouped_matmul_int8_plain(lhs, w_q, scales, group_sizes))
 
 
 def test_gmm_int8_rejects_unsupported(dev):
+    from ptdeco_tpu_torch.ops import _build, gmm_int8
+
     lhs, w_q, scales, group_sizes = _int8_case(dev, [4, 4], 64, 32)
     with pytest.raises(ValueError):
         ops.grouped_matmul_int8(lhs, w_q, scales, group_sizes[:1])
     with pytest.raises(ValueError):
         ops.grouped_matmul_int8(lhs.float(), w_q, scales, group_sizes)
+    # the C entries refuse what their route does not take
+    out = torch.empty(8, 32, device=dev, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    table = _build.pointer_table(scales).data_ptr()
+    batch = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_batch", gmm_int8._BATCH_ARGTYPES)
+    host = _build.host_pointers(w_q)
+    for m, k, n, e, bn in ((8, 60, 32, 2, 128), (8, 64, 30, 2, 128), (8, 64, 32, 17, 128),
+                           (8, 64, 32, 2, 64)):
+        assert batch(lhs.data_ptr(), host, table, group_sizes.data_ptr(), e, out.data_ptr(),
+                     m, k, n, bn, stream) != 0
+    decode = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_decode",
+                                    gmm_int8._DECODE_ARGTYPES)
+    wt = _build.pointer_table(w_q).data_ptr()
+    cols, bk = gmm_int8.DECODE_COLS, gmm_int8.DECODE_BLOCK_K
+    for ks, steps, c, b in ((9, 1, cols, bk), (1, 0, cols, bk), (1, 1, cols, bk // 2),
+                            (1, 1, 2 * cols, bk)):
+        assert decode(lhs.data_ptr(), wt, table, group_sizes.data_ptr(), 2, out.data_ptr(),
+                      8, 64, 32, ks, steps, c, b, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_moe_layer_routes_through_the_kernels(dev):
@@ -431,4 +498,5 @@ def test_moe_layer_routes_through_the_kernels(dev):
         quant.quantize_for_serving(moe)
         y8 = moe(x)
     assert ops.launch_counts()["gmm_int8"] == 3
+    assert ops.grouped_matmul_int8.route_launches["decode"] == 3
     torch.testing.assert_close(y8.float(), y.float(), rtol=5e-2, atol=5e-2)

@@ -159,6 +159,24 @@ def test_logits_match_jax_on_each_route(monkeypatch, route):
     np.testing.assert_allclose(y_torch, y_jax, atol=1e-4)
 
 
+def test_int8_route_past_512_rows_matches_jax(monkeypatch):
+    """On the card the int8 route takes every row count (measured on an
+    H100), past the TPU's 512: a prefill of 4 x 80 tokens routes 640 rows
+    through the port's int8 route, held against the JAX int8 kernel in
+    interpret mode."""
+    jm, tm = tiny_mixtral()
+    jm = jquant.quantize_for_serving(jm)
+    tquant.quantize_for_serving(tm)
+    calls = _route(monkeypatch, "int8")
+    ids = probe_ids(shape=(4, 80))
+    assert ids.size * MIXTRAL_HF["num_experts_per_tok"] > 512
+    y_jax = jax_logits(jm, ids)
+    with torch.no_grad():
+        y_torch = tm({"input_ids": torch.from_numpy(ids).long()}).numpy()
+    assert calls["n"] == 2  # one call per layer, on the int8 route
+    np.testing.assert_allclose(y_torch, y_jax, atol=1e-4)
+
+
 def test_hooked_expert_takes_the_dense_route_and_sees_routed_rows_only():
     cfg = tmodels.TransformerConfig(
         vocab_size=64, dim=16, n_layers=1, n_heads=2, n_kv_heads=2, hidden_dim=32,

@@ -218,3 +218,71 @@ def test_grouped_route_rule():
     assert kernel_route(4096, 0, 512, 8) == "mma_sync"
     assert kernel_route(40 * 17, 256, 512, MAX_TMA_EXPERTS + 1) == "mma_sync"
     assert all(wgmma_smem_bytes(bm) <= 232448 for bm in (64, 128))
+
+
+def test_int8_route_rule():
+    from ptdeco_tpu_torch.ops.gmm import MAX_TMA_EXPERTS
+    from ptdeco_tpu_torch.ops.gmm_int8 import batch_rows, kernel_route
+
+    assert kernel_route(8, 4096, 14336, 8) == "decode"  # a decode step of batch 4
+    assert kernel_route(16, 14336, 4096, 8) == "decode"  # batch 8
+    assert kernel_route(128, 4096, 14336, 8) == "decode"  # a mean group of 16 rows
+    assert kernel_route(129, 4096, 14336, 8) == "batch"
+    assert kernel_route(512, 4096, 14336, 8) == "batch" and batch_rows(512, 8) == 128
+    assert kernel_route(1024, 4096, 14336, 8) == "batch" and batch_rows(1024, 8) == 128
+    assert batch_rows(1032, 8) == 256
+    assert kernel_route(4096, 14336, 4096, 8) == "batch" and batch_rows(4096, 8) == 256
+    assert kernel_route(4096, 100, 512, 8) == "decode"  # K not a multiple of 16 (TMA's pitch)
+    assert kernel_route(4096, 4104, 512, 8) == "decode"
+    assert kernel_route(4096, 256, 333, 8) == "decode"  # N not a multiple of 8
+    assert kernel_route(4096, 0, 512, 8) == "decode"
+    assert kernel_route(40 * 17, 256, 512, MAX_TMA_EXPERTS + 1) == "decode"
+    assert kernel_route(40 * 16, 256, 512, MAX_TMA_EXPERTS) == "batch"
+
+
+@pytest.mark.parametrize(
+    "sizes,k,n",
+    [([2, 1, 0, 2, 1, 1, 0, 1], 4096, 14336), ([2, 1, 0, 2, 1, 1, 0, 1], 14336, 4096),
+     ([2, 3, 1, 2, 4, 1, 2, 1], 4160, 392), ([0, 1, 7, 64, 65, 256, 257, 600], 512, 200),
+     ([0, 0, 40, 0], 100, 50), ([3, 0, 5, 0], 0, 128)],
+)
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("cols,block_k", [(128, 256), (64, 512)])
+def test_decode_schedule_reduces_each_unit_once(sizes, k, n, sms, cols, block_k):
+    """Every routed (row, column tile) is one cluster of ks CTAs whose
+    k-ranges tile [0, k) in rank order: one deterministic reduction each."""
+    from ptdeco_tpu_torch.ops.gmm_int8 import (
+        DECODE_ROWS, MAX_SPLIT, decode_schedule, decode_split)
+
+    m = sum(sizes)
+    ks, steps = decode_split(m, k, n, len(sizes), sms, block_k, cols)
+    assert 1 <= ks <= MAX_SPLIT and ks * steps * block_k >= k
+    assert k == 0 or (ks - 1) * steps * block_k < k  # no split without work
+    ctas = decode_schedule(sizes, m, k, n, ks, steps, block_k, cols)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    units: dict[tuple, list] = {}
+    for e, r0, r1, n0, k0, k1 in ctas:
+        assert starts[e] <= r0 < r1 <= starts[e + 1] and r1 - r0 <= DECODE_ROWS
+        assert n0 % cols == 0 and n0 < n
+        units.setdefault((e, r0, r1, n0), []).append((k0, k1))
+    cover = np.zeros((m, -(-n // cols)), np.int64)
+    for (e, r0, r1, n0), ranges in units.items():
+        assert len(ranges) == ks
+        assert [a for a, _ in ranges] == sorted(a for a, _ in ranges)
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert all(ranges[i][1] == ranges[i + 1][0] for i in range(ks - 1))
+        cover[r0:r1, n0 // cols] += 1
+    assert (cover == 1).all()
+
+
+def test_decode_split_covers_the_card_at_the_decode_shapes():
+    """A decode step of batch 4 over 8 experts: the gate/up and the narrow
+    down projection both split K until the grid holds several CTAs an SM."""
+    from ptdeco_tpu_torch.ops.gmm_int8 import (
+        DECODE_COLS, DECODE_CTAS_PER_SM, decode_split)
+
+    for k, n in ((4096, 14336), (14336, 4096)):
+        ks, _ = decode_split(8, k, n, 8, 132)
+        assert ks * 8 * -(-n // DECODE_COLS) >= DECODE_CTAS_PER_SM * 132
+    assert decode_split(8, 4096, 14336, 8, 132)[0] < decode_split(8, 14336, 4096, 8, 132)[0]
+    assert decode_split(4096, 4096, 14336, 8, 132)[0] == 1  # enough units already

@@ -12,9 +12,11 @@ warm in L2, called from Python (``eager_ms``) and replayed from a CUDA
 graph (``ms``, device time), as ``chip_smoke.py`` times them; the device
 time of its kernels from torch.profiler (``device_ms``); for flash
 attention and the bf16 grouped matmul the one PyTorch call that computes
-the same function, replayed from a graph (``library_ms``); the grouped
-kernel's route where the checkout names one (``path``); and the card's
-name and power limit.  ``--only NAME`` (repeatable) times one kernel's
+the same function, replayed from a graph (``library_ms``); for the int8
+grouped matmul (at the decode steps' 8 and 16 rows, 512 rows and the
+prefill's 4096) the dequantize route beside it, by events
+(``dequant_route_ms``); the grouped kernels' route where the checkout names
+one (``path``); and the card's name and power limit.  ``--only NAME`` (repeatable) times one kernel's
 shapes.
 """
 
@@ -48,7 +50,9 @@ GROUPED_SHAPES = ((2048, 4096, 14336, 100 + 2048 + 4096),
                   (2048, 14336, 4096, 100 + 2048 + 14336),
                   (8, 4096, 14336, 100 + 8 + 4096), (8, 14336, 4096, 100 + 8 + 14336))
 GMM_INT8_SHAPES = ((4, 4096, 14336, 200 + 4 + 4096), (4, 14336, 4096, 200 + 4 + 14336),
-                   (8, 4096, 14336, 200 + 8 + 4096), (256, 4096, 14336, 200 + 256 + 4096))
+                   (8, 4096, 14336, 200 + 8 + 4096), (256, 4096, 14336, 200 + 256 + 4096),
+                   (2048, 4096, 14336, 200 + 2048 + 4096),
+                   (2048, 14336, 4096, 200 + 2048 + 14336))
 
 
 def routed_group_sizes(n_tokens: int, seed: int, n_experts: int = 8, top_k: int = 2):
@@ -122,7 +126,7 @@ def main() -> None:
         sys.exit("kernel_ab.py needs a CUDA device")
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
     from ptdeco_tpu_torch import ops
-    from ptdeco_tpu_torch.ops import gmm
+    from ptdeco_tpu_torch.ops import gmm, gmm_int8
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -181,9 +185,18 @@ def main() -> None:
                for _ in sizes]
         scales = [(0.5 + 0.5 * torch.rand(n, device=dev, generator=g)) / (127 * k ** 0.5)
                   for _ in sizes]
+        def dequant_route():  # every grid dequantized, then the bf16 grouped kernel
+            deq = [w.to(bf) * s.to(bf)[:, None] for w, s in zip(w_q, scales)]
+            return ops.grouped_matmul(xg, deq, gs)
+
         t = times(lambda: ops.grouped_matmul_int8(xg, w_q, scales, gs))
+        # the dequantize route allocates its copies each call: by events
+        t["dequant_route_ms"] = time_ms(dequant_route)
+        path = (gmm_int8.kernel_route(m, k, n, len(sizes))
+                if hasattr(gmm_int8, "kernel_route") else None)
         print(json.dumps({"tag": args.tag, "kernel": "gmm_int8", "M": m, "K": k, "N": n,
-                          "group_sizes": sizes.tolist(), **t, "card": card}), flush=True)
+                          "group_sizes": sizes.tolist(), "path": path, **t, "card": card}),
+              flush=True)
         del xg, w_q, scales
         torch.cuda.empty_cache()
 
