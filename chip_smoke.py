@@ -16,12 +16,21 @@ layers, with random weights from a seeded torch.Generator on the card:
 greedy ``generate`` on 4 prompts x 512 tokens with 16 new tokens, in bf16
 and then after ``quantize_for_serving`` in weight-only int8.
 
+Slice 6 drives the rest of ``dwain.decompose`` on the same TinyLlama-width
+model: interleaved full fine-tuning with covariances precomputed in 2
+splits and the randomized EVD, then LoRA fine-tuning with the exact eigh
+and a checkpoint directory that a second walk replays; and bench.py's
+workload, the 4-layer d 2048 f32 MLP, in its three modes.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
 decompose, artifact, serve, generate (slice 1's fused model), reference
 (the served model against the same model on the CPU in f32, on a short
-input), moe_serve bf16, moe_reference bf16 (against its f32 twin on the
+input), decompose_ft (the walk with full fine-tuning, its artifact and
+fused serve), finetune_grad (one training step against the f32 twin's,
+and a planted fault), decompose_ft_lora (the LoRA walk, its replay, and
+LoRA logits before and after the merge), dwain_mlp, moe_serve bf16, moe_reference bf16 (against its f32 twin on the
 card), moe_serve int8, moe_reference int8 (the int8 run's step logits and a
 128-token forward against the quantized model's f32 twin), kernels (launch
 counts of each path).  Then the card's name and power limit as nvidia-smi
@@ -37,6 +46,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import logging
 import math
 import pathlib
 import statistics
@@ -52,10 +62,12 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
 
 import ptdeco_tpu_torch as ptt  # noqa: E402
-from ptdeco_tpu_torch import dwain, engine, models, nn as pnn, ops, quant, serving, utils  # noqa: E402
+from ptdeco_tpu_torch import dwain, engine, finetune, models, nn as pnn, ops, quant, serving, utils  # noqa: E402
+from ptdeco_tpu_torch.dwain import decomposition  # noqa: E402
 from ptdeco_tpu_torch.ops import _build, gmm, gmm_int8  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 
 SEQ = 1024
@@ -71,6 +83,26 @@ DECOMPOSE_ARGS = dict(
     nsr_final_threshold=0.5,
     min_rank=32,
 )
+
+# Slice 6's walks: interleaved fine-tuning of the last 8 decomposed pairs,
+# 20 steps at lr 1e-4 after every accepted site
+FT_LAST_N, FT_STEPS, FT_LR = 8, 20, 1e-4
+# One training step, bf16 on the card against its f32 twin, about 3x the
+# readings on an H100 at seed 0 (PERF.md): loss 2.5e-4 apart; over the 16
+# trained factors' gradients the largest difference 8.8e-3 of the largest
+# |g|, RMS-relative 8.5e-3, gain error 1.25e-3 (a gradient scaled by 1.02
+# reads a gain error of 0.019 and must fail)
+LOSS_ABS_DIFF = 1e-3
+GRAD_MAX_REL, GRAD_RMS_REL, GRAD_GAIN_ERR = 0.025, 0.025, 0.004
+# LoRA adapters planted for the merge check add this RMS, relative to the
+# base weight's
+LORA_DELTA_REL = 0.05
+# bench.py:99-130's workload: 4-layer d 2048 f32 MLP, batch 256, rank-64
+# Gaussian calibration
+MLP_DIM, MLP_DEPTH, MLP_BATCH, MLP_RANK = 2048, 4, 256, 64
+# its fused serve against its pairs, both f32: a first limit, set before a
+# reading (f32 relative rounding is about 6e-8 a step)
+MLP_SERVE_MAX_ABS, MLP_SERVE_RMS_REL = 1e-4, 1e-5
 
 # Model-level gates, about 2-3x the readings on an H100 at seed 0 (PERF.md):
 # fused vs unfused logits read max 0.031 (one bf16 ulp), RMS-relative 1.8e-3;
@@ -169,13 +201,14 @@ def time_ms(fn, reps: int = 25, warmup: int = 3, graph: bool = False) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, shape,
-                 extra_fns=None, graph=False, plain_graph=True, path=None):
+                 extra_fns=None, graph=False, plain_graph=True, path=None,
+                 peak=PEAK_BF16_FLOPS):
     """Hold the kernel against its plain version elementwise: every output
     must satisfy |out - ref| <= tol_fn(ref), a tensor of per-element limits.
     The record is printed before a failure is raised.  ``library_fn`` may
@@ -185,7 +218,7 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, s
     time) and ``eager_ms`` is the kernel's wrapper called from Python;
     ``plain_graph=False`` times a plain version that syncs with the host
     (which a graph cannot capture) by events.  ``path`` names the kernel's
-    route for this shape."""
+    route for this shape; ``peak`` is the card's rate for its operations."""
     out = kernel_fn().float()
     ref = plain_fn().float()
     torch.cuda.synchronize()
@@ -193,7 +226,7 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, s
     tol = tol_fn(ref)
     # 0 / 0 where both are exact; a NaN in the kernel's output stays NaN
     err_to_tol = float(torch.where(diff == 0, 0.0, diff / tol).max())
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = bound(flops, nbytes, peak)
     rec = {
         "name": name,
         **({"path": path} if path else {}),
@@ -305,6 +338,28 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
             shape={"n": n, "d_in": d_in, "r": r, "d_out": d_out, "bias": with_bias,
                    "dtype": "bf16"},
             graph=True,
+        ))
+
+    # the f32 path: dwain_mlp's served pairs (rank 32 at d 2048, with the
+    # second Linear's bias), and a rank the Pallas kernel's gate admits
+    for n, d_in, r, d_out in ((MLP_BATCH, MLP_DIM, 32, MLP_DIM), (MLP_BATCH, MLP_DIM, 256, MLP_DIM)):
+        x = torch.randn(n, d_in, device=dev, generator=g)
+        bias = torch.randn(d_out, device=dev, generator=g)
+        k1 = (torch.randn(r, d_in, device=dev, generator=g) / d_in ** 0.5).t()
+        k2 = (torch.randn(d_out, r, device=dev, generator=g) / r ** 0.5).t()
+        recs["lowrank_matmul"].append(check_kernel(
+            "lowrank_matmul",
+            lambda: ops.lowrank_matmul(x, k1, k2, bias),
+            lambda: ops.lowrank_matmul_plain(x, k1, k2, bias),
+            lambda: torch.addmm(bias, x @ k1, k2),
+            flops=2 * n * r * (d_in + d_out),
+            nbytes=4 * (n * d_in + r * d_in + r * d_out + d_out + n * d_out),
+            # f32 sums of f32 products in another order: the error of a sum
+            # of K terms is about sqrt(K) * 2^-24 of their RMS, far under
+            # 2^-14 of the outputs' RMS
+            tol_fn=lambda ref: 2.0 ** -14 * (ref.abs() + ref.square().mean().sqrt()),
+            shape={"n": n, "d_in": d_in, "r": r, "d_out": d_out, "bias": True, "dtype": "f32"},
+            graph=True, path="f32", peak=PEAK_F32_FLOPS,
         ))
     return recs
 
@@ -764,6 +819,335 @@ def moe_serve(dev, seed: int) -> dict[str, dict[str, int]]:
     return {"moe_bf16": bf16["counts"], "moe_int8": int8["counts"]}
 
 
+# --- slice 6: interleaved fine-tuning, precompute, randomized EVD, resume,
+# and bench.py's MLP workload, through dwain.decompose --------------------
+
+
+def artifact_round_trip(model, config, cfg, probe, dev, what: str) -> dict:
+    """Write the artifact (decompose_config.json + decompose_state_dict.pt),
+    reload it into a fresh model and require the probe's logits bit-equal:
+    the same weights through the same kernels."""
+    with torch.no_grad():
+        y = model(probe)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        with open(tmp / "decompose_config.json", "w") as f:
+            json.dump(config, f)
+        utils.save_state_dict_pt(utils.state_dict(model), str(tmp / "decompose_state_dict.pt"))
+        sd_bytes = (tmp / "decompose_state_dict.pt").stat().st_size
+        with open(tmp / "decompose_config.json") as f:
+            config2 = json.load(f)
+        fresh = models.CausalLM(cfg, device=dev)
+        utils.apply_decompose_config(fresh, config2)
+        utils.load_state_dict(fresh, utils.load_state_dict_pt(str(tmp / "decompose_state_dict.pt")))
+    with torch.no_grad():
+        y_fresh = fresh(probe)
+    return {"state_dict_bytes": sd_bytes, **logits_agree(y_fresh, y, 0.0, 0.0, what)}
+
+
+class _EighLog(logging.Handler):
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.records: list[dict] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        if hasattr(record, "eigh_job_s"):
+            self.records.append({"job_s": record.eigh_job_s, "wait_s": record.eigh_wait_s})
+
+
+@contextlib.contextmanager
+def pipelined_eigh_log():
+    """What ``decompose`` logs of its pipelined eigh in the block: per walk
+    that precomputed, the worker's seconds in eigh jobs (its stream
+    synchronized) and the walk's seconds blocked on them."""
+    log, handler = logging.getLogger(decomposition.__name__), _EighLog()
+    level = log.level
+    log.setLevel(logging.INFO)
+    log.addHandler(handler)
+    try:
+        yield handler.records
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
+class TimedFinetune:
+    """Wraps a ``finetune_fn``: its calls, seconds (synchronized) and the
+    flash launches made inside it."""
+
+    def __init__(self, fn) -> None:
+        self.fn, self.calls, self.seconds, self.flash_launches = fn, 0, 0.0, 0
+
+    def __call__(self, module, names):
+        torch.cuda.synchronize()
+        t0, before = time.perf_counter(), ops.flash_attention.launches
+        out = self.fn(module, names)
+        torch.cuda.synchronize()
+        self.calls += 1
+        self.seconds += time.perf_counter() - t0
+        self.flash_launches += ops.flash_attention.launches - before
+        return out
+
+
+def ft_walk(dev, cfg, weights, seed: int, mode: str, **extra):
+    """The 2-layer TinyLlama-width walk with interleaved ``mode`` fine-tuning
+    (the last 8 decomposed pairs, 20 steps at lr 1e-4 on token batches from
+    seed + 5); returns the model, config, wall seconds, the fine-tune's
+    record and the pipelined eigh's record (required where it precomputes)."""
+    model = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev), weights)
+    ft = TimedFinetune(finetune.make_finetune_fn(
+        mode, token_batches(cfg.vocab_size, seed + 5), models.ce_loss,
+        num_last_modules_to_finetune=FT_LAST_N, num_steps=FT_STEPS, lr=FT_LR))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with pipelined_eigh_log() as eighs:
+        model, config = dwain.decompose(
+            module=model,
+            data_iterator=token_batches(cfg.vocab_size, seed + 1),
+            metric_iterator=token_batches(cfg.vocab_size, seed + 2),
+            loss_fn=models.ce_loss,
+            finetune_fn=ft,
+            device=dev,
+            **DECOMPOSE_ARGS,
+            **extra,
+        )
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if extra.get("precomputing_covariance_num_splits") and len(eighs) != 1:
+        raise AssertionError(f"ft_walk {mode}: {len(eighs)} pipelined eigh records, not 1")
+    return model, config, wall, ft, eighs
+
+
+def overlap(eighs) -> dict:
+    job = sum(e["job_s"] for e in eighs)
+    wait = sum(e["wait_s"] for e in eighs)
+    return {"eigh_job_s": job, "eigh_wait_s": wait,
+            "eigh_hidden_share": (job - wait) / job if job > 0 else None}
+
+
+def decompose_ft(dev, cfg, weights, seed: int, probe) -> tuple:
+    """Interleaved full fine-tuning, covariances precomputed in 2 splits, the
+    randomized EVD; then the fused serve and the artifact round trip.
+    Returns the decomposed model (pairs), its decompose names and the
+    path's launch counts."""
+    ops.reset_launch_counts()
+    model, config, wall, ft, eighs = ft_walk(
+        dev, cfg, weights, seed, "full",
+        precomputing_covariance_num_splits=2, eigh_method="randomized")
+    walk_counts = ops.launch_counts()
+    if not config or ft.flash_launches <= 0:
+        raise AssertionError(f"decompose_ft: decomposed {len(config)} sites, flash launches "
+                             f"in the fine-tune {ft.flash_launches}")
+    got = artifact_round_trip(model, config, cfg, probe, dev, "decompose_ft_artifact")
+    with torch.no_grad():
+        y_pairs = model(probe)
+        pnn.fuse_factor_pairs(model)
+        before = ops.lowrank_matmul.launches
+        y_fused = model(probe)
+        fused_launches = ops.lowrank_matmul.launches - before
+        pnn.unfuse_factor_pairs(model)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require_launches(counts, ("syrk_gram", "flash_attention", "lowrank_matmul"), "decompose_ft")
+    serve = logits_agree(y_fused, y_pairs, FUSED_MAX_ABS, FUSED_RMS_REL, "decompose_ft_serve")
+    emit({"phase": "decompose_ft", "wall_s": wall, "finetune_s": ft.seconds,
+          "finetune_calls": ft.calls, "finetune_flash_launches": ft.flash_launches,
+          "decomposed": len(config),
+          "proportions": {k: v["__meta__"]["proportion"] for k, v in config.items()},
+          **overlap(eighs), "walk_launches": walk_counts, "launches": counts,
+          "fused_lowrank_launches": fused_launches, "artifact": got, "serve": serve})
+    return model, list(config), counts
+
+
+def gradient_gate(g, ref, scale: float = 1.0) -> dict:
+    """``scale * g`` against ``ref`` (f32): the largest difference relative
+    to the largest |ref|, the RMS-relative difference and the gain error
+    |<g, ref> / <ref, ref> - 1| (a bias that rounding noise averages
+    out of), each beside its limit; ``ok`` when all hold."""
+    g, ref = scale * g.float(), ref.float()
+    d = g - ref
+    got = {"max_rel": float(d.abs().max() / ref.abs().max()),
+           "rms_rel": float(d.square().mean().sqrt() / ref.square().mean().sqrt()),
+           "gain_err": abs(float((g * ref).sum() / ref.square().sum()) - 1.0)}
+    got["ok"] = (got["max_rel"] <= GRAD_MAX_REL and got["rms_rel"] <= GRAD_RMS_REL
+                 and got["gain_err"] <= GRAD_GAIN_ERR)
+    return got
+
+
+def training_step(model, names, batch) -> tuple[float, dict]:
+    """One ``finetune._run_training`` step on ``names`` (lr 0 at the first
+    update, so nothing moves); returns its loss and each trained
+    parameter's gradient."""
+    grads, losses = {}, []
+    params = dict(model.named_parameters())
+    trained = [n for n in params if any(n.startswith(m + ".") for m in names)]
+    handles = [params[n].register_hook(lambda g, n=n: grads.__setitem__(n, g.detach().clone()))
+               for n in trained]
+
+    def loss_fn(b, y):
+        loss = models.ce_loss(b, y)
+        losses.append(loss.detach())
+        return loss
+
+    try:
+        finetune._run_training(model, names, iter([batch]), loss_fn, engine.default_apply,
+                               1, FT_LR, torch.Generator().manual_seed(0))
+    finally:
+        for h in handles:
+            h.remove()
+    return float(losses[0]), grads
+
+
+def finetune_grad(model, names, cfg, seed: int) -> None:
+    """One training step of the decomposed bf16 model (flash forward, the
+    plain recomputed backward) against the same step of its f32 twin
+    (plain attention): the loss and each trained factor's gradient gated;
+    then a planted fault (the bf16 gradients scaled by 1.02) must fail the
+    gate."""
+    batch = utils.to_device(next(token_batches(cfg.vocab_size, seed + 6)), model.lm_head.weight.device)
+    to_ft = names[-FT_LAST_N:]
+    ops.reset_launch_counts()
+    loss, grads = training_step(model, to_ft, batch)
+    counts = ops.launch_counts()
+    twin = f32_twin(model)
+    loss32, grads32 = training_step(twin, to_ft, batch)
+    del twin
+    torch.cuda.empty_cache()
+    if set(grads) != set(grads32) or not grads:
+        raise AssertionError(f"finetune_grad: gradients of {sorted(grads)} vs {sorted(grads32)}")
+    per = {n: gradient_gate(grads[n], grads32[n]) for n in sorted(grads)}
+    planted = {n: gradient_gate(grads[n], grads32[n], 1.02) for n in sorted(grads)}
+    worst = {k: max(r[k] for r in per.values()) for k in ("max_rel", "rms_rel", "gain_err")}
+    rec = {"phase": "finetune_grad", "trained_factors": len(per), "loss_bf16": loss,
+           "loss_f32": loss32, "loss_abs_diff": abs(loss - loss32), "limit_loss": LOSS_ABS_DIFF,
+           "worst": worst, "limits": {"max_rel": GRAD_MAX_REL, "rms_rel": GRAD_RMS_REL,
+                                      "gain_err": GRAD_GAIN_ERR},
+           "planted_x1.02_caught": sum(not r["ok"] for r in planted.values()),
+           "planted_worst_gain_err": max(r["gain_err"] for r in planted.values()),
+           "launches": counts}
+    ok = abs(loss - loss32) <= LOSS_ABS_DIFF and all(r["ok"] for r in per.values())
+    emit({**rec, "ok": ok})
+    require_launches(counts, ("flash_attention",), "finetune_grad")
+    if not ok:
+        raise AssertionError(f"finetune_grad: {rec} {per}")
+    if not all(not r["ok"] for r in planted.values()):
+        raise AssertionError(f"finetune_grad: the gate passed a gradient scaled by 1.02: {planted}")
+
+
+def decompose_ft_lora(dev, cfg, weights, seed: int, probe) -> dict:
+    """Interleaved LoRA fine-tuning with the exact eigh and a checkpoint
+    directory; a second walk on a fresh model with that directory must
+    replay every site, to an equal config and bit-equal logits.  Then a
+    LoRA model's logits before and after ``merge_lora``."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        ops.reset_launch_counts()
+        model, config, wall, ft, _ = ft_walk(dev, cfg, weights, seed, "lora",
+                                             eigh_method="exact", checkpoint_dir=ckpt)
+        counts = ops.launch_counts()
+        progress = (pathlib.Path(ckpt) / "progress.jsonl").read_text().splitlines()
+        resumed, config2, wall2, ft2, _ = ft_walk(dev, cfg, weights, seed, "lora",
+                                                  eigh_method="exact", checkpoint_dir=ckpt)
+    if not config or ft.calls <= 0 or ft.flash_launches <= 0:
+        raise AssertionError(f"decompose_ft_lora: {len(config)} sites, {ft.calls} fine-tunes")
+    if config2 != config or ft2.calls:
+        raise AssertionError("decompose_ft_lora: the resumed walk did not replay the first")
+    with torch.no_grad():
+        replay = logits_agree(resumed(probe), model(probe), 0.0, 0.0, "decompose_ft_lora_resume")
+    del resumed
+    require_launches(counts, ("syrk_gram", "flash_attention"), "decompose_ft_lora")
+
+    # adapters with a non-zero B on every pair: unmerged against merged
+    gen = torch.Generator().manual_seed(seed + 7)
+    for name in config:
+        for j in ("0", "1"):
+            base = pnn.get_submodule(model, f"{name}.{j}")
+            lora = finetune.LoRALinear.attach(gen, base, 16, 8.0, dropout=0.0)
+            with torch.no_grad():
+                lora.lora_b.copy_(torch.randn(lora.lora_b.shape, generator=gen))
+                delta = lora.scale * (lora.lora_b @ lora.lora_a)
+                rms = base.weight.float().square().mean().sqrt()
+                lora.lora_b.mul_(LORA_DELTA_REL * rms / delta.square().mean().sqrt())
+            pnn.replace_submodule(model, f"{name}.{j}", lora)
+    model.eval()
+    with torch.no_grad():
+        y_lora = model(probe)
+        finetune.merge_lora(model)
+        y_merged = model(probe)
+    merge = logits_agree(y_merged, y_lora, REF_MAX_ABS, REF_RMS_REL, "lora_merge")
+    emit({"phase": "decompose_ft_lora", "wall_s": wall, "finetune_s": ft.seconds,
+          "finetune_calls": ft.calls, "finetune_flash_launches": ft.flash_launches,
+          "decomposed": len(config), "progress_lines": len(progress),
+          "resume_wall_s": wall2, "resume": replay,
+          "merge_vs_unmerged": merge, "launches": counts})
+    return counts
+
+
+def gaussian_batches(seed: int, dev):
+    """bench.py's rank-64 Gaussian batches, made on the card from the seed:
+    z (256, 64) @ P (64, 2048), P from seed 123."""
+    proj = torch.randn(MLP_RANK, MLP_DIM, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(123))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    while True:
+        yield {"inp": torch.randn(MLP_BATCH, MLP_RANK, device=dev, generator=gen) @ proj}
+
+
+def dwain_mlp(dev, seed: int) -> dict[str, int]:
+    """bench.py:99-130's workload through the port: the 4-layer d 2048 f32
+    MLP in the modes precompute (1 split, randomized), serial (randomized)
+    and serial-exact-f64, rank 32 required at every site; then its pairs
+    fused and served one batch through the low-rank kernel's f32 path.  The
+    walks launch no kernel: the model is f32 and the SYRK rule wants bf16,
+    as the JAX package's does."""
+    modes = {"precompute": dict(precomputing_covariance_num_splits=1, eigh_method="randomized"),
+             "serial": dict(eigh_method="randomized"), "serial-exact-f64": {}}
+    ops.reset_launch_counts()
+    rec, model = {}, None
+    for mode, extra in modes.items():
+        model = models.make_mlp(MLP_DIM, MLP_DEPTH, 16, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(seed))
+        it = gaussian_batches(seed + 1, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with pipelined_eigh_log() as eighs:
+            model, config = dwain.decompose(
+                module=model, data_iterator=it, metric_iterator=it,
+                loss_fn=lambda b, out: 0.01 * torch.mean(torch.square(out)),
+                num_data_steps=8, num_metric_steps=2, nsr_final_threshold=0.5, min_rank=32,
+                trade_off_factor=1000.0, reduction_factor=0.5, max_accepted_ppl_diff=1.0,
+                decompose_in_float64=True, blacklisted_module_names=["head"], device=dev,
+                **extra)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        proportions = {k: v["__meta__"]["proportion"] for k, v in config.items()}
+        if len(eighs) != ("precomputing_covariance_num_splits" in extra):
+            raise AssertionError(f"dwain_mlp {mode}: {len(eighs)} pipelined eigh records")
+        rec[mode] = {"wall_s": wall, "proportions": proportions,
+                     **(overlap(eighs) if eighs else {})}
+        if len(config) != MLP_DEPTH or any(p != 32 / MLP_DIM for p in proportions.values()):
+            emit({"phase": "dwain_mlp", "mode": mode, **rec[mode], "ok": False})
+            raise AssertionError(f"dwain_mlp {mode}: expected rank 32 at every site: {proportions}")
+    batch = next(gaussian_batches(seed + 2, dev))
+    walk_counts = ops.launch_counts()
+    with torch.no_grad():
+        y_pairs = model(batch)
+        pnn.fuse_factor_pairs(model)
+        y_fused = model(batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # f32 both ways (cuBLAS without TF32, the kernel's f32 path): sums in
+    # another order, four layers deep
+    served = logits_agree(y_fused, y_pairs, MLP_SERVE_MAX_ABS, MLP_SERVE_RMS_REL,
+                          "dwain_mlp_serve")
+    if any(walk_counts.values()) or counts["lowrank_matmul"] != MLP_DEPTH:
+        raise AssertionError(f"dwain_mlp: walk launches {walk_counts}, with the serve {counts}")
+    emit({"phase": "dwain_mlp", "dim": MLP_DIM, "depth": MLP_DEPTH, "batch": MLP_BATCH,
+          "modes": rec, "serve": served, "walk_launches": walk_counts, "launches": counts,
+          "note": "f32 model: the walks launch no kernel (SYRK takes bf16); the fused pairs "
+                  "take the low-rank kernel's f32 path"})
+    return counts
+
+
 def profiler(out_dir):
     if not out_dir:
         return contextlib.nullcontext()
@@ -850,23 +1234,7 @@ def main() -> None:
 
     with torch.no_grad():
         y_pairs = model(probe)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
-        with open(tmp / "decompose_config.json", "w") as f:
-            json.dump(config, f)
-        utils.save_state_dict_pt(utils.state_dict(model), str(tmp / "decompose_state_dict.pt"))
-        sd_bytes = (tmp / "decompose_state_dict.pt").stat().st_size
-        with open(tmp / "decompose_config.json") as f:
-            config2 = json.load(f)
-        fresh = models.CausalLM(cfg, device=dev)
-        utils.apply_decompose_config(fresh, config2)
-        utils.load_state_dict(fresh, utils.load_state_dict_pt(str(tmp / "decompose_state_dict.pt")))
-    with torch.no_grad():
-        y_fresh = fresh(probe)
-    # same weights and kernels: the reload must reproduce the logits
-    got = logits_agree(y_fresh, y_pairs, 0.0, 0.0, "artifact")
-    emit({"phase": "artifact", "state_dict_bytes": sd_bytes, **got})
-    del fresh
+    emit({"phase": "artifact", **artifact_round_trip(model, config, cfg, probe, dev, "artifact")})
 
     before = ops.lowrank_matmul.launches
     pnn.fuse_factor_pairs(model)
@@ -913,8 +1281,17 @@ def main() -> None:
           "ce_card": float(models.ce_loss(short, y_card)),
           "ce_cpu_f32": float(models.ce_loss(short, y_cpu))})
 
+    # --- slice 6: the rest of dwain.decompose ----------------------------
+    ft_model, ft_names, ft_counts = decompose_ft(dev, cfg, weights, args.seed, probe)
+    finetune_grad(ft_model, ft_names, cfg, args.seed)
+    del ft_model
+    torch.cuda.empty_cache()
+    lora_counts = decompose_ft_lora(dev, cfg, weights, args.seed, probe)
+    mlp_counts = dwain_mlp(dev, args.seed)
+
     by_path = {"decompose_serve": counts, "tinyllama_generate": gen["counts"],
-               **moe_serve(dev, args.seed)}
+               "decompose_ft": ft_counts, "decompose_ft_lora": lora_counts,
+               "dwain_mlp": mlp_counts, **moe_serve(dev, args.seed)}
     emit({"phase": "kernels", "launches": by_path})
     main_path = {"syrk_gram": "decompose_serve", "flash_attention": "decompose_serve",
                  "lowrank_matmul": "decompose_serve", "grouped_matmul": "moe_bf16",

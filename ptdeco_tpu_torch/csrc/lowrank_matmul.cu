@@ -48,8 +48,15 @@
 //     The hidden takes BM * (r_pad + 8) * 2 bytes; the wrapper halves the
 //     row tile for a large r and raises above the rank that fits at
 //     BM = 8 (10944), it never falls back.
+// f32 (the Pallas kernel takes it too; an f32 model's fused pairs): exact
+// f32 products on the CUDA cores, since the tensor cores take no f32
+// operands (TF32 rounds them).  A CTA computes its 16-row tile's f32
+// hidden into shared memory, then its column group's outputs from it,
+// operand tiles streaming through a 3-stage cp.async ring
+// (ptdeco_lowrank_matmul_f32).  The hidden takes 16 * (r padded to 64,
+// + 4) * 4 bytes beside the 65 KB ring, so ranks up to 2560.
 // Not yet done (later work): wgmma for the 64-row tiles; a persistent
-// grid.
+// grid; register tiling for the f32 path.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -484,7 +491,195 @@ int copy_width(const void* p, int ld) {
   return 1;
 }
 
+// f32 path.  A CTA of 256 threads takes a tile of kF32Rows rows: it
+// computes their f32 hidden into shared memory, kF32Cols hidden columns a
+// pass over d_in, then its share of the output columns from that hidden,
+// kF32Cols a pass over r.  Each thread owns one column and 4 rows of a
+// pass.  Operand tiles of kF32K contraction columns stream through a
+// kF32Stages-deep cp.async ring (16-byte copies where a row pitch allows,
+// zero-filled past every edge); a thread reads its column's operand as a
+// float4 along the contraction (rows of kF32Ld floats keep 8 lanes on 32
+// distinct banks) and its rows' as broadcast float4s: 16 FMAs a 5 shared
+// loads.
+constexpr int kF32Rows = 16;
+constexpr int kF32Cols = 64;
+constexpr int kF32K = 64;
+constexpr int kF32Ld = kF32K + 4;
+constexpr int kF32Stages = 3;
+constexpr int kF32StageElems = (kF32Rows + kF32Cols) * kF32Ld;
+
+__host__ __device__ constexpr int f32_rank_pad(int r) {
+  return (r + kF32Cols - 1) / kF32Cols * kF32Cols;
+}
+
+// the ring, then the hidden: kF32Rows rows of (r padded to 64) + 4 floats
+__host__ __device__ constexpr size_t f32_smem_bytes(int r) {
+  return (static_cast<size_t>(kF32Stages) * kF32StageElems +
+          static_cast<size_t>(kF32Rows) * (f32_rank_pad(r) + 4)) * 4;
+}
+
+// rows [row0, row0 + rows) x columns [k0, k0 + kF32K) of a row-major f32
+// matrix of row pitch ld (columns < ld exist, rows < row_lim) into a tile
+// of row pitch kF32Ld, zero outside the matrix
+template <int Rows>
+__device__ __forceinline__ void f32_load_tile(float* dst, const float* src, int ld, int row0,
+                                              int row_lim, int k0, bool vec) {
+  if (vec) {  // ld % 4 == 0: a 4-float chunk lies wholly inside or outside
+    for (int e = threadIdx.x; e < Rows * kF32K / 4; e += kThreads) {
+      const int i = e / (kF32K / 4), k = e % (kF32K / 4) * 4;
+      const bool ok = row0 + i < row_lim && k0 + k < ld;
+      ptdeco::cp_async16_zfill(dst + i * kF32Ld + k,
+                               ok ? src + static_cast<size_t>(row0 + i) * ld + k0 + k : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < Rows * kF32K; e += kThreads) {
+      const int i = e / kF32K, k = e % kF32K;
+      const bool ok = row0 + i < row_lim && k0 + k < ld;
+      ptdeco::cp_async4_zfill(dst + i * kF32Ld + k,
+                              ok ? src + static_cast<size_t>(row0 + i) * ld + k0 + k : src, ok);
+    }
+  }
+}
+
+// acc[q] += sum over the tile's kF32K columns of a[(i0 + q) * lda + k] * w[c * kF32Ld + k]
+__device__ __forceinline__ void f32_tile_fma(float acc[4], const float* a, int lda,
+                                             const float* w, int i0, int c) {
+#pragma unroll 4
+  for (int k = 0; k < kF32K; k += 4) {
+    const float4 b = *reinterpret_cast<const float4*>(w + c * kF32Ld + k);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(a + (i0 + q) * lda + k);
+      acc[q] = fmaf(v.x, b.x, acc[q]);
+      acc[q] = fmaf(v.y, b.y, acc[q]);
+      acc[q] = fmaf(v.z, b.z, acc[q]);
+      acc[q] = fmaf(v.w, b.w, acc[q]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) lowrank_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ w2,
+    const float* __restrict__ bias, float* __restrict__ out, int n, int d_in, int r, int d_out,
+    int cols_per_cta, int vec_in, int vec_r) {
+  extern __shared__ __align__(16) float f32_smem[];
+  const int rp = f32_rank_pad(r), hld = rp + 4;
+  float* ring = f32_smem;                           // kF32Stages x (x tile, W tile)
+  float* h = f32_smem + kF32Stages * kF32StageElems;  // kF32Rows x hld, zero in [r, rp)
+  const int row0 = blockIdx.x * kF32Rows;
+  const int col_begin = blockIdx.y * cols_per_cta;
+  const int col_end = min(d_out, col_begin + cols_per_cta);
+  const int t = threadIdx.x;
+  const int c = t % kF32Cols;
+  const int i0 = t / kF32Cols * 4;
+  static_assert(kThreads == kF32Cols * kF32Rows / 4, "a thread owns 4 rows of one column");
+
+  // phase 1: h = x @ W1^T for the tile's rows, one 64-column pass at a time
+  const int nk1 = (d_in + kF32K - 1) / kF32K;
+  for (int j0 = 0; j0 < rp; j0 += kF32Cols) {
+    for (int s = 0; s < kF32Stages - 1; ++s) {
+      if (s < nk1) {
+        float* st = ring + s * kF32StageElems;
+        f32_load_tile<kF32Rows>(st, x, d_in, row0, n, s * kF32K, vec_in);
+        f32_load_tile<kF32Cols>(st + kF32Rows * kF32Ld, w1, d_in, j0, r, s * kF32K, vec_in);
+      }
+      ptdeco::async_commit();
+    }
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ks = 0; ks < nk1; ++ks) {
+      const int next = ks + kF32Stages - 1;
+      if (next < nk1) {
+        float* st = ring + next % kF32Stages * kF32StageElems;
+        f32_load_tile<kF32Rows>(st, x, d_in, row0, n, next * kF32K, vec_in);
+        f32_load_tile<kF32Cols>(st + kF32Rows * kF32Ld, w1, d_in, j0, r, next * kF32K, vec_in);
+      }
+      ptdeco::async_commit();
+      ptdeco::async_wait<kF32Stages - 1>();
+      __syncthreads();
+      const float* st = ring + ks % kF32Stages * kF32StageElems;
+      f32_tile_fma(acc, st, kF32Ld, st + kF32Rows * kF32Ld, i0, c);
+      __syncthreads();
+    }
+    ptdeco::async_wait<0>();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) h[(i0 + q) * hld + j0 + c] = acc[q];
+  }
+  __syncthreads();
+
+  // phase 2: y = h @ W2^T + b for the CTA's columns, 64 at a time
+  const int nk2 = (r + kF32K - 1) / kF32K;
+  for (int c0 = col_begin; c0 < col_end; c0 += kF32Cols) {
+    for (int s = 0; s < kF32Stages - 1; ++s) {
+      if (s < nk2)
+        f32_load_tile<kF32Cols>(ring + s * kF32StageElems + kF32Rows * kF32Ld, w2, r, c0, col_end,
+                                s * kF32K, vec_r);
+      ptdeco::async_commit();
+    }
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ks = 0; ks < nk2; ++ks) {
+      const int next = ks + kF32Stages - 1;
+      if (next < nk2)
+        f32_load_tile<kF32Cols>(ring + next % kF32Stages * kF32StageElems + kF32Rows * kF32Ld, w2,
+                                r, c0, col_end, next * kF32K, vec_r);
+      ptdeco::async_commit();
+      ptdeco::async_wait<kF32Stages - 1>();
+      __syncthreads();
+      f32_tile_fma(acc, h + ks * kF32K, hld,
+                   ring + ks % kF32Stages * kF32StageElems + kF32Rows * kF32Ld, i0, c);
+      __syncthreads();
+    }
+    ptdeco::async_wait<0>();
+    const int col = c0 + c;
+    if (col < col_end) {
+      const float b = bias != nullptr ? bias[col] : 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (row0 + i0 + q < n) out[static_cast<size_t>(row0 + i0 + q) * d_out + col] = acc[q] + b;
+    }
+  }
+}
+
+cudaError_t f32_opt_in() {
+  static unsigned opted_in = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && (opted_in & (1u << dev)))) return err;
+  err = cudaFuncSetAttribute(lowrank_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxSmem));
+  if (err == cudaSuccess && dev < 32) opted_in |= 1u << dev;
+  return err;
+}
+
 }  // namespace
+
+extern "C" int ptdeco_lowrank_f32_smem_bytes(int r) {
+  return static_cast<int>(f32_smem_bytes(r));
+}
+
+// The f32 path: x (n, d_in), w1 (r, d_in), w2 (d_out, r), bias (d_out,) or
+// null, out (n, d_out), all contiguous f32.  Grid: (n + 15) / 16 row tiles
+// by `groups` column groups of cols_per_cta columns (a multiple of 64).
+// Launches on `stream`, allocates nothing, returns cudaGetLastError() (or
+// cudaErrorInvalidValue for a shape it does not take).
+extern "C" int ptdeco_lowrank_matmul_f32(const void* x, const void* w1, const void* w2,
+                                         const void* bias, void* out, int n, int d_in, int r,
+                                         int d_out, int groups, int cols_per_cta, void* stream) {
+  if (n < 1 || d_in < 0 || r < 1 || d_out < 1 || groups < 1 || groups > 65535 ||
+      cols_per_cta < kF32Cols || cols_per_cta % kF32Cols != 0 ||
+      static_cast<long long>(cols_per_cta) * groups < d_out || f32_smem_bytes(r) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = f32_opt_in();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto aligned16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec_in = d_in % 4 == 0 && aligned16(x) && aligned16(w1);
+  const int vec_r = r % 4 == 0 && aligned16(w2);
+  const dim3 grid((n + kF32Rows - 1) / kF32Rows, groups, 1);
+  lowrank_f32_kernel<<<grid, kThreads, f32_smem_bytes(r), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(w2),
+      static_cast<const float*>(bias), static_cast<float*>(out), n, d_in, r, d_out,
+      cols_per_cta, vec_in, vec_r);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Bytes of dynamic shared memory one block of `bm` rows needs at rank r
 // (the wrapper's launch_shape computes the same).

@@ -10,15 +10,32 @@ scored on the decomposed model, as in the reference.  Acceptance rules,
 bookkeeping, meta fields and the decompose_config format match the JAX
 package.
 
-Not ported yet (they raise ``NotImplementedError``): interleaved recovery
-fine-tuning (``finetune_fn``), precomputing eigenbases in splits, resumable
-checkpoints, and eigh methods other than ``"exact"``.
+Options, as in the JAX package: ``finetune_fn(module, names)`` after every
+accepted site (interleaved recovery fine-tuning, ``finetune.py``);
+``precomputing_covariance_num_splits`` (the Grams of a split of sites
+accumulated in one forward per batch, on the original model, then the
+eighs pipelined on a worker thread in walk order, on their own CUDA stream
+on the card); ``checkpoint_dir`` (per-site resume); ``eigh_method``
+"exact", "randomized" (``engine.randomized_topk_eigenvectors``) or "auto".
+"distributed" needs ``parallel/`` (ROADMAP.md Queue 1 item 7) and raises
+``NotImplementedError``.  The JAX package's ``use_pallas_gram``,
+``defer_substitution``, ``shared_metric_threshold`` and
+``use_indexed_ladder`` shape XLA programs and recompiles and have no
+counterpart here.
+
+The one departure from the JAX package's resume layout: accepted pairs are
+saved as ``{site}.pt`` (``utils.save_state_dict_pt``), not safetensors,
+since ``safetensors`` is not a dependency of the port.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import itertools
+import json
 import logging
+import os
+import pathlib
 import time
 from typing import Any, Callable, Iterator, Optional
 
@@ -34,6 +51,7 @@ logger = logging.getLogger(__name__)
 is_decomposeable_module = engine.is_decomposeable_module
 
 LossFn = Callable[[Any, torch.Tensor], torch.Tensor]
+FinetuneFn = Callable[[torch.nn.Module, list[str]], torch.nn.Module]
 
 
 def _make_metric_fn(loss_fn: LossFn):
@@ -86,6 +104,53 @@ def _rank_ladder(
     return ladder
 
 
+# Under "auto", a site whose output Gram is at least this wide takes the
+# randomized EVD.  The JAX package keys its choice on the full rank (>= 4096,
+# its crossover for a host LAPACK eigh); on an H100 the exact f64 eigh of the
+# whole Gram costs what the Gram's width sets, and the randomized EVD won
+# from a 3072-wide Gram on, and lost at 2560 and below (tools/eigh_crossover.py,
+# NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6)
+AUTO_RANDOMIZED_EIGH_MIN_DIM = 3072
+
+_EIGH_METHODS = ("auto", "exact", "randomized", "distributed")
+
+
+def _check_eigh_method(eigh_method: str) -> None:
+    if eigh_method not in _EIGH_METHODS:
+        raise ValueError(f"{eigh_method=} not in {_EIGH_METHODS}")
+    if eigh_method == "distributed":
+        raise NotImplementedError(
+            "eigh_method='distributed' needs the port of parallel/ "
+            "(ROADMAP.md Queue 1 item 7); use 'exact', 'randomized' or 'auto'"
+        )
+
+
+def _resolve_eigh_method(site: engine.Site, eigh_method: str) -> str:
+    """exact: damped f64 eigh of the full Gram (reference numerics,
+    dwain:155-163).  randomized: subspace sketch in f32 and an f64 eigh of
+    its (m, m) projection.  auto: randomized for an output Gram of
+    ``AUTO_RANDOMIZED_EIGH_MIN_DIM`` or more."""
+    _check_eigh_method(eigh_method)
+    if eigh_method == "auto":
+        return "randomized" if site.out_features >= AUTO_RANDOMIZED_EIGH_MIN_DIM else "exact"
+    return eigh_method
+
+
+def _site_eigenvectors(
+    gram: torch.Tensor,
+    site: engine.Site,
+    eigh_method: str,
+    reduction_factor: float,
+    decompose_in_float64: bool,
+) -> torch.Tensor:
+    top_k = _site_top_k(site, reduction_factor)
+    if _resolve_eigh_method(site, eigh_method) == "randomized":
+        return engine.randomized_topk_eigenvectors(gram, top_k)
+    # the ladder never evaluates above full_rank * reduction: the f64 path
+    # keeps only the consumed eigenvectors
+    return engine.eigenvectors_from_gram(gram, in_float64=decompose_in_float64, top_k=top_k)
+
+
 def _process_module(
     *,
     root: torch.nn.Module,
@@ -104,7 +169,11 @@ def _process_module(
     max_accepted_ppl_diff: float,
     decompose_in_float64: bool,
     device: Any,
+    u_matrix: Optional[torch.Tensor] = None,
+    eigh_method: str = "exact",
 ) -> dict[str, Any]:
+    """Rank search of one site; ``u_matrix`` is its precomputed eigenbasis,
+    or None to calibrate the site here."""
     dim_in, dim_out, full_rank = site.in_features, site.out_features, site.full_rank
     nothing = {
         "proportion": 1.0,
@@ -119,15 +188,16 @@ def _process_module(
     logger.info(f"Processing {site.name}: {site.kind} in={dim_in} out={dim_out} {site.dtype}")
 
     weight2d = engine.get_site_weight2d(root, site)
-    grams = engine.compute_output_grams(
-        root, [site.name], data_iterator, num_data_steps, apply_fn, device
-    )
-    u = engine.eigenvectors_from_gram(
-        grams[site.name],
-        in_float64=decompose_in_float64,
-        top_k=_site_top_k(site, reduction_factor),
-    )
-    u_dev = u.to(torch.float32)
+    if u_matrix is None:
+        grams = engine.compute_output_grams(
+            root, [site.name], data_iterator, num_data_steps, apply_fn, device
+        )
+        u_matrix = _site_eigenvectors(
+            grams[site.name], site, eigh_method, reduction_factor, decompose_in_float64
+        )
+    else:
+        logger.info(f"Using pre-computed u_matrix, dtype={u_matrix.dtype}")
+    u_dev = u_matrix.to(device=weight2d.device, dtype=torch.float32)
 
     ladder = _rank_ladder(site, num_params, min_rank, trade_off_factor, reduction_factor)
     evaluator = engine.CandidateEvaluator(site, apply_fn, metric_fn, device)
@@ -176,6 +246,218 @@ def _process_module(
     }
 
 
+class _AsyncUProvider:
+    """Pipelined eigendecomposition: each site's eigh job runs on one worker
+    thread, in the order submitted (walk order), while the walk goes on
+    with its calibration and metric forwards.  On the card the worker runs
+    each job on its own CUDA stream, which first waits for an event
+    recorded when the job was submitted (the Grams are final there), and
+    synchronizes that stream before the job counts as done; a tensor
+    result is marked as used by the walk's stream (``record_stream``) so
+    that the allocator does not hand its memory back to the worker's
+    stream early.  ``job_s`` sums the worker's time in jobs and ``wait_s``
+    the walk's time blocked in ``pop``: the overlap is their difference."""
+
+    def __init__(self, device: Any) -> None:
+        self._ex = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self._jobs: dict[str, Any] = {}
+        self._finalize: dict[str, Callable[[Any], Any]] = {}
+        device = torch.device(device)
+        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.job_s = 0.0
+        self.wait_s = 0.0
+
+    def _run(self, job: Callable[[], Any], ready: Optional[torch.cuda.Event]) -> Any:
+        start = time.perf_counter()
+        if self._stream is None:
+            out = job()
+        else:
+            with torch.cuda.stream(self._stream):
+                self._stream.wait_event(ready)
+                out = job()
+            self._stream.synchronize()
+        self.job_s += time.perf_counter() - start
+        return out
+
+    def submit(
+        self, name: str, job: Callable[[], Any], finalize: Optional[Callable[[Any], Any]] = None
+    ) -> None:
+        ready = None
+        if self._stream is not None:
+            ready = torch.cuda.Event()
+            # on the walk's stream, after the job's inputs
+            ready.record(torch.cuda.current_stream(self._stream.device))
+        self._jobs[name] = self._ex.submit(self._run, job, ready)
+        if finalize is not None:
+            self._finalize[name] = finalize
+
+    def put(self, name: str, value: Any) -> None:
+        """An entry computed already (the f32 eigh on the walk's stream)."""
+        self._jobs[name] = value
+
+    def pop(self, name: str, default: Any = None) -> Any:
+        job = self._jobs.pop(name, None)
+        if job is None:
+            return default
+        res = job
+        if isinstance(job, concurrent.futures.Future):
+            start = time.perf_counter()
+            res = job.result()
+            self.wait_s += time.perf_counter() - start
+            if self._stream is not None and isinstance(res, torch.Tensor):
+                res.record_stream(torch.cuda.current_stream(res.device))
+        fin = self._finalize.pop(name, None)
+        return fin(res) if fin is not None else res
+
+    def __len__(self) -> int:
+        return len(self._jobs)
+
+    def shutdown(self) -> None:
+        self._ex.shutdown(wait=True)
+
+
+def _precompute_u_in_splits(
+    *,
+    root: torch.nn.Module,
+    modules_to_decompose: list[str],
+    num_splits: int,
+    num_data_steps: int,
+    data_iterator: Iterator[Any],
+    apply_fn: engine.ApplyFn,
+    decompose_in_float64: bool,
+    device: Any,
+    eigh_method: str = "exact",
+    reduction_factor: float = 0.5,
+) -> _AsyncUProvider:
+    """Eigenbases of every site, in memory-bounded splits (reference
+    dwain:580-674): one forward per batch accumulates the Grams of all the
+    sites of a split; the eighs are then pipelined in walk order."""
+    provider = _AsyncUProvider(device)
+    jobs: dict[str, tuple[Callable[[], Any], Optional[Callable[[Any], Any]]]] = {}
+    # ceil-divide so that every module is covered (the reference's floor
+    # division drops trailing modules, dwain:589-607)
+    num_splits = max(1, min(num_splits, len(modules_to_decompose)))
+    chunk_size = -(-len(modules_to_decompose) // num_splits)
+    for index in range(num_splits):
+        sublist = modules_to_decompose[index * chunk_size : (index + 1) * chunk_size]
+        if not sublist:
+            continue
+        logger.info(f"Pre-computing covariance matrices for {len(sublist)} modules")
+        grams = engine.compute_output_grams(
+            root, sublist, data_iterator, num_data_steps, apply_fn, device
+        )
+        for name in sublist:
+            site = engine.get_site(root, name)
+            top_k = _site_top_k(site, reduction_factor)
+            if _resolve_eigh_method(site, eigh_method) == "randomized":
+                q, b = engine.sketch_for_randomized_eigh(grams[name], top_k)
+                jobs[name] = (
+                    lambda b=b: torch.linalg.eigh(b)[1],
+                    lambda v, q=q, k=top_k: engine.finish_randomized_eigh(q, v, k),
+                )
+            elif decompose_in_float64:
+                jobs[name] = (
+                    lambda g=grams[name], k=top_k: engine.eigenvectors_from_gram(
+                        g, in_float64=True, top_k=k
+                    ),
+                    None,
+                )
+            else:
+                provider.put(name, engine.eigenvectors_from_gram(grams[name], in_float64=False))
+        del grams
+    # submit in WALK order (reversed discovery): the first site the walk
+    # needs is the first eigh computed
+    for name in reversed(modules_to_decompose):
+        if name in jobs:
+            provider.submit(name, *jobs[name])
+    if len(provider) != len(modules_to_decompose):
+        raise RuntimeError("precompute left sites without an eigenbasis")
+    return provider
+
+
+class _Checkpointer:
+    """Per-site resume state of a decomposition run.
+
+    Every processed site is appended to ``progress.jsonl`` (``{"site",
+    "config"}``, fsynced) and an accepted pair is saved as ``{site}.pt``; a
+    run restarted with the same ``checkpoint_dir`` replays the recorded
+    sites and goes on.  ``fingerprint.txt`` holds the run's
+    hyperparameters: a run with others raises ``ValueError``."""
+
+    def __init__(self, directory: Optional[str], fingerprint: str = "") -> None:
+        self.dir = pathlib.Path(directory) if directory else None
+        self.processed: dict[str, Optional[dict[str, Any]]] = {}
+        if self.dir is None:
+            return
+        self.dir.mkdir(parents=True, exist_ok=True)
+        fp_file = self.dir / "fingerprint.txt"
+        if fp_file.exists():
+            recorded = fp_file.read_text().strip()
+            if fingerprint and recorded != fingerprint:
+                raise ValueError(
+                    f"Checkpoint dir {self.dir} was written by a run with different "
+                    f"decomposition hyperparameters (fingerprint {recorded!r} != "
+                    f"{fingerprint!r}); replaying it would mix configurations: delete "
+                    "the directory or point checkpoint_dir elsewhere"
+                )
+        elif fingerprint:
+            fp_file.write_text(fingerprint)
+        progress = self.dir / "progress.jsonl"
+        if progress.exists():
+            for line in progress.read_text().splitlines():
+                rec = json.loads(line)
+                self.processed[rec["site"]] = rec.get("config")
+            logger.info(
+                f"Resuming decomposition: {len(self.processed)} sites already "
+                f"processed in {self.dir}"
+            )
+
+    def load_pair(
+        self, root: torch.nn.Module, name: str
+    ) -> tuple[Optional[torch.nn.Module], Optional[dict[str, Any]]]:
+        """Replay a completed site: (pair or None, config or None)."""
+        config_entry = self.processed[name]
+        if config_entry is None:
+            return None, None
+        old = pnn.get_submodule(root, name)
+        new = utils.build_module_from_config(
+            config_entry, dtype=utils.get_default_dtype(old), device=next(old.parameters()).device
+        )
+        sd = utils.load_state_dict_pt(str(self.dir / f"{name}.pt"))
+        return utils.load_state_dict(new, sd), config_entry
+
+    def record(
+        self,
+        pair: Optional[torch.nn.Module],
+        name: str,
+        config_entry: Optional[dict[str, Any]],
+    ) -> None:
+        if self.dir is None:
+            return
+        if config_entry is not None and pair is not None:
+            utils.save_state_dict_pt(utils.state_dict(pair), str(self.dir / f"{name}.pt"))
+        with open(self.dir / "progress.jsonl", "a") as f:
+            f.write(json.dumps({"site": name, "config": config_entry}) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+
+
+def _param_versions(module: torch.nn.Module) -> list[tuple[torch.Tensor, int]]:
+    """Each parameter with its version counter, which every in-place update
+    (an optimizer step, a LoRA merge) bumps."""
+    return [(p, p._version) for p in module.parameters()]
+
+
+def _changed(module: torch.nn.Module, before: list[tuple[torch.Tensor, int]]) -> bool:
+    """Did a fine-tune touch ``module`` since ``before``: a parameter
+    replaced or updated in place.  (The JAX package compares leaf identity,
+    which in-place torch updates keep.)"""
+    now = list(module.parameters())
+    return len(now) != len(before) or any(
+        p is not q or p._version != v for p, (q, v) in zip(now, before)
+    )
+
+
 def decompose(
     *,
     module: torch.nn.Module,
@@ -185,7 +467,7 @@ def decompose(
     metric_iterator: Iterator[Any],
     num_metric_steps: int,
     nsr_final_threshold: float,
-    finetune_fn: Optional[Callable] = None,
+    finetune_fn: Optional[FinetuneFn] = None,
     blacklisted_module_names: Optional[list[str]] = None,
     min_rank: int = 32,
     trade_off_factor: float = 0.5,
@@ -203,17 +485,11 @@ def decompose(
     The module is moved to ``device`` and changed in place; batches from both
     iterators (dicts of tensors or numpy arrays) are moved there as they are
     drawn.  ``loss_fn(batch, logits) -> scalar`` mirrors the reference's
-    ``loss_fn(input_dict, output)``.  Returns ``(module, decompose_config)``
-    with the reference JSON format and a ``__meta__`` entry per layer."""
-    if finetune_fn is not None:
-        raise NotImplementedError("interleaved recovery fine-tuning is not ported yet")
-    if precomputing_covariance_num_splits:
-        raise NotImplementedError("precomputing covariances in splits is not ported yet")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("resumable decomposition checkpoints are not ported yet")
-    if eigh_method != "exact":
-        raise NotImplementedError(f"{eigh_method=}: only 'exact' is ported yet")
-
+    ``loss_fn(input_dict, output)``.  ``finetune_fn(module, names)`` runs
+    after every accepted site with the names decomposed so far, and the
+    module it returns goes on.  Returns ``(module, decompose_config)`` with
+    the reference JSON format and a ``__meta__`` entry per layer."""
+    _check_eigh_method(eigh_method)
     start_time = time.perf_counter()
     module.to(device)
     num_params = utils.get_num_params(module)
@@ -235,42 +511,113 @@ def decompose(
     n = len(modules_to_decompose)
     logger.info(f"There are {n} linear modules that can be decomposed")
 
-    metric_fn = _make_metric_fn(loss_fn)
-    decompose_config: dict[str, Any] = {}
-    n_decomposed = 0
-    for i, submodule_name in enumerate(reversed(modules_to_decompose), start=1):
-        logger.info(f"PROCESSING {submodule_name} MODULE {i} OUT OF {n}")
-        result = _process_module(
+    fingerprint = json.dumps(
+        {
+            "nsr": nsr_final_threshold,
+            "min_rank": min_rank,
+            "trade_off": trade_off_factor,
+            "reduction": reduction_factor,
+            "max_ppl_diff": max_accepted_ppl_diff,
+            "f64": decompose_in_float64,
+            "data_steps": num_data_steps,
+            "metric_steps": num_metric_steps,
+            "sites": modules_to_decompose,
+            "eigh_method": eigh_method,
+            "precompute_splits": precomputing_covariance_num_splits,
+        },
+        sort_keys=True,
+    )
+    ckpt = _Checkpointer(checkpoint_dir, fingerprint)
+    # sites the checkpoint replays need no covariance precompute
+    pending_sites = [m for m in modules_to_decompose if m not in ckpt.processed]
+    u_dict: Any = {}
+    if precomputing_covariance_num_splits is not None and precomputing_covariance_num_splits > 0 \
+            and pending_sites:
+        u_dict = _precompute_u_in_splits(
             root=module,
-            site=engine.get_site(module, submodule_name),
-            data_iterator=data_iterator,
-            metric_iterator=metric_iterator,
-            metric_fn=metric_fn,
-            apply_fn=apply_fn,
-            nsr_final_threshold=nsr_final_threshold,
+            modules_to_decompose=pending_sites,
+            num_splits=precomputing_covariance_num_splits,
             num_data_steps=num_data_steps,
-            num_metric_steps=num_metric_steps,
-            num_params=num_params,
-            min_rank=min_rank,
-            trade_off_factor=trade_off_factor,
-            reduction_factor=reduction_factor,
-            max_accepted_ppl_diff=max_accepted_ppl_diff,
+            data_iterator=data_iterator,
+            apply_fn=apply_fn,
             decompose_in_float64=decompose_in_float64,
             device=device,
+            eigh_method=eigh_method,
+            reduction_factor=reduction_factor,
         )
-        current_params -= result["drop_in_params"]
-        logger.info(f"CURRENT PARAMS IN M: {current_params / 1e6}")
-        pair = result["decomposed_module"]
-        if pair is None:
-            logger.info(f"{submodule_name} not decomposed")
-            continue
-        pnn.replace_submodule(module, submodule_name, pair)
-        module_config = utils.get_module_config(pair)
-        engine.add_meta_to_module_config(module_config, result)
-        decompose_config[submodule_name] = module_config
-        n_decomposed += 1
-        logger.info(f"{submodule_name} decomposed with proportion={result['proportion']:.4f}")
 
-    logger.info(f"Decomposed {n_decomposed} out of {n} modules")
+    metric_fn = _make_metric_fn(loss_fn)
+    decompose_config: dict[str, Any] = {}
+    decomposed_submodules: list[str] = []
+    try:
+        for i, submodule_name in enumerate(reversed(modules_to_decompose), start=1):
+            logger.info(f"PROCESSING {submodule_name} MODULE {i} OUT OF {n}")
+            if submodule_name in ckpt.processed:
+                pair, config_entry = ckpt.load_pair(module, submodule_name)
+                if config_entry is not None and pair is not None:
+                    pnn.replace_submodule(module, submodule_name, pair)
+                    decomposed_submodules.append(submodule_name)
+                    decompose_config[submodule_name] = config_entry
+                    meta = config_entry.get(utils.MODCONFIG_META_KEY, {})
+                    current_params -= meta.get("drop_in_params", 0)
+                logger.info(f"{submodule_name} restored from checkpoint")
+                continue
+            result = _process_module(
+                root=module,
+                site=engine.get_site(module, submodule_name),
+                data_iterator=data_iterator,
+                metric_iterator=metric_iterator,
+                metric_fn=metric_fn,
+                apply_fn=apply_fn,
+                nsr_final_threshold=nsr_final_threshold,
+                num_data_steps=num_data_steps,
+                num_metric_steps=num_metric_steps,
+                num_params=num_params,
+                min_rank=min_rank,
+                trade_off_factor=trade_off_factor,
+                reduction_factor=reduction_factor,
+                max_accepted_ppl_diff=max_accepted_ppl_diff,
+                decompose_in_float64=decompose_in_float64,
+                device=device,
+                u_matrix=u_dict.pop(submodule_name, None),
+                eigh_method=eigh_method,
+            )
+            current_params -= result["drop_in_params"]
+            logger.info(f"CURRENT PARAMS IN M: {current_params / 1e6}")
+            new_module = result["decomposed_module"]
+            if new_module is None:
+                ckpt.record(None, submodule_name, None)
+                logger.info(f"{submodule_name} not decomposed")
+                continue
+            pnn.replace_submodule(module, submodule_name, new_module)
+            decomposed_submodules.append(submodule_name)
+            if finetune_fn is not None:
+                earlier = decomposed_submodules[:-1] if ckpt.dir is not None else []
+                before = {p: _param_versions(pnn.get_submodule(module, p)) for p in earlier}
+                module = finetune_fn(module, decomposed_submodules)
+                # interleaved fine-tuning also retrains EARLIER pairs (the
+                # last-N window): re-record exactly those it changed, so a
+                # resumed run replays the fine-tuned weights
+                for prev_name in earlier:
+                    pair_now = pnn.get_submodule(module, prev_name)
+                    if _changed(pair_now, before[prev_name]):
+                        ckpt.record(pair_now, prev_name, decompose_config[prev_name])
+            pair = pnn.get_submodule(module, submodule_name)
+            module_config = utils.get_module_config(pair)
+            engine.add_meta_to_module_config(module_config, result)
+            decompose_config[submodule_name] = module_config
+            ckpt.record(pair, submodule_name, module_config)
+            logger.info(f"{submodule_name} decomposed with proportion={result['proportion']:.4f}")
+    finally:
+        if isinstance(u_dict, _AsyncUProvider):
+            u_dict.shutdown()
+            # the overlap's two sides, also as the record's fields
+            logger.info(
+                f"Pipelined eigh: {u_dict.job_s:.3f} s in jobs, the walk blocked "
+                f"{u_dict.wait_s:.3f} s",
+                extra={"eigh_job_s": u_dict.job_s, "eigh_wait_s": u_dict.wait_s},
+            )
+
+    logger.info(f"Decomposed {len(decompose_config)} out of {n} modules")
     logger.info(f"Decomposition took {time.perf_counter() - start_time:.1f} seconds")
     return module, decompose_config

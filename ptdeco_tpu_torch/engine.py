@@ -11,7 +11,9 @@ computes, in eager PyTorch:
     bf16 and take the SYRK kernel; every other site computes y and its Gram
     with f32 matmuls (``ops.gram.should_use_syrk``).
   * **Eigendecomposition**: damped ``eigh`` in float64, where the Gram lives
-    (the card has native f64); ascending order, top eigenvectors last.
+    (the card has native f64); ascending order, top eigenvectors last.  Or
+    the randomized top-k EVD: a subspace sketch in f32 and an f64 eigh of
+    its small (m, m) projection, both on the Gram's device.
   * **Rank candidates**: the candidate weight ``(u_k u_kᵀ) W`` is swapped
     into the site's parameter for the deco forward and swapped back for the
     orig forward; candidates are scored over fresh metric batches drawn
@@ -216,6 +218,70 @@ def eigenvectors_from_gram(
     if in_float64 and top_k is not None and 0 < top_k <= d // 4:
         return u[:, d - top_k :]
     return u
+
+
+def _subspace_sketch(
+    g: torch.Tensor, m: int, iters: int, generator: torch.Generator
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Randomized subspace iteration: orthonormal Q (d, m) approximately
+    spanning the top-m eigenspace of PSD ``g`` (f32), and the Rayleigh-Ritz
+    projection B = Qᵀ G Q (m, m), symmetrized.  Thin QR re-orthonormalizes
+    between power iterations."""
+    om = torch.randn(g.shape[0], m, generator=generator, device=g.device, dtype=torch.float32)
+    q, _ = torch.linalg.qr(g @ om)
+    for _ in range(iters):
+        q, _ = torch.linalg.qr(g @ q)
+    b = q.t() @ (g @ q)
+    return q, (b + b.t()) / 2
+
+
+def sketch_for_randomized_eigh(
+    gram: torch.Tensor,
+    top_k: int,
+    *,
+    oversample: int = 64,
+    power_iters: int = 2,
+    generator: Optional[torch.Generator] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sketch phase of ``randomized_topk_eigenvectors``: ``(q, b)`` with
+    b in f64, both on the Gram's device, so that the eigh of b can run
+    elsewhere (the pipelined precompute runs it on a worker stream).  The
+    Gaussian test matrix comes from ``generator``, by default one seeded
+    with d on the Gram's device (the JAX package seeds ``PRNGKey(d)``: the
+    streams differ, the subspaces agree)."""
+    d = gram.shape[-1]
+    m = min(d, top_k + oversample)
+    if generator is None:
+        generator = torch.Generator(device=gram.device).manual_seed(d)
+    q, b = _subspace_sketch(gram.to(torch.float32), m, power_iters, generator)
+    return q, b.to(torch.float64)
+
+
+def finish_randomized_eigh(q: torch.Tensor, v: torch.Tensor, top_k: int) -> torch.Tensor:
+    """(d, top_k) f32 eigenvectors from the sketch's Q and the ascending
+    eigenvectors v of its B."""
+    return q @ v[:, -top_k:].to(torch.float32)
+
+
+def randomized_topk_eigenvectors(
+    gram: torch.Tensor,
+    top_k: int,
+    *,
+    oversample: int = 64,
+    power_iters: int = 2,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Top-``top_k`` eigenvectors of a PSD Gram by randomized subspace
+    iteration (Halko et al. 2011), (d, top_k) f32 in ascending order like
+    eigh, so ``u[:, -rank:]`` slicing holds.  The O(d² m) sketch runs in
+    f32 and only the (m, m) projection, m = top_k + oversample, takes an
+    f64 eigh, all on the Gram's device.  The rank ladder never consumes
+    more than the top ``full_rank * reduction_factor`` eigenvectors."""
+    q, b = sketch_for_randomized_eigh(
+        gram, top_k, oversample=oversample, power_iters=power_iters, generator=generator
+    )
+    _, v = torch.linalg.eigh(b)  # ascending
+    return finish_randomized_eigh(q, v, top_k)
 
 
 # ---------------------------------------------------------------------------

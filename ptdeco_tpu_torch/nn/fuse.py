@@ -2,8 +2,11 @@
 
 ``fuse_factor_pairs`` swaps every ``Sequential(Linear(bias=False), Linear)``
 factor pair (the artifact of decomposition) for a ``FusedLowRankLinear``
-whose forward is the fused low-rank kernel (``ops/lowrank.py``): the
-rank-r hidden never goes to device memory.  ``unfuse_factor_pairs``
+whose forward is the fused low-rank kernel (``ops/lowrank.py``): the rank-r
+hidden never goes to device memory.  A pair the kernel does not take
+(``ops.lowrank.kernel_takes``: a dtype other than bf16 or f32, or a rank
+whose hidden does not fit in shared memory) stays unfused, as the Pallas
+entry point computes such a pair unfused.  ``unfuse_factor_pairs``
 restores the checkpoint-compatible pairs (state-dict naming is defined on
 the pair, so fuse before serving, unfuse before saving).  Conv pairs are
 not fused in this package yet.
@@ -40,20 +43,28 @@ class FusedLowRankLinear(torch.nn.Module):
         return lowrank_matmul(x, self.weight1.t(), self.weight2.t(), self.bias)
 
 
-def _is_linear_pair(m: torch.nn.Module) -> bool:
-    return (
+def _is_fusable_pair(m: torch.nn.Module) -> bool:
+    from ..ops.lowrank import kernel_takes
+
+    if not (
         isinstance(m, torch.nn.Sequential)
         and len(m) == 2
         and type(m[0]) is torch.nn.Linear
         and type(m[1]) is torch.nn.Linear
         and m[0].bias is None
+    ):
+        return False
+    dtype = m[0].weight.dtype
+    return all(p.dtype == dtype for p in m[1].parameters()) and kernel_takes(
+        dtype, m[0].out_features
     )
 
 
 def fuse_factor_pairs(root: torch.nn.Module) -> torch.nn.Module:
-    """Replace decomposed factor pairs with fused modules (in place)."""
+    """Replace decomposed factor pairs that the kernel takes with fused
+    modules (in place)."""
     for name, m in list(root.named_modules()):
-        if name and _is_linear_pair(m):
+        if name and _is_fusable_pair(m):
             replace_submodule(root, name, FusedLowRankLinear(m[0].weight, m[1].weight, m[1].bias))
     return root
 

@@ -6,8 +6,12 @@ and ``k2`` is (r, d_out), the JAX package's layout; a factor pair's
 lie.  On a CUDA tensor ``lowrank_matmul`` launches the hand-written Hopper
 kernel (``csrc/lowrank_matmul.cu``) for every shape: the TPU version's
 small-shape gate (n < 256, d_out < 512, r < 128 or > 12 MB fall to XLA) was
-measured on a TPU and is not carried over.  On a CPU tensor the plain
-version runs.
+measured on a TPU and is not carried over.  The kernel takes bf16 (tensor
+cores, ranks up to ``MAX_RANK``) and f32 (exact f32 on the CUDA cores, ranks
+up to ``MAX_RANK_F32``), as the Pallas kernel takes either; the rank limit
+is the hidden's shared memory, the counterpart of the Pallas kernel's VMEM
+gate.  ``kernel_takes`` states the rule; ``nn/fuse.py`` fuses only the pairs
+it admits.  On a CPU tensor the plain version runs.
 """
 
 from __future__ import annotations
@@ -23,10 +27,13 @@ from . import _build
 __all__ = [
     "lowrank_matmul",
     "lowrank_matmul_plain",
+    "kernel_takes",
     "launch_shape",
     "LaunchShape",
     "smem_bytes",
+    "smem_bytes_f32",
     "MAX_RANK",
+    "MAX_RANK_F32",
     "MAX_SHARED_BYTES",
 ]
 
@@ -73,6 +80,21 @@ MAX_RANK = max(r for r in range(_BK, 16384, _BK)
                if smem_bytes(ROW_TILES[0], r) <= MAX_SHARED_BYTES)
 
 
+_F32_ROWS, _F32_COLS, _F32_LD, _F32_STAGES = 16, 64, 68, 3  # the f32 path's tiles
+
+
+def smem_bytes_f32(r: int) -> int:
+    """Dynamic shared memory of one CTA of the f32 path: a 3-stage ring of
+    (16 + 64) x 68-float operand tiles, and the f32 hidden of 16 rows x
+    (r padded to 64, + 4) (``f32_smem_bytes`` in the kernel)."""
+    r_pad = -(-r // _F32_COLS) * _F32_COLS
+    return (_F32_STAGES * (_F32_ROWS + _F32_COLS) * _F32_LD + _F32_ROWS * (r_pad + 4)) * 4
+
+
+MAX_RANK_F32 = max(r for r in range(_F32_COLS, 16384, _F32_COLS)
+                   if smem_bytes_f32(r) <= MAX_SHARED_BYTES)
+
+
 def _ctas_per_sm(bm: int, r: int) -> int:
     """CTAs of the kernel an SM holds at once: shared memory (228 KB an SM,
     1 KB reserved a block) and registers (8 warps at 128 registers fill
@@ -80,15 +102,38 @@ def _ctas_per_sm(bm: int, r: int) -> int:
     return min(2, SM_SHARED_BYTES // (smem_bytes(bm, r) + 1024))
 
 
-def _check_rank(r: int) -> None:
+def _max_rank(dtype: torch.dtype) -> int:
+    return {torch.bfloat16: MAX_RANK, torch.float32: MAX_RANK_F32}.get(dtype, 0)
+
+
+def kernel_takes(dtype: torch.dtype, r: int) -> bool:
+    """Whether the kernel takes a pair of ``dtype`` at rank r: bf16 up to
+    ``MAX_RANK``, f32 up to ``MAX_RANK_F32``."""
+    return 1 <= r <= _max_rank(dtype)
+
+
+def _check_rank(r: int, dtype: torch.dtype = torch.bfloat16) -> None:
     if r < 1:
         raise ValueError(f"lowrank_matmul: rank {r} < 1")
-    if r > MAX_RANK:
+    if r > _max_rank(dtype):
+        need = smem_bytes(ROW_TILES[0], r) if dtype == torch.bfloat16 else smem_bytes_f32(r)
         raise ValueError(
-            f"lowrank_matmul: rank {r} needs {smem_bytes(ROW_TILES[0], r)} bytes of shared "
-            f"memory per block, over the {MAX_SHARED_BYTES} a block may use "
-            f"(the kernel takes ranks up to {MAX_RANK})"
+            f"lowrank_matmul: rank {r} needs {need} bytes of shared memory per block, over "
+            f"the {MAX_SHARED_BYTES} a block may use (the kernel takes {dtype} ranks up to "
+            f"{_max_rank(dtype)})"
         )
+
+
+def launch_shape_f32(n: int, d_out: int) -> tuple[int, int]:
+    """(column groups, columns a CTA) of the f32 path for n rows: 16-row
+    tiles, and column groups of whole 64-column passes until about
+    TARGET_CTAS CTAs are in flight (each group recomputes its tile's
+    hidden)."""
+    row_tiles = -(-n // _F32_ROWS)
+    passes = -(-d_out // _F32_COLS)
+    groups = max(1, min(TARGET_CTAS // row_tiles, passes))
+    cols = -(-passes // groups) * _F32_COLS
+    return -(-d_out // cols), cols
 
 
 @functools.lru_cache(maxsize=256)
@@ -135,6 +180,7 @@ def lowrank_matmul_plain(
 
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES_F32 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def lowrank_matmul(
@@ -146,7 +192,7 @@ def lowrank_matmul(
     """Fused ``(x @ K1) @ K2 + b`` for x of shape (..., d_in)."""
     lead, d_in = x.shape[:-1], x.shape[-1]
     r, d_out = k1.shape[1], k2.shape[1]
-    x2 = x.reshape(-1, d_in)
+    x2 = x.reshape(lead.numel(), d_in)
     if x.device.type == "cpu":
         return lowrank_matmul_plain(x2, k1, k2, bias).reshape(*lead, d_out)
     if x.device.type != "cuda":
@@ -157,9 +203,12 @@ def lowrank_matmul(
             f"k2 {tuple(k2.shape)} do not chain"
         )
     tensors = [x2, k1, k2] + ([bias] if bias is not None else [])
-    if any(t.dtype != torch.bfloat16 or t.device != x.device for t in tensors):
-        raise ValueError("lowrank_matmul: the kernel takes bf16 tensors on one device")
-    _check_rank(r)
+    if x.dtype not in (torch.bfloat16, torch.float32) or any(
+        t.dtype != x.dtype or t.device != x.device for t in tensors
+    ):
+        raise ValueError("lowrank_matmul: the kernel takes bf16 or f32 tensors of one dtype "
+                         "on one device")
+    _check_rank(r, x.dtype)
     x2 = _build.aligned(x2)
     w1 = _build.aligned(k1.t())  # (r, d_in): a no-op for a Linear weight's view
     w2 = _build.aligned(k2.t())  # (d_out, r)
@@ -168,11 +217,16 @@ def lowrank_matmul(
     out = torch.empty((n, d_out), dtype=x.dtype, device=x.device)
     if n == 0 or d_out == 0:
         return out.reshape(*lead, d_out)
-    shape = launch_shape(n, d_in, r, d_out)
-    fn = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_matmul", _ARGTYPES)
-    _build.launch("lowrank_matmul", fn, x.device, x2.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                  b.data_ptr() if b is not None else None, out.data_ptr(), n, d_in, r, d_out,
-                  shape.bm, shape.cluster, shape.groups, shape.cols_per_cta)
+    ptrs = (x2.data_ptr(), w1.data_ptr(), w2.data_ptr(), b.data_ptr() if b is not None else None,
+            out.data_ptr(), n, d_in, r, d_out)
+    if x.dtype == torch.float32:
+        fn = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_matmul_f32", _ARGTYPES_F32)
+        _build.launch("lowrank_matmul", fn, x.device, *ptrs, *launch_shape_f32(n, d_out))
+    else:
+        shape = launch_shape(n, d_in, r, d_out)
+        fn = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_matmul", _ARGTYPES)
+        _build.launch("lowrank_matmul", fn, x.device, *ptrs,
+                      shape.bm, shape.cluster, shape.groups, shape.cols_per_cta)
     lowrank_matmul.launches += 1
     return out.reshape(*lead, d_out)
 

@@ -151,10 +151,48 @@ def test_lowrank_matmul(dev, n, d_in, r, d_out, bias):
     torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
+@pytest.fixture
+def no_tf32():
+    """f32 references in full f32: cuBLAS without TF32."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.parametrize(
+    "n,d_in,r,d_out,bias",
+    # bench.py's MLP pair (rank 32 at d 2048), ranks from 1 to the f32
+    # limit, ragged rows and columns, an empty contraction
+    [(256, 2048, 32, 2048, True), (3, 70, 1, 9, False), (17, 130, 33, 257, True),
+     (1000, 576, 256, 1001, False), (4, 64, lowrank.MAX_RANK_F32, 72, True),
+     (5, 0, 8, 64, True)],
+)
+def test_lowrank_matmul_f32(dev, no_tf32, n, d_in, r, d_out, bias):
+    x = torch.randn(n, d_in, device=dev)
+    k1 = torch.randn(d_in, r, device=dev) / max(d_in, 1) ** 0.5
+    k2 = torch.randn(r, d_out, device=dev) / r ** 0.5
+    b = torch.randn(d_out, device=dev) if bias else None
+    ops.reset_launch_counts()
+    y = ops.lowrank_matmul(x, k1, k2, b)
+    torch.cuda.synchronize()
+    assert ops.lowrank_matmul.launches == 1
+    ref = ops.lowrank_matmul_plain(x, k1, k2, b)
+    # f32 sums of f32 products in another order
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+
+
 def test_lowrank_matmul_rejects_unsupported(dev):
     x = torch.randn(4, 8, device=dev)
-    with pytest.raises(ValueError):
-        ops.lowrank_matmul(x, torch.randn(8, 2, device=dev), torch.randn(2, 8, device=dev))
+    with pytest.raises(ValueError):  # an f16 input
+        ops.lowrank_matmul(x.half(), torch.randn(8, 2, device=dev).half(),
+                           torch.randn(2, 8, device=dev).half())
+    with pytest.raises(ValueError):  # mixed dtypes
+        ops.lowrank_matmul(x, torch.randn(8, 2, device=dev).to(torch.bfloat16),
+                           torch.randn(2, 8, device=dev).to(torch.bfloat16))
+    r = lowrank.MAX_RANK_F32 + 64  # an f32 hidden over the shared-memory limit
+    with pytest.raises(ValueError, match=str(lowrank.MAX_RANK_F32)):
+        ops.lowrank_matmul(x, torch.zeros(8, r, device=dev), torch.zeros(r, 8, device=dev))
     xb = x.to(torch.bfloat16)
     r = 12000  # a hidden over the shared-memory limit (MAX_RANK, 10944)
     with pytest.raises(ValueError, match=str(lowrank.MAX_RANK)):
@@ -168,6 +206,9 @@ def test_lowrank_smem_bytes_agree(dev, bm):
                                 [ctypes.c_int, ctypes.c_int])
     for r in (1, 32, 64, 65, 256, 1500, lowrank.MAX_RANK):
         assert fn(r, bm) == lowrank.smem_bytes(bm, r)
+    fn32 = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_f32_smem_bytes", [ctypes.c_int])
+    for r in (1, 32, 65, 1500, lowrank.MAX_RANK_F32):
+        assert fn32(r) == lowrank.smem_bytes_f32(r)
 
 
 def test_fused_linear_pair_launches_the_kernel(dev):
@@ -183,6 +224,29 @@ def test_fused_linear_pair_launches_the_kernel(dev):
         y = root(x)
     assert ops.lowrank_matmul.launches == before + 1
     torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_fused_f32_pair_launches_the_kernel(dev, no_tf32):
+    pair = torch.nn.Sequential(torch.nn.Linear(64, 8, bias=False), torch.nn.Linear(8, 96)).to(dev)
+    root = torch.nn.Sequential(pair)
+    x = torch.randn(5, 3, 64, device=dev)
+    with torch.no_grad():
+        ref = root(x)
+        tnn.fuse_factor_pairs(root)
+        ops.reset_launch_counts()
+        y = root(x)
+    assert type(root[0]) is tnn.FusedLowRankLinear and ops.lowrank_matmul.launches == 1
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_fuse_leaves_a_pair_over_max_rank_unfused(dev):
+    r = lowrank.MAX_RANK + 64
+    pair = torch.nn.Sequential(
+        torch.nn.Linear(64, r, bias=False), torch.nn.Linear(r, 96)
+    ).to(dev, torch.bfloat16)
+    root = torch.nn.Sequential(pair)
+    tnn.fuse_factor_pairs(root)
+    assert root[0] is pair
 
 
 def test_views_with_unaligned_starts(dev):

@@ -150,20 +150,19 @@ def test_fused_pairs_match_unfused(port_run):
 
 
 def test_unported_options_raise():
+    """Every eigh method runs but "distributed", which needs the port of
+    parallel/ and says so; an unknown method is refused as the JAX package
+    refuses it."""
     model = models.make_mlp(dim=8, depth=1, n_out=4, device="cpu")
     common = dict(
         module=model, data_iterator=iter([]), loss_fn=None, num_data_steps=1,
         metric_iterator=iter([]), num_metric_steps=1, nsr_final_threshold=0.1,
         device="cpu",
     )
-    for extra in (
-        {"finetune_fn": lambda m, names: m},
-        {"precomputing_covariance_num_splits": 2},
-        {"checkpoint_dir": "unused"},
-        {"eigh_method": "randomized"},
-    ):
-        with pytest.raises(NotImplementedError):
-            dwain.decompose(**common, **extra)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        dwain.decompose(**common, eigh_method="distributed")
+    with pytest.raises(ValueError, match="bogus"):
+        dwain.decompose(**common, eigh_method="bogus")
 
 
 class _MLP(torch.nn.Module):

@@ -10,7 +10,7 @@ import torch
 from ptdeco_tpu.ops.flash_attention import flash_attention as jax_flash
 from ptdeco_tpu.ops.gram_pallas import syrk_gram as jax_syrk
 from ptdeco_tpu.ops.lowrank_pallas import lowrank_matmul as jax_lowrank
-from ptdeco_tpu_torch import ops
+from ptdeco_tpu_torch import nn as tnn, ops
 from ptdeco_tpu_torch.ops import lowrank
 
 JNP_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -115,6 +115,45 @@ def test_cpu_tensors_never_launch_a_kernel():
                             [torch.ones(8)] * 3, sizes)
     assert ops.launch_counts() == {"syrk_gram": 0, "flash_attention": 0, "lowrank_matmul": 0,
                                    "grouped_matmul": 0, "gmm_int8": 0}
+
+
+@pytest.mark.parametrize(
+    "dtype,r,takes",
+    [(torch.bfloat16, 32, True), (torch.bfloat16, lowrank.MAX_RANK, True),
+     (torch.float32, 32, True), (torch.float32, lowrank.MAX_RANK_F32, True),
+     (torch.float16, 32, False), (torch.bfloat16, lowrank.MAX_RANK + 1, False),
+     (torch.float32, lowrank.MAX_RANK_F32 + 1, False)],
+)
+def test_lowrank_kernel_takes(dtype, r, takes):
+    assert lowrank.kernel_takes(dtype, r) is takes
+
+
+@pytest.mark.parametrize("n,d_out", [(256, 2048), (1, 9), (5, 64), (4096, 5632), (17, 1001)])
+def test_lowrank_f32_launch_shape_covers_the_output(n, d_out):
+    groups, cols = lowrank.launch_shape_f32(n, d_out)
+    assert cols % 64 == 0 and groups * cols >= d_out > (groups - 1) * cols
+    assert groups == 1 or -(-n // 16) * groups <= lowrank.TARGET_CTAS
+
+
+def test_fuse_leaves_pairs_the_kernel_cannot_take():
+    """An f32 pair is fused and equals the unfused pair on the CPU; an f16
+    pair and a bf16 pair over MAX_RANK stay unfused."""
+    def pair(d, r, dtype):
+        return torch.nn.Sequential(
+            torch.nn.Linear(d, r, bias=False), torch.nn.Linear(r, 24)
+        ).to(dtype)
+
+    root = torch.nn.Sequential(pair(16, 3, torch.float32), pair(16, 3, torch.float16),
+                               pair(8, lowrank.MAX_RANK + 1, torch.bfloat16))
+    x = torch.randn(2, 5, 16)
+    with torch.no_grad():
+        ref = root[0](x)
+        tnn.fuse_factor_pairs(root)
+        ops.reset_launch_counts()
+        y = root[0](x)
+    assert [type(m).__name__ for m in root] == ["FusedLowRankLinear", "Sequential", "Sequential"]
+    assert ops.lowrank_matmul.launches == 0
+    torch.testing.assert_close(y, ref, rtol=1e-6, atol=1e-6)
 
 
 def test_block_rows_picks_the_smallest_tile_holding_a_mean_group():
