@@ -22,6 +22,13 @@ splits and the randomized EVD, then LoRA fine-tuning with the exact eigh
 and a checkpoint directory that a second walk replays; and bench.py's
 workload, the 4-layer d 2048 f32 MLP, in its three modes.
 
+Slice 7 runs the library's other two methods on ResNet-50 at full width
+(torchvision topology, bf16, channels_last, 224 x 224 images from the
+seed): ``falor.decompose`` of a planted-rank model at the falor yaml's
+hyperparameters (once plain, once mean-centred), and lockd's gate
+training at the lockd yaml's batch of 256, its decomposition, and a
+planted half-closed copy decomposed and served fused.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -30,7 +37,10 @@ decompose, artifact, serve, generate (slice 1's fused model), reference
 input), decompose_ft (the walk with full fine-tuning, its artifact and
 fused serve), finetune_grad (one training step against the f32 twin's,
 and a planted fault), decompose_ft_lora (the LoRA walk, its replay, and
-LoRA logits before and after the merge), dwain_mlp, moe_serve bf16, moe_reference bf16 (against its f32 twin on the
+LoRA logits before and after the merge), dwain_mlp, falor_resnet50 and
+falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
+lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
+and the planted decomposition, artifact, fused serve), moe_serve bf16, moe_reference bf16 (against its f32 twin on the
 card), moe_serve int8, moe_reference int8 (the int8 run's step logits and a
 128-token forward against the quantized model's f32 twin), kernels (launch
 counts of each path).  Then the card's name and power limit as nvidia-smi
@@ -62,8 +72,10 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
 
 import ptdeco_tpu_torch as ptt  # noqa: E402
-from ptdeco_tpu_torch import dwain, engine, finetune, models, nn as pnn, ops, quant, serving, utils  # noqa: E402
+from ptdeco_tpu_torch import dwain, engine, falor, finetune, lockd, models, nn as pnn, ops, quant, serving, utils  # noqa: E402
 from ptdeco_tpu_torch.dwain import decomposition  # noqa: E402
+from ptdeco_tpu_torch.falor import decomposition as falor_decomposition  # noqa: E402
+from ptdeco_tpu_torch.lockd import train as lockd_train  # noqa: E402
 from ptdeco_tpu_torch.ops import _build, gmm, gmm_int8  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -103,6 +115,30 @@ MLP_DIM, MLP_DEPTH, MLP_BATCH, MLP_RANK = 2048, 4, 256, 64
 # its fused serve against its pairs, both f32: a first limit, set before a
 # reading (f32 relative rounding is about 6e-8 a step)
 MLP_SERVE_MAX_ABS, MLP_SERVE_RMS_REL = 1e-4, 1e-5
+
+# Slice 7: ResNet-50 (torchvision topology, 1000 classes), bf16,
+# channels_last, images 224 x 224.  falor at the batch and hyperparameters
+# of apps/trainer_vision/examples_config/decompose_falor_resnet18.yaml
+RN_BATCH, RN_HW, RN_POOL = 64, 224, 16
+RN_BRANCH_GAMMA = 0.2  # the scale of each residual branch's last BatchNorm
+FALOR_ARGS = dict(proportion_threshold=0.8, nsr_final_threshold=0.01, kl_final_threshold=0.01,
+                  num_data_steps=16, num_metric_steps=8, use_float64=True)
+# lockd at decompose_lockd_resnet50.yaml's batch, lmbda, nsr_threshold,
+# AdamW, lr, gradient clipping and proportion_threshold; its 10 ImageNet
+# epochs cut to 30 steps (PERF.md section 4)
+LOCKD_BATCH, LOCKD_POOL, LOCKD_STEPS = 256, 4, 30
+LOCKD_LMBDA, LOCKD_NSR, LOCKD_LR, LOCKD_CLIP = 0.1, 0.02, 1e-3, 1.0
+LOCKD_PROPORTION_THRESHOLD = 0.9
+# the decomposed ResNet-50 fused against its pairs, about 3x the readings
+# on an H100 at seed 0 (PERF.md): max 0.0039-0.0156, RMS-relative
+# 1.7e-3-2.0e-3
+RN_FUSED_MAX_ABS, RN_FUSED_RMS_REL = 0.05, 6e-3
+# one bf16 gate-training step against its f32 twin at seed 0: loss 1.45e-3
+# apart (relative); over the 163 trained tensors the largest difference
+# 0.017 of the largest |g|, RMS-relative 6.1e-3, gain error 4.0e-3 (a
+# gradient scaled by 1.02 reads a gain error of 0.016 or more and must fail)
+LOCKD_LOSS_REL = 5e-3
+LOCKD_GRAD_LIMITS = {"max_rel": 0.05, "rms_rel": 0.02, "gain_err": 0.01}
 
 # Model-level gates, about 2-3x the readings on an H100 at seed 0 (PERF.md):
 # fused vs unfused logits read max 0.031 (one bf16 ulp), RMS-relative 1.8e-3;
@@ -845,22 +881,26 @@ def artifact_round_trip(model, config, cfg, probe, dev, what: str) -> dict:
     return {"state_dict_bytes": sd_bytes, **logits_agree(y_fresh, y, 0.0, 0.0, what)}
 
 
-class _EighLog(logging.Handler):
-    def __init__(self) -> None:
+class _FieldLog(logging.Handler):
+    """Collects the named ``extra`` fields of the records that carry them."""
+
+    def __init__(self, fields: tuple[str, ...]) -> None:
         super().__init__(logging.INFO)
+        self.fields = fields
         self.records: list[dict] = []
 
     def emit(self, record: logging.LogRecord) -> None:
-        if hasattr(record, "eigh_job_s"):
-            self.records.append({"job_s": record.eigh_job_s, "wait_s": record.eigh_wait_s})
+        if hasattr(record, self.fields[0]):
+            self.records.append({f: getattr(record, f) for f in self.fields})
 
 
 @contextlib.contextmanager
-def pipelined_eigh_log():
-    """What ``decompose`` logs of its pipelined eigh in the block: per walk
-    that precomputed, the worker's seconds in eigh jobs (its stream
-    synchronized) and the walk's seconds blocked on them."""
-    log, handler = logging.getLogger(decomposition.__name__), _EighLog()
+def logged_fields(logger_name: str, *fields: str):
+    """The ``fields`` of what the named module logs in the block, one dict
+    a record: ``decompose``'s pipelined eigh (per walk that precomputed,
+    the worker's seconds in eigh jobs and the walk's seconds blocked on
+    them), falor's eigh seconds per site."""
+    log, handler = logging.getLogger(logger_name), _FieldLog(fields)
     level = log.level
     log.setLevel(logging.INFO)
     log.addHandler(handler)
@@ -869,6 +909,10 @@ def pipelined_eigh_log():
     finally:
         log.removeHandler(handler)
         log.setLevel(level)
+
+
+def pipelined_eigh_log():
+    return logged_fields(decomposition.__name__, "eigh_job_s", "eigh_wait_s")
 
 
 class TimedFinetune:
@@ -919,8 +963,8 @@ def ft_walk(dev, cfg, weights, seed: int, mode: str, **extra):
 
 
 def overlap(eighs) -> dict:
-    job = sum(e["job_s"] for e in eighs)
-    wait = sum(e["wait_s"] for e in eighs)
+    job = sum(e["eigh_job_s"] for e in eighs)
+    wait = sum(e["eigh_wait_s"] for e in eighs)
     return {"eigh_job_s": job, "eigh_wait_s": wait,
             "eigh_hidden_share": (job - wait) / job if job > 0 else None}
 
@@ -959,18 +1003,20 @@ def decompose_ft(dev, cfg, weights, seed: int, probe) -> tuple:
     return model, list(config), counts
 
 
-def gradient_gate(g, ref, scale: float = 1.0) -> dict:
+def gradient_gate(g, ref, scale: float = 1.0, limits: dict | None = None) -> dict:
     """``scale * g`` against ``ref`` (f32): the largest difference relative
     to the largest |ref|, the RMS-relative difference and the gain error
     |<g, ref> / <ref, ref> - 1| (a bias that rounding noise averages
-    out of), each beside its limit; ``ok`` when all hold."""
+    out of); ``ok`` when each is within its limit (``limits``, by default
+    ``finetune_grad``'s)."""
+    if limits is None:
+        limits = {"max_rel": GRAD_MAX_REL, "rms_rel": GRAD_RMS_REL, "gain_err": GRAD_GAIN_ERR}
     g, ref = scale * g.float(), ref.float()
     d = g - ref
     got = {"max_rel": float(d.abs().max() / ref.abs().max()),
            "rms_rel": float(d.square().mean().sqrt() / ref.square().mean().sqrt()),
            "gain_err": abs(float((g * ref).sum() / ref.square().sum()) - 1.0)}
-    got["ok"] = (got["max_rel"] <= GRAD_MAX_REL and got["rms_rel"] <= GRAD_RMS_REL
-                 and got["gain_err"] <= GRAD_GAIN_ERR)
+    got["ok"] = all(got[k] <= v for k, v in limits.items())
     return got
 
 
@@ -1148,6 +1194,340 @@ def dwain_mlp(dev, seed: int) -> dict[str, int]:
     return counts
 
 
+# --- slice 7: falor and lockd on a full-width ResNet-50 ------------------
+
+
+def planted_resnet50(seed: int, dev) -> torch.nn.Module:
+    """ResNet-50 (torchvision topology, 1000 classes), bf16, channels_last,
+    in eval mode.  Every 1x1 conv and the fc are ``A @ B / sqrt(r * d_in)``
+    plus 1% noise at r = full_rank // 4, drawn from a numpy seed, so that
+    falor's decisions are known in advance; the 3x3 convs and the stem keep
+    the seeded uniform init.  BatchNorm's running statistics are then set
+    to each layer's own input statistics over two calibration batches (one
+    f32 forward in train mode, cumulative averages): every BatchNorm output
+    is about zero-mean and unit-variance, so the activations of 16
+    residual blocks and the logits stay finite in bf16.  The last
+    BatchNorm of each residual branch scales by ``RN_BRANCH_GAMMA`` (as
+    zero-init-residual training starts its branches at 0): an untrained
+    BatchNorm ResNet amplifies a perturbation exponentially with depth,
+    and at scale 1 one bf16 rounding of an early 1x1 weight moved the
+    logits by an NSR of 0.2, over falor's threshold at every rank."""
+    model = models.resnet50(device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    with torch.no_grad():
+        for name in engine.get_decomposeable_submodule_names(model):
+            w = pnn.get_submodule(model, name).weight
+            d_out, d_in = w.shape[:2]
+            r = min(d_in, d_out) // 4
+            a = rng.standard_normal((d_out, r), dtype=f32)
+            b = rng.standard_normal((r, d_in), dtype=f32)
+            planted = (a @ b) / np.sqrt(r * d_in, dtype=f32)
+            planted += 0.01 * rng.standard_normal((d_out, d_in), dtype=f32) / np.sqrt(d_in, dtype=f32)
+            w.copy_(torch.from_numpy(planted).reshape(w.shape))
+        bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+        for m in bns:
+            m.reset_running_stats()
+            m.momentum = None  # cumulative average over the calibration batches
+        model.train()
+        for x in image_batches(seed + 20, 2, RN_BATCH, dev, torch.float32):
+            model(x)
+        for m in bns:
+            m.momentum = 0.1
+        for m in model.modules():
+            if isinstance(m, models.resnet.Bottleneck):
+                m.bn3.weight.fill_(RN_BRANCH_GAMMA)
+    return model.eval().to(torch.bfloat16, memory_format=torch.channels_last)
+
+
+def image_batches(seed: int, n: int, batch: int, dev, dtype=torch.bfloat16) -> list[torch.Tensor]:
+    """``n`` batches of standard-normal images (normalized ImageNet's scale),
+    (batch, 3, 224, 224), drawn from a numpy seed, channels_last on the card."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((batch, 3, RN_HW, RN_HW), dtype=np.float32))
+            .to(dev).to(dtype, memory_format=torch.channels_last) for _ in range(n)]
+
+
+def cycle(pool):
+    while True:
+        yield from pool
+
+
+def resnet_round_trip(model, config, probe, dev, what: str) -> dict:
+    """The ResNet-50 artifact written, reloaded into a fresh bf16
+    channels_last model and held bit-equal on the probe's logits."""
+    with torch.no_grad():
+        y = model(probe)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "decompose_config.json").write_text(json.dumps(config))
+        utils.save_state_dict_pt(utils.state_dict(model), str(tmp / "decompose_state_dict.pt"))
+        sd_bytes = (tmp / "decompose_state_dict.pt").stat().st_size
+        fresh = models.resnet50(device=dev).to(torch.bfloat16, memory_format=torch.channels_last)
+        utils.apply_decompose_config(fresh, json.loads((tmp / "decompose_config.json").read_text()))
+        utils.load_state_dict(fresh, utils.load_state_dict_pt(str(tmp / "decompose_state_dict.pt")))
+    fresh = fresh.to(memory_format=torch.channels_last).eval()
+    with torch.no_grad():
+        y_fresh = fresh(probe)
+    return {"state_dict_bytes": sd_bytes, **logits_agree(y_fresh, y, 0.0, 0.0, what)}
+
+
+def resnet_fused_serve(model, probe, what: str) -> tuple[dict, dict[str, int]]:
+    """The decomposed ResNet-50 with its plain 1x1 pairs fused against its
+    pairs: logits gated, the fused forward's launches and the inputs it had
+    to copy into rows (none for channels_last), and both forwards timed.
+    Returns the record and the fused forward's launch counts."""
+    with torch.no_grad():
+        y_pairs = model(probe)
+        pairs_ms = time_ms(lambda: model(probe), reps=10)
+        pnn.fuse_factor_pairs(model)
+        ops.reset_launch_counts()
+        y_fused = model(probe)
+        torch.cuda.synchronize()
+        counts, copies = ops.launch_counts(), ops.lowrank_matmul.input_copies
+        fused_ms = time_ms(lambda: model(probe), reps=10)
+        pnn.unfuse_factor_pairs(model)
+    if counts["lowrank_matmul"] <= 0 or copies:
+        raise AssertionError(f"{what}: launches {counts}, {copies} input copies")
+    return {"fused_pairs": counts["lowrank_matmul"], "input_copies": copies,
+            "fused_ms": fused_ms, "pairs_ms": pairs_ms,
+            **logits_agree(y_fused, y_pairs, RN_FUSED_MAX_ABS, RN_FUSED_RMS_REL, what)}, counts
+
+
+def falor_resnet50(dev, seed: int, use_mean: bool) -> dict[str, int]:
+    """``falor.decompose`` of the planted ResNet-50 with the falor yaml's
+    hyperparameters on batches of 64 images: every planted site must be
+    decomposed at proportion <= 0.5 (each is accepted at full_rank // 4 or
+    below), the Grams must take SYRK; then the artifact round trip and the
+    fused serve.  Mean-centred, the fc is exempt and its decision is
+    reported: the untrained net's logits barely vary across images (the
+    record's ``logits_var_to_mean_sq``), so the NSR, normalized by that
+    variance, magnifies the loss of the logits' mean, whose direction a
+    mean-centred Gram drops.  Returns the path's launch counts."""
+    what = "falor_resnet50" + ("_mean" if use_mean else "")
+    model = planted_resnet50(seed, dev)
+    sites = engine.get_decomposeable_submodule_names(model)
+    required = [s for s in sites if not (use_mean and s == "fc")]
+    params_before = utils.get_num_params(model)
+    pool = image_batches(seed + 21, RN_POOL, RN_BATCH, dev)
+    probe = image_batches(seed + 22, 1, RN_BATCH, dev)[0]
+    with torch.no_grad():
+        y = model(probe).float()
+    var_to_mean_sq = float(y.var(dim=0).mean() / y.mean(dim=0).square().mean())
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with logged_fields(falor_decomposition.__name__, "falor_site", "eigh_s") as logged:
+        model, config = falor.decompose(module=model, data_iterator=cycle(pool), use_mean=use_mean,
+                                        device=dev, **FALOR_ARGS)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eighs = {r["falor_site"]: r["eigh_s"] for r in logged}
+    walk_counts = ops.launch_counts()
+    proportions = {k: v["__meta__"]["proportion"] for k, v in config.items()}
+    rec = {"phase": what, "use_mean": use_mean, "batch": RN_BATCH, "wall_s": wall,
+           "eigh_s": sum(eighs.values()), "eigh_s_by_site": eighs, "sites": len(sites),
+           "required": len(required), "decomposed": len(config), "proportions": proportions,
+           "logits_var_to_mean_sq": var_to_mean_sq,
+           "params_before": params_before, "params_after": utils.get_num_params(model),
+           "walk_launches": walk_counts}
+    if not set(required) <= set(config) or any(p > 0.5 for p in proportions.values()):
+        emit({**rec, "ok": False})
+        raise AssertionError(f"{what}: planted sites not all decomposed at <= 0.5")
+    require_launches(walk_counts, ("syrk_gram",), what)
+    rec["artifact"] = resnet_round_trip(model, config, probe, dev, what + "_artifact")
+    rec["serve"], serve_counts = resnet_fused_serve(model, probe, what + "_serve")
+    counts = {k: walk_counts[k] + serve_counts[k] for k in walk_counts}
+    require_launches(counts, ("syrk_gram", "lowrank_matmul"), what)
+    emit({**rec, "launches": counts})
+    del model, pool
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lockd_gate_gradients(model, x, seed: int, precision) -> tuple[float, dict]:
+    """One gate-training step of ``model`` (a copy, trained in place) on x:
+    its loss and each trained parameter's gradient before clipping."""
+    params = dict(lockd.trainable_partition(model))
+    grads = {}
+    handles = [p.register_hook(lambda g, n=n: grads.__setitem__(n, g.detach().float().clone()))
+               for n, p in params.items()]
+    update = lockd_train._make_update(
+        model, lockd_train.get_optimizer(params.values(), "AdamW", LOCKD_LR), LOCKD_LMBDA,
+        LOCKD_NSR, precision=precision, clip_norm=LOCKD_CLIP)
+    try:
+        loss, _ = update(x, lockd.Ctx(lockd.make_generators(model, seed)))
+    finally:
+        for h in handles:
+            h.remove()
+    return float(loss), grads
+
+
+def lockd_grad_check(model, x, seed: int) -> dict:
+    """One bf16 gate-training step against its f32 twin's on the same
+    images and Gumbel noise: the loss and each trained parameter's gradient
+    gated on max, RMS-relative and gain error; the bf16 gradients scaled by
+    1.02 must fail the gate."""
+    loss, grads = lockd_gate_gradients(copy.deepcopy(model), x, seed, "bf16")
+    twin = copy.deepcopy(model).float()
+    loss32, grads32 = lockd_gate_gradients(twin, x.float(), seed, None)
+    del twin
+    torch.cuda.empty_cache()
+    if set(grads) != set(grads32) or not grads:
+        raise AssertionError(f"lockd_grad: gradients of {len(grads)} vs {len(grads32)} tensors")
+    per = {n: gradient_gate(grads[n], grads32[n], limits=LOCKD_GRAD_LIMITS) for n in grads}
+    planted = {n: gradient_gate(grads[n], grads32[n], 1.02, limits=LOCKD_GRAD_LIMITS)
+               for n in grads}
+    worst = {k: max(r[k] for r in per.values()) for k in ("max_rel", "rms_rel", "gain_err")}
+    worst_at = {k: max(per, key=lambda n: per[n][k]) for k in worst}
+    rec = {"trained_tensors": len(per), "batch": int(x.shape[0]), "loss_bf16": loss,
+           "loss_f32": loss32, "loss_rel_diff": abs(loss - loss32) / abs(loss32),
+           "limit_loss_rel": LOCKD_LOSS_REL, "worst": worst, "worst_at": worst_at,
+           "limits": LOCKD_GRAD_LIMITS,
+           "planted_x1.02_caught": sum(not r["ok"] for r in planted.values())}
+    ok = rec["loss_rel_diff"] <= LOCKD_LOSS_REL and all(r["ok"] for r in per.values())
+    if not ok:
+        emit({"phase": "lockd_grad", **rec, "ok": False})
+        raise AssertionError(f"lockd_grad: {rec}")
+    if any(r["ok"] for r in planted.values()):
+        emit({"phase": "lockd_grad", **rec, "ok": False})
+        raise AssertionError("lockd_grad: the gate passed a gradient scaled by 1.02")
+    return rec
+
+
+def lockd_resnet50(dev, seed: int) -> dict[str, int]:
+    """lockd on the planted ResNet-50: wrap its 54 layers, hold one bf16
+    step against its f32 twin, train the gates for ``LOCKD_STEPS`` steps at
+    batch 256 with the lockd yaml's loss, optimizer and clipping (the loss
+    finite, the proportion loss falling), decompose (gates open at logit 3,
+    so the layers revert), then decompose a copy whose gates close half of
+    each layer's channels: every layer decomposed, the artifact round trip,
+    the fused serve.  Returns the path's launch counts."""
+    model = planted_resnet50(seed, dev)
+    lockd.wrap(model, seed=seed)
+    model.to(memory_format=torch.channels_last)
+    n_wrapped = len(list(lockd.named_wrapped_modules(model)))
+    if n_wrapped != 54:
+        raise AssertionError(f"lockd_resnet50: {n_wrapped} wrapped layers, not 54")
+    grad = lockd_grad_check(model, image_batches(seed + 23, 1, RN_BATCH, dev)[0], seed)
+
+    ops.reset_launch_counts()
+    params = [p for _, p in lockd.trainable_partition(model)]
+    update = lockd_train._make_update(
+        model, lockd_train.get_optimizer(params, "AdamW", LOCKD_LR), LOCKD_LMBDA, LOCKD_NSR,
+        precision="bf16", clip_norm=LOCKD_CLIP)
+    pool = image_batches(seed + 24, LOCKD_POOL, LOCKD_BATCH, dev)
+    gens = lockd.make_generators(model, seed)
+    losses, proportions = [], []
+    # the proportion loss of the f32 master logits: the bf16 value the step
+    # sees moves in steps of 2^-8 near 0.95
+    with torch.no_grad():
+        proportion_start = float(lockd.get_proportion_loss(model))
+    update(pool[0], lockd.Ctx(gens))  # warm-up step (cuDNN plans, the allocator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LOCKD_STEPS):
+        loss, (nsr_loss, proportion, _) = update(pool[(i + 1) % LOCKD_POOL], lockd.Ctx(gens))
+        losses.append(loss)
+        proportions.append(proportion)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / LOCKD_STEPS
+    train_counts = ops.launch_counts()
+    losses = [float(v) for v in losses]
+    with torch.no_grad():
+        proportion_end = float(lockd.get_proportion_loss(model))
+    rec = {"phase": "lockd_resnet50", "wrapped": n_wrapped, "batch": LOCKD_BATCH,
+           "steps": LOCKD_STEPS + 1, "step_ms": step_ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "loss_first_last": [losses[0], losses[-1]],
+           "proportion_loss_bf16_first_last": [float(proportions[0]), float(proportions[-1])],
+           "proportion_loss_f32_start_end": [proportion_start, proportion_end],
+           "grad_check": grad}
+    if not all(math.isfinite(v) for v in losses) or proportion_end >= proportion_start:
+        emit({**rec, "ok": False})
+        raise AssertionError("lockd_resnet50: the loss is not finite or the proportion "
+                             "loss did not fall")
+    del pool
+    torch.cuda.empty_cache()
+
+    planted = copy.deepcopy(model)
+    _, trained_config = lockd.decompose(model, LOCKD_PROPORTION_THRESHOLD)
+    rec["trained_decomposed"] = len(trained_config)
+    del model
+    for _, m in lockd.named_wrapped_modules(planted):
+        with torch.no_grad():
+            m.logits[1::2] = -3.0
+    planted, config = lockd.decompose(planted, LOCKD_PROPORTION_THRESHOLD)
+    if len(config) != n_wrapped:
+        emit({**rec, "planted_decomposed": len(config), "ok": False})
+        raise AssertionError(f"lockd_resnet50: {len(config)} of {n_wrapped} planted layers "
+                             "decomposed")
+    planted = planted.to(torch.bfloat16, memory_format=torch.channels_last).eval()
+    probe = image_batches(seed + 22, 1, RN_BATCH, dev)[0]
+    rec["planted_decomposed"] = len(config)
+    rec["artifact"] = resnet_round_trip(planted, config, probe, dev, "lockd_resnet50_artifact")
+    rec["serve"], serve_counts = resnet_fused_serve(planted, probe, "lockd_resnet50_serve")
+    counts = {k: train_counts[k] + serve_counts[k] for k in train_counts}
+    require_launches(counts, ("lowrank_matmul",), "lockd_resnet50")
+    emit({**rec, "launches": counts})
+    del planted
+    torch.cuda.empty_cache()
+    return counts
+
+
+def resnet_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
+    """SYRK and the low-rank kernel at ResNet-50's shapes (batch 64 at
+    224 x 224): falor's conv-site Grams of d >= 512 (layer2's 28 x 28,
+    layer3's 14 x 14 and layer4's 7 x 7 pixels, and layer2's strided
+    downsample, whose Gram takes its input's 56 x 56 pixels), with the
+    product that materializes y beside; and the fused pairs of the planted
+    decomposition (rank full_rank // 4) at layer1's 200704 rows, layer3,
+    layer4 and the fc."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    for n, d_in, d, what in ((50176, 128, 512, "layer2 conv3"), (12544, 256, 1024, "layer3 conv3"),
+                             (3136, 512, 2048, "layer4 conv3"),
+                             (200704, 256, 512, "layer2.0 downsample")):
+        x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
+        w = (torch.randn(d, d_in, device=dev, generator=g) / d_in ** 0.5).to(bf)
+        y = x @ w.t()
+        recs["syrk_gram"].append(check_kernel(
+            "syrk_gram",
+            lambda: ops.syrk_gram(y),
+            lambda: ops.syrk_gram_plain(y),
+            lambda: y.t() @ y,
+            flops=n * d * d,
+            nbytes=n * d * 2 + d * d * 4,
+            tol_fn=lambda ref: torch.full_like(ref, 1e-4 * float(ref.abs().max())),
+            shape={"what": what, "N": n, "d": d, "dtype": "bf16"},
+            graph=True, extra_fns={"y_matmul": lambda: x @ w.t()},
+        ))
+        del x, w, y
+        torch.cuda.empty_cache()
+    for n, d_in, r, d_out, with_bias, what in (
+            (200704, 256, 16, 64, False, "layer1 conv1"), (200704, 64, 16, 256, False, "layer1 conv3"),
+            (12544, 256, 64, 1024, False, "layer3 conv3"), (3136, 2048, 128, 512, False, "layer4 conv1"),
+            (RN_BATCH, 2048, 250, 1000, True, "fc")):
+        x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
+        bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
+        k1 = (torch.randn(r, d_in, device=dev, generator=g) / d_in ** 0.5).to(bf).t()
+        k2 = (torch.randn(d_out, r, device=dev, generator=g) / r ** 0.5).to(bf).t()
+        recs["lowrank_matmul"].append(check_kernel(
+            "lowrank_matmul",
+            lambda: ops.lowrank_matmul(x, k1, k2, bias),
+            lambda: ops.lowrank_matmul_plain(x, k1, k2, bias),
+            lambda: (x @ k1) @ k2 if bias is None else torch.addmm(bias, x @ k1, k2),
+            flops=2 * n * r * (d_in + d_out),
+            nbytes=2 * (n * d_in + r * d_in + r * d_out + d_out * with_bias + n * d_out),
+            tol_fn=lambda ref: 2.0 ** -6 * (ref.abs() + ref.square().mean().sqrt()),
+            shape={"what": what, "n": n, "d_in": d_in, "r": r, "d_out": d_out,
+                   "bias": with_bias, "dtype": "bf16"},
+            graph=True,
+        ))
+        del x, k1, k2, bias
+        torch.cuda.empty_cache()
+
+
 def profiler(out_dir):
     if not out_dir:
         return contextlib.nullcontext()
@@ -1196,6 +1576,7 @@ def main() -> None:
 
     recs = kernel_checks(dev)
     moe_kernel_checks(dev, recs)
+    resnet_kernel_checks(dev, recs)
 
     # --- main path: decompose -> artifact -> serve ----------------------
     cfg = tinyllama_2_layer()
@@ -1289,9 +1670,14 @@ def main() -> None:
     lora_counts = decompose_ft_lora(dev, cfg, weights, args.seed, probe)
     mlp_counts = dwain_mlp(dev, args.seed)
 
+    # --- slice 7: falor and lockd on a full-width ResNet-50 ---------------
+    resnet_counts = {"falor_resnet50": falor_resnet50(dev, args.seed, use_mean=False),
+                     "falor_resnet50_mean": falor_resnet50(dev, args.seed, use_mean=True),
+                     "lockd_resnet50": lockd_resnet50(dev, args.seed)}
+
     by_path = {"decompose_serve": counts, "tinyllama_generate": gen["counts"],
                "decompose_ft": ft_counts, "decompose_ft_lora": lora_counts,
-               "dwain_mlp": mlp_counts, **moe_serve(dev, args.seed)}
+               "dwain_mlp": mlp_counts, **resnet_counts, **moe_serve(dev, args.seed)}
     emit({"phase": "kernels", "launches": by_path})
     main_path = {"syrk_gram": "decompose_serve", "flash_attention": "decompose_serve",
                  "lowrank_matmul": "decompose_serve", "grouped_matmul": "moe_bf16",

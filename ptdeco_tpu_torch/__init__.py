@@ -1,6 +1,7 @@
 """ptdeco_tpu_torch: the PyTorch + CUDA port of ptdeco_tpu.
 
-Low-rank decomposition (dwain) of torch.nn models, weight-only int8, and
+Low-rank decomposition of torch.nn models by the library's three methods
+(dwain, falor and lockd; LLMs and ResNets), weight-only int8, and
 KV-cached serving of llama and Mixtral causal LMs, with the JAX package's
 TPU kernels rewritten by hand for NVIDIA Hopper (``csrc/``).  Entry points
 run on the card (``device="cuda"``) unless the caller asks for the CPU,
@@ -13,6 +14,8 @@ from . import utils  # noqa: F401
 from . import engine  # noqa: F401
 from . import models  # noqa: F401
 from . import dwain  # noqa: F401
+from . import falor  # noqa: F401
+from . import lockd  # noqa: F401
 from . import quant  # noqa: F401
 from . import serving  # noqa: F401
 

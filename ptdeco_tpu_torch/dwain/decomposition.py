@@ -189,7 +189,7 @@ def _process_module(
 
     weight2d = engine.get_site_weight2d(root, site)
     if u_matrix is None:
-        grams = engine.compute_output_grams(
+        grams, _ = engine.compute_output_grams(
             root, [site.name], data_iterator, num_data_steps, apply_fn, device
         )
         u_matrix = _site_eigenvectors(
@@ -343,7 +343,7 @@ def _precompute_u_in_splits(
         if not sublist:
             continue
         logger.info(f"Pre-computing covariance matrices for {len(sublist)} modules")
-        grams = engine.compute_output_grams(
+        grams, _ = engine.compute_output_grams(
             root, sublist, data_iterator, num_data_steps, apply_fn, device
         )
         for name in sublist:

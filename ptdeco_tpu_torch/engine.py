@@ -7,11 +7,15 @@ computes, in eager PyTorch:
     on a forward pass.
   * **Gram accumulation**: a forward pre-hook on the site captures its input
     x and accumulates ``E[y yᵀ]`` of the bias-free site output
-    ``y = x @ Wᵀ``.  bf16 activations with d >= 512 on the card compute y in
-    bf16 and take the SYRK kernel; every other site computes y and its Gram
-    with f32 matmuls (``ops.gram.should_use_syrk``).
+    ``y = x @ Wᵀ`` (and, for falor, ``E[y]``).  bf16 activations with
+    d >= 512 on the card compute y in bf16 and take the SYRK kernel; every
+    other site computes y and its Gram with f32 matmuls
+    (``ops.gram.should_use_syrk``).  A conv site's rows are its input's
+    pixels, a view when the activation is ``channels_last``.
   * **Eigendecomposition**: damped ``eigh`` in float64, where the Gram lives
-    (the card has native f64); ascending order, top eigenvectors last.  Or
+    (the card has native f64); ascending order, top eigenvectors last.
+    falor may mean-centre the Gram to a covariance first; the damping is
+    added to the matrix actually decomposed.  Or
     the randomized top-k EVD: a subspace sketch in f32 and an f64 eigh of
     its small (m, m) projection, both on the Gram's device.
   * **Rank candidates**: the candidate weight ``(u_k u_kᵀ) W`` is swapped
@@ -109,7 +113,8 @@ def get_site_weight2d(root: torch.nn.Module, site: Site) -> torch.Tensor:
 
 
 def _site_rows(site: Site, x: torch.Tensor) -> torch.Tensor:
-    """The site input as (rows, in_features); NCHW channels moved last."""
+    """The site input as (rows, in_features): an NCHW activation's channels
+    moved last, which is a view (no copy) when it is ``channels_last``."""
     if site.kind == "conv2d1x1":
         x = x.movedim(1, -1)
     return x.reshape(-1, x.shape[-1])
@@ -144,15 +149,14 @@ def fired_site_names(
 # ---------------------------------------------------------------------------
 
 
-def _site_gram(site: Site, weight2d: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """``Yᵀ Y`` (f32) of the bias-free site output y = x @ Wᵀ."""
+def _site_y(site: Site, weight2d: torch.Tensor, x2: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """The bias-free site output y = x @ Wᵀ and whether its Gram takes the
+    SYRK kernel: then y is in the activation dtype, as the forward computes
+    it (the kernel accumulates in f32); else in f32."""
     w = weight2d.to(x2.dtype)
     if should_use_syrk(x2.dtype, site.out_features, x2.is_cuda):
-        # y in the activation dtype, as the forward computes it; the kernel
-        # accumulates the Gram in f32
-        return syrk_gram(x2 @ w.t())
-    y = x2.to(torch.float32) @ w.to(torch.float32).t()
-    return y.t() @ y
+        return x2 @ w.t(), True
+    return x2.to(torch.float32) @ w.to(torch.float32).t(), False
 
 
 def compute_output_grams(
@@ -162,14 +166,18 @@ def compute_output_grams(
     num_data_steps: int,
     apply_fn: ApplyFn = default_apply,
     device: Any = "cuda",
-) -> dict[str, torch.Tensor]:
+    accumulate_mean: bool = False,
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
     """Run ``num_data_steps`` calibration batches and return per-site
-    ``E[y yᵀ]`` (f32, on ``device``), already divided by the step count."""
+    ``E[y yᵀ]`` and ``E[y]`` (f32, on ``device``), already divided by the
+    step count; the means stay zero unless ``accumulate_mean``."""
     sites = {n: get_site(root, n) for n in site_names}
     grams = {
         n: torch.zeros((s.out_features, s.out_features), dtype=torch.float32, device=device)
         for n, s in sites.items()
     }
+    means = {n: torch.zeros(s.out_features, dtype=torch.float32, device=device)
+             for n, s in sites.items()}
 
     def make_hook(name: str):
         site = sites[name]
@@ -177,7 +185,10 @@ def compute_output_grams(
         def hook(mod: torch.nn.Module, args: tuple) -> None:
             x2 = _site_rows(site, args[0])
             w = mod.weight.detach().reshape(site.out_features, site.in_features)
-            grams[name] += _site_gram(site, w, x2) / x2.shape[0]
+            y, use_syrk = _site_y(site, w, x2)
+            grams[name] += (syrk_gram(y) if use_syrk else y.t() @ y) / x2.shape[0]
+            if accumulate_mean:
+                means[name] += torch.mean(y, dim=0, dtype=torch.float32)
 
         return hook
 
@@ -192,7 +203,8 @@ def compute_output_grams(
     finally:
         for h in handles:
             h.remove()
-    return {n: g / num_data_steps for n, g in grams.items()}
+    return ({n: g / num_data_steps for n, g in grams.items()},
+            {n: m / num_data_steps for n, m in means.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -203,18 +215,29 @@ def compute_output_grams(
 def eigenvectors_from_gram(
     gram: torch.Tensor,
     *,
+    mean: Optional[torch.Tensor] = None,
+    use_damping: bool = True,
     in_float64: bool = True,
     top_k: Optional[int] = None,
 ) -> torch.Tensor:
-    """Eigenvectors of E[y yᵀ] damped by ``EIGEN_DAMPEN_FACTOR`` times its
-    mean diagonal, in ascending eigenvalue order: the top-k are the LAST k
-    columns.  It runs on the Gram's device.  With ``in_float64`` and
-    ``0 < top_k <= d/4`` only the top ``top_k`` eigenvectors are returned,
-    (d, top_k), as the JAX package's subset solve does."""
+    """Eigenvectors of E[y yᵀ], mean-centred to the covariance
+    ``E[y yᵀ] - E[y] E[y]ᵀ`` when ``mean`` is given, then damped by
+    ``EIGEN_DAMPEN_FACTOR`` times the mean diagonal of the matrix actually
+    decomposed (the reference adds the damping before centring, so with a
+    mean it has no effect there, falor:194-205).  Ascending eigenvalue
+    order: the top-k are the LAST k columns.  It runs on the Gram's device.
+    With ``in_float64`` and ``0 < top_k <= d/4`` only the top ``top_k``
+    eigenvectors are returned, (d, top_k), as the JAX package's subset
+    solve does."""
     g = gram.to(torch.float64 if in_float64 else torch.float32)
     d = g.shape[-1]
-    damp = EIGEN_DAMPEN_FACTOR * torch.mean(torch.diagonal(g))
-    _, u = torch.linalg.eigh(g + damp * torch.eye(d, dtype=g.dtype, device=g.device))
+    if mean is not None:
+        m = mean.to(g)
+        g = g - torch.outer(m, m)
+    if use_damping:
+        damp = EIGEN_DAMPEN_FACTOR * torch.mean(torch.diagonal(g))
+        g = g + damp * torch.eye(d, dtype=g.dtype, device=g.device)
+    _, u = torch.linalg.eigh(g)
     if in_float64 and top_k is not None and 0 < top_k <= d // 4:
         return u[:, d - top_k :]
     return u

@@ -2,7 +2,8 @@
 
 Every wrapper counts its kernel launches in a plain int attribute
 (``syrk_gram.launches`` ...); ``launch_counts``/``reset_launch_counts``
-read and clear them together.
+read and clear them together (the reset also clears
+``lowrank_matmul.input_copies``, the inputs it had to copy into rows).
 """
 
 from .flash_attention import causal_attention_plain, flash_attention
@@ -44,6 +45,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    lowrank_matmul.input_copies = 0
     for fn in (grouped_matmul, grouped_matmul_int8):
         for route in fn.route_launches:
             fn.route_launches[route] = 0

@@ -49,6 +49,7 @@ TARGET_CTAS = 128
 MIN_COLS_PER_CTA = 64
 ROW_TILES = (8, 16, 32, 64)  # rows a CTA takes (csrc/lowrank_matmul.cu)
 MAX_CLUSTER = 8
+MAX_ROW_TILES = 65535  # the grid's y extent, one row tile each
 _NT, _BK, _STAGES = 128, 64, 3  # the kernel's tile width, k-step and ring depth
 
 
@@ -158,6 +159,10 @@ def launch_shape(n: int, d_in: int, r: int, d_out: int) -> LaunchShape:
     ):
         bm //= 2
     row_tiles = -(-n // bm)
+    if row_tiles > MAX_ROW_TILES:
+        raise ValueError(f"lowrank_matmul: {n} rows need {row_tiles} row tiles of {bm}, over "
+                         f"the grid's {MAX_ROW_TILES} (the kernel takes up to "
+                         f"{MAX_ROW_TILES * ROW_TILES[-1]} rows)")
     k_steps = max(1, -(-d_in // _BK))
     cluster = 1
     while cluster * 2 <= min(MAX_CLUSTER, k_steps) and row_tiles * cluster * 2 <= TARGET_CTAS:
@@ -209,7 +214,10 @@ def lowrank_matmul(
         raise ValueError("lowrank_matmul: the kernel takes bf16 or f32 tensors of one dtype "
                          "on one device")
     _check_rank(r, x.dtype)
-    x2 = _build.aligned(x2)
+    xk = _build.aligned(x2)
+    if xk.data_ptr() != x.data_ptr():  # rows that were not a row-major view
+        lowrank_matmul.input_copies += 1
+    x2 = xk
     w1 = _build.aligned(k1.t())  # (r, d_in): a no-op for a Linear weight's view
     w2 = _build.aligned(k2.t())  # (d_out, r)
     b = _build.aligned(bias) if bias is not None else None
@@ -232,3 +240,4 @@ def lowrank_matmul(
 
 
 lowrank_matmul.launches = 0
+lowrank_matmul.input_copies = 0

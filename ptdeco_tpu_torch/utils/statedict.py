@@ -40,7 +40,9 @@ def load_state_dict(
 
 
 def _from_numpy(a: np.ndarray) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    # np.asarray(order="C"), not np.ascontiguousarray, which makes a 0-d
+    # array (BatchNorm's num_batches_tracked) 1-d
+    a = np.asarray(a, order="C")
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16, as the JAX package exports it
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
@@ -49,8 +51,10 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
 def load_numpy_state_dict(
     root: torch.nn.Module, sd: dict[str, np.ndarray], strict: bool = True
 ) -> torch.nn.Module:
-    """Load parameters given as numpy arrays in torch layout and HF names,
-    e.g. ``ptdeco_tpu.utils.state_dict(model)`` of the JAX twin."""
+    """Load parameters and buffers given as numpy arrays in torch layout and
+    names (HF names for an LM, torchvision's for a ResNet: conv weights
+    OIHW, BatchNorm running stats and ``num_batches_tracked``), e.g.
+    ``ptdeco_tpu.utils.state_dict(model)`` of the JAX twin."""
     return load_state_dict(root, {k: _from_numpy(v) for k, v in sd.items()}, strict)
 
 

@@ -28,7 +28,10 @@ def dev():
 @pytest.mark.parametrize(
     "n,d",
     [(100, 300), (37, 1030), (5, 129), (0, 256), (1, 130), (64, 2050)]
-    + [(n, d) for d in (512, 600, 5632) for n in (1, 37, 1024)],
+    + [(n, d) for d in (512, 600, 5632) for n in (1, 37, 1024)]
+    # rows split over blocks (TMA and cp.async panels, a ragged last split),
+    # and one block a tile summing several 4096-row chunks
+    + [(5000, 512), (5000, 600), (70000, 130), (9000, 2048)],
 )
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_syrk_gram(dev, n, d, dtype):
@@ -564,3 +567,70 @@ def test_moe_layer_routes_through_the_kernels(dev):
     assert ops.launch_counts()["gmm_int8"] == 3
     assert ops.grouped_matmul_int8.route_launches["decode"] == 3
     torch.testing.assert_close(y8.float(), y.float(), rtol=5e-2, atol=5e-2)
+
+
+# --- ResNet-50's shapes (falor's Grams, the fused 1x1-conv pairs) ---------
+
+
+@pytest.mark.parametrize("n,d", [(50176, 512), (200704, 256)])
+def test_syrk_gram_conv_rows(dev, n, d):
+    """SYRK at falor's conv-site row counts: layer2's 50176 pixels (batch 64
+    at 28 x 28) at d 512, and 200704 rows (layer1's 56 x 56) at d 256, which
+    the engine's rule would give to an f32 matmul: called directly, to test
+    the kernel's row range."""
+    y = torch.randn(n, d, device=dev).to(torch.bfloat16)
+    before = ops.syrk_gram.launches
+    g = ops.syrk_gram(y)
+    torch.cuda.synchronize()
+    assert ops.syrk_gram.launches == before + 1
+    ref = ops.syrk_gram_plain(y)
+    torch.testing.assert_close(g, ref, rtol=0, atol=3e-5 * float(ref.abs().max()))
+    assert torch.equal(g, g.t())
+
+
+@pytest.mark.parametrize("n,c,hw,r,d_out", [(64, 256, 56, 16, 64), (8, 512, 28, 32, 2048),
+                                            (3, 64, 7, 5, 256)])
+def test_lowrank_matmul_channels_last_conv_rows(dev, n, c, hw, r, d_out):
+    """A fused 1x1-conv pair's kernel input: the pixels of a channels_last
+    NCHW activation as rows, read in place (no copy counted); an NCHW
+    contiguous one is copied once."""
+    x = torch.randn(n, c, hw, hw, device=dev).to(torch.bfloat16)
+    x_cl = x.to(memory_format=torch.channels_last)
+    k1 = (torch.randn(c, r, device=dev) / c ** 0.5).to(torch.bfloat16)
+    k2 = (torch.randn(r, d_out, device=dev) / r ** 0.5).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    y = ops.lowrank_matmul(x_cl.permute(0, 2, 3, 1), k1, k2)
+    assert ops.lowrank_matmul.input_copies == 0
+    y_nchw = ops.lowrank_matmul(x.permute(0, 2, 3, 1), k1, k2)
+    assert ops.lowrank_matmul.input_copies == 1 and ops.lowrank_matmul.launches == 2
+    torch.cuda.synchronize()
+    ref = ops.lowrank_matmul_plain(x_cl.permute(0, 2, 3, 1), k1, k2, None)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(y, y_nchw)
+
+
+def test_fused_resnet_bottleneck_against_its_pairs(dev):
+    """A decomposed ResNet bottleneck (both 1x1 convs as rank-16 pairs),
+    bf16 channels_last: fused, its pairs launch the kernel once each, copy
+    no input, keep the layout, and agree with the unfused pairs."""
+    from ptdeco_tpu_torch import engine, models
+
+    block = models.resnet.Bottleneck(256, 64, 256, 1, device=dev).eval()
+    for name in ("conv1", "conv3"):
+        site = engine.get_site(block, name)
+        w = engine.get_site_weight2d(block, site)
+        u = torch.linalg.qr(torch.randn(site.out_features, 16, device=dev))[0]
+        w1, w2 = engine.build_factors(w, u, 16)
+        tnn.replace_submodule(block, name, engine.build_decomposed_module(block, site, w1, w2))
+    block = block.to(torch.bfloat16, memory_format=torch.channels_last)
+    x = torch.randn(8, 256, 56, 56, device=dev).to(torch.bfloat16, memory_format=torch.channels_last)
+    with torch.no_grad():
+        y_pairs = block(x)
+        tnn.fuse_factor_pairs(block)
+        ops.reset_launch_counts()
+        y = block(x)
+    torch.cuda.synchronize()
+    assert ops.lowrank_matmul.launches == 2 and ops.lowrank_matmul.input_copies == 0
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    d = (y.float() - y_pairs.float())
+    assert float(d.square().mean().sqrt() / y_pairs.float().square().mean().sqrt()) < 1e-2

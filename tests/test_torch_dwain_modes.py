@@ -22,7 +22,7 @@ from ptdeco_tpu_torch.dwain import decomposition
 
 from test_dwain_e2e import loss_fn as jax_e2e_loss, lowrank_data_iter, make_mlp as jax_e2e_mlp
 from test_randomized_evd import _make_gram, _run_decompose as _jax_run_decompose
-from test_torch_dwain import _MLP, _cycle_ids, _cycle_labelled, _hf_cfg, _probe
+from test_torch_dwain import _CNN, _MLP, _cycle_ids, _cycle_labelled, _hf_cfg, _probe
 from test_torch_transformer import make_torch_gqa
 from test_transformer_parity import _hparams, _load, assert_decisions
 
@@ -102,15 +102,21 @@ class _Attn(torch.nn.Module):
         return self.head(x.mean(dim=1))
 
 
+def _cnn_channels_last():
+    return _CNN().to(memory_format=torch.channels_last)
+
+
 @pytest.mark.parametrize(
     "family,make,stem,out_key,extra",
     [("mlp", _MLP, "whole_dwain_mlp_pre", "y_dwain_pre", {"precomputing_covariance_num_splits": 2}),
-     ("attn", _Attn, "whole_dwain_attn", "y_dwain", {})],
-    ids=["mlp_pre", "attn"],
+     ("attn", _Attn, "whole_dwain_attn", "y_dwain", {}),
+     ("cnn", _cnn_channels_last, "whole_dwain_cnn", "y_dwain", {})],
+    ids=["mlp_pre", "attn", "cnn_channels_last"],
 )
 def test_whole_model_goldens(family, make, stem, out_key, extra):
-    """The precompute mode (2 splits) and the attention toy against the
-    torch reference's decisions and final outputs."""
+    """The precompute mode (2 splits), the attention toy and the CNN toy run
+    channels_last (its 1x1 sites' rows are views of the activations)
+    against the torch reference's decisions and final outputs."""
     with open(GOLDEN / "whole_model_hparams.json") as f:
         hp = json.load(f)["dwain"]
     data = np.load(GOLDEN / f"whole_{family}_data.npz")

@@ -42,7 +42,7 @@ def test_site_discovery_matches(twins):
 def test_output_grams_match(twins):
     jm, tm, batches = twins
     names = ["blocks.0", "blocks.1", "head"]
-    ours = engine.compute_output_grams(
+    ours, _ = engine.compute_output_grams(
         tm, names, iter([torch.from_numpy(b) for b in batches]), len(batches), device="cpu"
     )
     theirs, _ = jengine.compute_output_grams(
@@ -56,7 +56,7 @@ def test_eigenbasis_candidates_and_factors_match(twins):
     jm, tm, batches = twins
     gram = engine.compute_output_grams(
         tm, ["blocks.1"], iter([torch.from_numpy(b) for b in batches]), 5, device="cpu"
-    )["blocks.1"]
+    )[0]["blocks.1"]
     for top_k in (None, DIM // 4):
         u = engine.eigenvectors_from_gram(gram, top_k=top_k)
         uj = jengine.eigenvectors_from_gram(jnp.asarray(gram.numpy()), top_k=top_k)

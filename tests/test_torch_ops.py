@@ -197,6 +197,38 @@ def test_lowrank_rank_limit():
         lowrank.launch_shape(4, 64, lowrank.MAX_RANK + 1, 64)
 
 
+@pytest.mark.parametrize("n,d", [(1024, 5632), (1024, 2048), (3136, 2048), (50176, 512),
+                                 (200704, 512), (200704, 256), (12544, 1024), (5000, 600),
+                                 (70000, 130), (0, 512), (1, 512)])
+def test_syrk_split_rows_cover_n(n, d):
+    """The SYRK kernel's row splits: a tall Gram of few tiles splits into
+    32-row multiples that cover every row once and bring the grid near
+    two blocks an SM; a Gram whose tiles fill the card takes one block a
+    tile (TinyLlama's 1024 rows at d 2048 and 5632, as before)."""
+    from ptdeco_tpu_torch.ops import gram
+
+    rows = gram.split_rows(n, d)
+    t = -(-d // 128)
+    tiles = t * (t + 1) // 2
+    if rows >= n:
+        assert rows == n and (tiles >= gram.TARGET_BLOCKS // 2 or n < 2 * gram.MIN_SPLIT_ROWS)
+        return
+    splits = -(-n // rows)
+    assert rows % 32 == 0 and (splits - 1) * rows < n <= splits * rows
+    assert rows >= gram.MIN_SPLIT_ROWS - 32 and splits * tiles <= gram.TARGET_BLOCKS
+
+
+def test_lowrank_rows_within_the_grid():
+    """ResNet-50's fused conv pairs at batch 64 (200704 rows at 56 x 56)
+    and batch 256 (802816) launch within the grid's 65535 row tiles; past
+    them the wrapper raises instead of launching a short grid."""
+    for n in (200704, 802816, lowrank.MAX_ROW_TILES * 64):
+        shape = lowrank.launch_shape(n, 256, 16, 64)
+        assert shape.row_tiles <= lowrank.MAX_ROW_TILES and shape.row_tiles * shape.bm >= n
+    with pytest.raises(ValueError, match="row tiles"):
+        lowrank.launch_shape(lowrank.MAX_ROW_TILES * 64 + 1, 256, 16, 64)
+
+
 @pytest.mark.parametrize("n_ctas", [132, 7, 10_000])
 @pytest.mark.parametrize("b,h,s", [(1, 8, 1), (2, 4, 127), (1, 3, 129), (2, 8, 1000), (4, 32, 512)])
 def test_flash_schedule_covers_every_tile_once_heaviest_first(b, h, s, n_ctas):

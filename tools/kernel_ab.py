@@ -15,8 +15,10 @@ attention and the bf16 grouped matmul the one PyTorch call that computes
 the same function, replayed from a graph (``library_ms``); for the int8
 grouped matmul (at the decode steps' 8 and 16 rows, 512 rows and the
 prefill's 4096) the dequantize route beside it, by events
-(``dequant_route_ms``); the grouped kernels' route where the checkout names
-one (``path``); and the card's name and power limit.  ``--only NAME`` (repeatable) times one kernel's
+(``dequant_route_ms``); for SYRK ``y.t() @ y`` as ``library_ms`` and the
+largest error against the f32 Gram relative to its largest entry
+(``max_rel_err``); the grouped kernels' route where the checkout names one
+(``path``); and the card's name and power limit.  ``--only NAME`` (repeatable) times one kernel's
 shapes.
 """
 
@@ -40,7 +42,11 @@ LOWRANK_SHAPES = (
     (4, 2048, 32, 5632, False), (4, 5632, 32, 2048, False),
     (512, 2048, 32, 5632, False), (512, 5632, 32, 2048, False),
 )
-SYRK_SHAPES = ((1024, 5632), (1024, 2048))  # (N, d), bf16
+# (N, d), bf16: TinyLlama's Grams, then ResNet-50's conv sites at batch 64
+# (layer2/3/4 conv3, layer2's downsample over its 56 x 56 input pixels) and
+# 200704 rows at d 256
+SYRK_SHAPES = ((1024, 5632), (1024, 2048), (50176, 512), (12544, 1024), (3136, 2048),
+               (200704, 512), (200704, 256))
 # (b, h, h_kv, s, head_dim): the TinyLlama decompose forward and the
 # Mixtral-width prefill of 4 x 512
 FLASH_SHAPES = ((1, 32, 4, 1024, 64), (4, 32, 8, 512, 128))
@@ -124,6 +130,7 @@ def main() -> None:
                              "gmm_int8"])
     if not torch.cuda.is_available():
         sys.exit("kernel_ab.py needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 references in full f32
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
     from ptdeco_tpu_torch import ops
     from ptdeco_tpu_torch.ops import gmm, gmm_int8
@@ -146,9 +153,14 @@ def main() -> None:
               flush=True)
     for n, d in SYRK_SHAPES if "syrk_gram" in want else ():
         y = torch.randn(n, d, device=dev, generator=g).to(bf)
-        t = times(lambda: ops.syrk_gram(y))
+        ref = y.float().t() @ y.float()  # f32 products, no TF32
+        err = float((ops.syrk_gram(y) - ref).abs().max() / ref.abs().max())
+        del ref
+        t = times(lambda: ops.syrk_gram(y), lambda: y.t() @ y)
         print(json.dumps({"tag": args.tag, "kernel": "syrk_gram", "N": n, "d": d, **t,
-                          "card": card}), flush=True)
+                          "max_rel_err": err, "card": card}), flush=True)
+        del y
+        torch.cuda.empty_cache()
     for b, h, h_kv, s, hd in FLASH_SHAPES if "flash_attention" in want else ():
         q = torch.randn(b, h, s, hd, device=dev, generator=g).to(bf)
         k = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
