@@ -29,6 +29,12 @@ hyperparameters (once plain, once mean-centred), and lockd's gate
 training at the lockd yaml's batch of 256, its decomposition, and a
 planted half-closed copy decomposed and served fused.
 
+Slice 8 runs the trainer CLI (``python -m ptdeco_tpu_torch.apps.trainer_llm.run``,
+in process): its ``decompose_dwain`` task on a local HF snapshot of the
+same TinyLlama-width model and a JSONL of the repository's prose, with the
+example TinyLlama YAMLs' values, then its ``finetune`` task on the artifact,
+whose result is served fused and through ``generate``.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -37,7 +43,11 @@ decompose, artifact, serve, generate (slice 1's fused model), reference
 input), decompose_ft (the walk with full fine-tuning, its artifact and
 fused serve), finetune_grad (one training step against the f32 twin's,
 and a planted fault), decompose_ft_lora (the LoRA walk, its replay, and
-LoRA logits before and after the merge), dwain_mlp, falor_resnet50 and
+LoRA logits before and after the merge), trainer_llm_decompose (the CLI's
+walk: summary, ranks, launches, the walk's fine-tuning, eigh and
+plain-attention time, peak memory, the artifact reloaded twice),
+trainer_llm_finetune (step time, losses, perplexities, the fused serve and
+``generate`` of the result), dwain_mlp, falor_resnet50 and
 falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
 lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
 and the planted decomposition, artifact, fused serve), moe_serve bf16, moe_reference bf16 (against its f32 twin on the
@@ -58,6 +68,7 @@ import dataclasses
 import json
 import logging
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -68,6 +79,12 @@ import time
 import numpy as np
 import torch
 
+# the trainer phases' snapshot holds no tokenizer: offline, ``transformers``
+# (where it is installed) fails at once and the trainer takes its byte
+# tokenizer, as where it is not installed
+os.environ["HF_HUB_OFFLINE"] = "1"
+os.environ["TRANSFORMERS_OFFLINE"] = "1"
+
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
 
@@ -77,6 +94,9 @@ from ptdeco_tpu_torch.dwain import decomposition  # noqa: E402
 from ptdeco_tpu_torch.falor import decomposition as falor_decomposition  # noqa: E402
 from ptdeco_tpu_torch.lockd import train as lockd_train  # noqa: E402
 from ptdeco_tpu_torch.ops import _build, gmm, gmm_int8  # noqa: E402
+from ptdeco_tpu_torch.apps.trainer_llm import builder as trainer_builder  # noqa: E402
+from ptdeco_tpu_torch.apps.trainer_llm import run as trainer_run  # noqa: E402
+from ptdeco_tpu_torch.apps.trainer_llm import run_finetune as trainer_finetune  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
@@ -139,6 +159,18 @@ RN_FUSED_MAX_ABS, RN_FUSED_RMS_REL = 0.05, 6e-3
 # gradient scaled by 1.02 reads a gain error of 0.016 or more and must fail)
 LOCKD_LOSS_REL = 5e-3
 LOCKD_GRAD_LIMITS = {"max_rel": 0.05, "rms_rel": 0.02, "gain_err": 0.01}
+
+# Slice 8: the trainer CLI (ptdeco_tpu_torch.apps.trainer_llm.run) on a local
+# HF snapshot of the 2-layer TinyLlama-width model, with
+# apps/trainer_llm/examples_config/{decompose_dwain,finetune}_tinyllama.yaml's
+# values (repeated here, so the script needs no PyYAML) and these cuts
+# (PERF.md section 4): calibration and metric steps 2048 / 64 -> 32 / 8;
+# the finetune task's train / test samples 4096 / 256 -> 64 / 16, eval steps
+# 100 -> 8, warmup 50 -> 4.  Text: the repository's own prose, one
+# paragraph a record, byte-tokenized.
+TRAINER_PROSE = ("README.md", "SURVEY.md", "COMPONENTS.md", "docs/*.md", "NOTES_ROUND*.md")
+TRAINER_SNAPSHOT_NAME = "tinyllama-snapshot"  # not a known config: the generic llama branch
+TRAINER_PROMPT, TRAINER_NEW = 128, 16
 
 # Model-level gates, about 2-3x the readings on an H100 at seed 0 (PERF.md):
 # fused vs unfused logits read max 0.031 (one bf16 ulp), RMS-relative 1.8e-3;
@@ -1528,6 +1560,302 @@ def resnet_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
         torch.cuda.empty_cache()
 
 
+def trainer_inputs(cfg: models.TransformerConfig, seed: int, root: pathlib.Path) -> tuple:
+    """A local HF snapshot (TinyLlama's config.json at 2 layers, bf16, and a
+    pytorch_model.bin of ``planted_rank_weights``) and a JSONL of the
+    repository's prose, one paragraph a record."""
+    snap = root / "snapshot"
+    snap.mkdir()
+    hf = dict(model_type="llama", architectures=["LlamaForCausalLM"], vocab_size=cfg.vocab_size,
+              hidden_size=cfg.dim, intermediate_size=cfg.hidden_dim,
+              num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads,
+              num_key_value_heads=cfg.n_kv_heads, rms_norm_eps=1e-5, rope_theta=10000.0,
+              hidden_act="silu", max_position_embeddings=2048, tie_word_embeddings=False,
+              torch_dtype="bfloat16")
+    (snap / "config.json").write_text(json.dumps(hf, indent=2))
+    sd = {k: torch.from_numpy(v).to(torch.bfloat16)
+          for k, v in planted_rank_weights(cfg, seed).items()}
+    torch.save(sd, snap / "pytorch_model.bin")
+    here = pathlib.Path(__file__).resolve().parent
+    paths = sorted({p for pattern in TRAINER_PROSE for p in here.glob(pattern)})
+    paragraphs = [p.strip() for path in paths for p in path.read_text().split("\n\n") if p.strip()]
+    data = root / "prose.jsonl"
+    data.write_text("".join(json.dumps({"text": p}) + "\n" for p in paragraphs))
+    return snap, data, sum(len(p.encode()) for p in paragraphs)
+
+
+def trainer_decompose_config(snap: pathlib.Path, data: pathlib.Path) -> dict:
+    """decompose_dwain_tinyllama.yaml's values, pointed at the snapshot and
+    the prose, with the step cuts."""
+    return dict(
+        task="decompose_dwain",
+        decomposed_model_name=TRAINER_SNAPSHOT_NAME,
+        decomposed_model_checkpoint_path=str(snap),
+        decomposed_model_dtype="bfloat16",
+        decomposition_data_name=str(data),
+        decomposition_data_separator="\n\n",
+        decomposition_data_max_length=2048,
+        decomposition_data_batch_size=1,
+        perplexity_data_name=str(data),
+        perplexity_data_separator="",
+        perplexity_data_max_length=2048,
+        perplexity_data_batch_size=1,
+        num_data_steps=32,
+        num_metric_steps=8,
+        trade_off_factor=0.5,
+        reduction_factor=0.5,
+        max_accepted_ppl_diff=0.1,
+        nsr_final_threshold=0.1,
+        min_rank=32,
+        decompose_in_float64=True,
+        precomputing_covariance_num_splits=8,
+        blacklisted_modules=["lm_head"],
+        finetuning_run=True,
+        finetuning_use_lora=True,
+        finetuning_lora_min_rank=32,
+        finetuning_lr=0.0001,
+        finetuning_num_steps=50,
+        finetuning_num_last_finetuned_modules=8,
+        finetuning_use_rank_pattern=False,
+        lm_eval_initial=True,
+        lm_eval_tasks=["doc_lambada", "doc_continuation"],
+        mesh_dp=None,
+        mesh_tp=1,
+    )
+
+
+def trainer_finetune_config(snap: pathlib.Path, data: pathlib.Path, artifact: pathlib.Path) -> dict:
+    """finetune_tinyllama.yaml's values on the decompose task's artifact,
+    with the sample, eval and warmup cuts."""
+    return dict(
+        task="finetune",
+        decomposed_model_name=TRAINER_SNAPSHOT_NAME,
+        decomposed_model_checkpoint_path=str(snap),
+        decomposed_model_dtype="bfloat16",
+        decompose_config=str(artifact / "decompose_config.json"),
+        decompose_state_dict=str(artifact / "decompose_state_dict.pt"),
+        perplexity_data_name=str(data),
+        perplexity_data_separator="",
+        perplexity_data_max_length=2048,
+        perplexity_data_batch_size=1,
+        train_data_name=str(data),
+        train_data_separator="\n\n",
+        train_data_max_length=2048,
+        train_data_batch_size=2,
+        train_data_n_samples=64,
+        test_data_name=str(data),
+        test_data_separator="\n\n",
+        test_data_max_length=2048,
+        test_data_batch_size=2,
+        test_data_n_samples=16,
+        num_train_epochs=1,
+        eval_steps=8,
+        logging_steps=10,
+        early_stopping_patience=3,
+        learning_rate=0.0001,
+        weight_decay=0.0,
+        lr_scheduler_type="cosine_with_warmup",
+        num_warmup_steps=4,
+        lora_r=16,
+        lora_alpha=8,
+        lora_dropout=0.05,
+        lm_eval_initial=False,
+    )
+
+
+class _PlainAttentionTimer:
+    """Wraps the model's plain attention: CUDA events around each call on
+    the current stream (no synchronization), summed at the end."""
+
+    def __init__(self, fn) -> None:
+        self.fn, self.events = fn, []
+
+    def __call__(self, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kwargs)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+
+@contextlib.contextmanager
+def walk_breakdown():
+    """The trainer walk's plain-attention forwards (device seconds, calls)
+    and its fine-tuning calls (``TimedFinetune``), instrumented for the
+    block: the model's plain attention and ``finetune.make_finetune_fn``
+    are wrapped, and put back after."""
+    timer = _PlainAttentionTimer(models.transformer.causal_attention_plain)
+    made: list[TimedFinetune] = []
+    make = finetune.make_finetune_fn
+
+    def timed_make(*args, **kwargs):
+        made.append(TimedFinetune(make(*args, **kwargs)))
+        return made[-1]
+
+    models.transformer.causal_attention_plain = timer
+    finetune.make_finetune_fn = timed_make
+    try:
+        yield timer, made
+    finally:
+        models.transformer.causal_attention_plain = timer.fn
+        finetune.make_finetune_fn = make
+
+
+def trainer_artifact_reload(run_cfg: dict, config: pathlib.Path, sd: pathlib.Path, dev):
+    """An artifact onto a fresh model built, as the run built its own, from
+    the snapshot by the trainer's builder."""
+    model, tok = trainer_builder.make_model_and_tokenizer(
+        model_name=run_cfg["decomposed_model_name"], dtype=run_cfg["decomposed_model_dtype"],
+        checkpoint_path=run_cfg["decomposed_model_checkpoint_path"], device=dev)
+    trainer_builder.apply_decompose_config_and_state_dict(model, str(config), str(sd))
+    return model, tok
+
+
+@contextlib.contextmanager
+def restored_logging():
+    """The CLI configures the root logger (``run.setup_logging``); put it
+    back after, so the later phases print only their JSON lines."""
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    try:
+        yield
+    finally:
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+        root.setLevel(level)
+
+
+def trainer_llm_decompose(dev, cfg, seed: int, root: pathlib.Path) -> tuple:
+    """``python -m ptdeco_tpu_torch.apps.trainer_llm.run`` (in process) on
+    the decompose_dwain config: every summary number finite, parameters
+    cut, SYRK launched; the artifact reloads onto two fresh models from
+    the snapshot to identical state dicts, equal to the saved one (and to
+    the .safetensors where that package is installed)."""
+    snap, data, prose_bytes = trainer_inputs(cfg, seed, root)
+    cfg_path, out = root / "decompose.json", root / "decompose_out"
+    run_cfg = trainer_decompose_config(snap, data)
+    cfg_path.write_text(json.dumps(run_cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with walk_breakdown() as (attention, fts), pipelined_eigh_log() as eighs:
+        rc = trainer_run.main(["--config", str(cfg_path), "--output-path", str(out)])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    summary = json.loads((out / "summary.json").read_text())
+    config = json.loads((out / "decompose_config.json").read_text())
+    numbers = {k: v for k, v in summary.items() if isinstance(v, (int, float))}
+    if rc != 0 or not all(math.isfinite(v) for v in numbers.values()) \
+            or not summary["mparams_frac"] < 100.0 or not config:
+        raise AssertionError(f"trainer_llm_decompose: rc {rc}, summary {summary}")
+    require_launches(counts, ("syrk_gram",), "trainer_llm_decompose")
+
+    saved = utils.load_state_dict_pt(str(out / "decompose_state_dict.pt"))
+    reloads = [utils.state_dict(trainer_artifact_reload(
+        run_cfg, out / "decompose_config.json", out / "decompose_state_dict.pt", dev)[0])
+        for _ in range(2)]
+    for sd in reloads:
+        if sd.keys() != saved.keys() or not all(torch.equal(sd[k], saved[k]) for k in saved):
+            raise AssertionError("trainer_llm_decompose: the artifact did not reload bit-equal")
+    safetensors = out / "decompose_state_dict.safetensors"
+    if safetensors.exists():
+        st = utils.load_state_dict_safetensors(str(safetensors))
+        if st.keys() != saved.keys() or not all(torch.equal(st[k], saved[k]) for k in saved):
+            raise AssertionError("trainer_llm_decompose: .pt and .safetensors differ")
+    del reloads
+    ft_s = sum(f.seconds for f in fts)
+    attention_s = attention.seconds()
+    emit({"phase": "trainer_llm_decompose", "wall_s": wall,
+          "time_decomposition": summary["time_decomposition"],
+          "ppl_initial": summary["ppl_initial"], "ppl_final": summary["ppl_final"],
+          "mparams_frac": summary["mparams_frac"], "gflops_frac": summary["gflops_frac"],
+          "gflops_initial": summary["gflops_initial"],
+          "lm_eval_initial": summary["lm_eval_initial"], "lm_eval_final": summary["lm_eval_final"],
+          "device": summary["device"], "prose_bytes": prose_bytes,
+          "decomposed": len(config), "ranks": {k: v["modules"]["0"]["out_features"]
+                                               for k, v in config.items()},
+          "finetune_s": ft_s, "finetune_calls": sum(f.calls for f in fts),
+          "finetune_share": ft_s / summary["time_decomposition"],
+          **overlap(eighs),
+          "plain_attention_s": attention_s, "plain_attention_calls": len(attention.events),
+          "plain_attention_share_of_wall": attention_s / wall,
+          "peak_memory_gb": peak / 1e9, "safetensors": safetensors.exists(),
+          "launches": counts, "nvidia_smi": nvidia_smi()})
+    return snap, data, out, counts
+
+
+def trainer_llm_finetune(dev, seed: int, root: pathlib.Path, snap, data, artifact) -> dict:
+    """The finetune task on the decompose task's artifact: finite losses,
+    the last logged train loss below the first, the fine-tuned state dict
+    reloads; then that model served with its pairs fused (gated against the
+    pairs) and through ``serving.generate`` from a prompt of the corpus,
+    launching the low-rank and flash kernels."""
+    cfg_path, out = root / "finetune.json", root / "finetune_out"
+    run_cfg = trainer_finetune_config(snap, data, artifact)
+    cfg_path.write_text(json.dumps(run_cfg))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with logged_fields(trainer_finetune.__name__, "train_step", "train_loss", "train_lr") as steps, \
+            logged_fields(trainer_finetune.__name__, "eval_loss", "eval_s") as evals:
+        rc = trainer_run.main(["--config", str(cfg_path), "--output-path", str(out)])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = json.loads((out / "summary.json").read_text())
+    losses = [r["train_loss"] for r in steps]
+    eval_losses = [e["eval_loss"] for e in evals]
+    # training progress is read on fixed rows: the best eval loss below the
+    # first, the perplexity after below the one before (one logged train
+    # loss is one batch: their spread, +-0.2 on an H100 at seed 0, is more
+    # than the ~27 steps at lr 1e-4 move the loss)
+    if rc != 0 or len(losses) < 2 or not all(math.isfinite(x) for x in losses + eval_losses) \
+            or not min(eval_losses) < eval_losses[0] \
+            or not summary["ppl_after"] < summary["ppl_before"]:
+        raise AssertionError(f"trainer_llm_finetune: rc {rc}, logged losses {steps}, evals {evals}, "
+                             f"summary {summary}")
+    train_s = summary["time_finetuning"] - sum(e["eval_s"] for e in evals)
+    step_s = train_s / max(summary["steps"], 1)
+
+    model, tok = trainer_artifact_reload(
+        run_cfg, artifact / "decompose_config.json", out / "finetuned_state_dict.pt", dev)
+    if not isinstance(tok, trainer_builder.ByteTokenizer):
+        raise AssertionError(f"trainer_llm_finetune: the trainer built {type(tok)}, not its byte tokenizer")
+    model.eval()
+    text = "\n\n".join(json.loads(line)["text"] for line in data.read_text().splitlines()[:60])
+    probe = {"input_ids": torch.tensor(tok(text)["input_ids"][:SEQ], device=dev)[None]}
+    with torch.no_grad():
+        y_pairs = model(probe)
+        pnn.fuse_factor_pairs(model)
+        y_fused = model(probe)
+    serve = logits_agree(y_fused, y_pairs, FUSED_MAX_ABS, FUSED_RMS_REL, "trainer_llm_serve")
+    prompt = probe["input_ids"][:, :TRAINER_PROMPT]
+    gen = cached_generate(model, prompt, TRAINER_NEW, "trainer_llm_generate", GEN_MAX_ABS, GEN_RMS_REL)
+    counts = ops.launch_counts()
+    require_launches(counts, ("lowrank_matmul", "flash_attention"), "trainer_llm_finetune")
+    emit({"phase": "trainer_llm_finetune", "wall_s": wall, "steps": summary["steps"],
+          "step_ms": step_s * 1e3,
+          "tokens_per_s": run_cfg["train_data_batch_size"] * run_cfg["train_data_max_length"] / step_s,
+          "evals": len(evals),
+          "loss_first": {"step": steps[0]["train_step"], "loss": losses[0]},
+          "loss_last": {"step": steps[-1]["train_step"], "loss": losses[-1]},
+          "eval_losses": eval_losses,
+          "ppl_before": summary["ppl_before"], "ppl_after": summary["ppl_after"],
+          "device": summary["device"], "fused_vs_pairs": serve,
+          "generate": {"prompt": TRAINER_PROMPT, "new_tokens": TRAINER_NEW,
+                       "text": tok.decode(gen["tokens"][0].tolist()), **gen["gate"]},
+          "launches": counts, "nvidia_smi": nvidia_smi()})
+    return counts
+
+
 def profiler(out_dir):
     if not out_dir:
         return contextlib.nullcontext()
@@ -1668,6 +1996,12 @@ def main() -> None:
     del ft_model
     torch.cuda.empty_cache()
     lora_counts = decompose_ft_lora(dev, cfg, weights, args.seed, probe)
+
+    # --- slice 8: the trainer CLI's two tasks ----------------------------
+    with tempfile.TemporaryDirectory() as tmp, restored_logging():
+        snap, data, artifact, cli_counts = trainer_llm_decompose(dev, cfg, args.seed, pathlib.Path(tmp))
+        cli_ft_counts = trainer_llm_finetune(dev, args.seed, pathlib.Path(tmp), snap, data, artifact)
+    torch.cuda.empty_cache()
     mlp_counts = dwain_mlp(dev, args.seed)
 
     # --- slice 7: falor and lockd on a full-width ResNet-50 ---------------
@@ -1677,6 +2011,7 @@ def main() -> None:
 
     by_path = {"decompose_serve": counts, "tinyllama_generate": gen["counts"],
                "decompose_ft": ft_counts, "decompose_ft_lora": lora_counts,
+               "trainer_llm_decompose": cli_counts, "trainer_llm_finetune": cli_ft_counts,
                "dwain_mlp": mlp_counts, **resnet_counts, **moe_serve(dev, args.seed)}
     emit({"phase": "kernels", "launches": by_path})
     main_path = {"syrk_gram": "decompose_serve", "flash_attention": "decompose_serve",

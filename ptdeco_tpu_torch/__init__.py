@@ -2,8 +2,9 @@
 
 Low-rank decomposition of torch.nn models by the library's three methods
 (dwain, falor and lockd; LLMs and ResNets), weight-only int8, and
-KV-cached serving of llama and Mixtral causal LMs, with the JAX package's
-TPU kernels rewritten by hand for NVIDIA Hopper (``csrc/``).  Entry points
+KV-cached serving of llama and Mixtral causal LMs, and the LLM trainer CLI
+(``apps/trainer_llm``), with the JAX package's TPU kernels rewritten by
+hand for NVIDIA Hopper (``csrc/``).  Entry points
 run on the card (``device="cuda"``) unless the caller asks for the CPU,
 where each kernel's plain PyTorch version runs instead.
 """

@@ -3,7 +3,8 @@
 Counterpart of the llama and Mixtral parts of
 ``ptdeco_tpu/models/transformer.py``: RMSNorm, HF rotate-half rope at
 absolute positions, grouped-query attention, SwiGLU MLP, the top-k routed
-mixture of SwiGLU experts (``MoEMLP``), pre-norm blocks, and a
+mixture of SwiGLU experts (``MoEMLP``), pre-norm blocks (optionally each
+under ``torch.utils.checkpoint``, the config's ``remat``), and a
 dict-in/logits-out ``CausalLM``.  Every projection is an ``nn.Linear`` site
 and parameter names follow HF llama and the JAX package's MoE layout
 (``model.layers.0.self_attn.q_proj.weight``,
@@ -13,12 +14,14 @@ and state dicts line up with the JAX package and with HF checkpoints.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.flash_attention import KERNEL_HEAD_DIMS, causal_attention_plain, flash_attention
 from ..ops.gmm import grouped_matmul, grouped_matmul_plain
@@ -55,6 +58,9 @@ class TransformerConfig:
     # top-k weights always renormalized
     n_experts: int = 0
     n_experts_per_tok: int = 2
+    # per-block gradient checkpointing (the JAX package's remat): each
+    # block's activations are recomputed in the backward pass
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -62,7 +68,7 @@ class TransformerConfig:
 
     @staticmethod
     def from_hf_config(
-        hf: dict[str, Any], dtype: torch.dtype = torch.bfloat16
+        hf: dict[str, Any], dtype: torch.dtype = torch.bfloat16, remat: bool = False
     ) -> "TransformerConfig":
         """HF ``config.json`` of a llama or Mixtral checkpoint -> config.
         Raises ValueError on anything this subset does not express.  A
@@ -99,6 +105,14 @@ class TransformerConfig:
             # always renormalized; experts at intermediate_size
             n_experts=int(hf["num_local_experts"]) if mt == "mixtral" else 0,
             n_experts_per_tok=int(hf.get("num_experts_per_tok", 2)),
+            remat=remat,
+        )
+
+    @staticmethod
+    def tiny(vocab_size: int = 256, dtype: torch.dtype = torch.float32) -> "TransformerConfig":
+        return TransformerConfig(
+            vocab_size=vocab_size, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+            hidden_dim=128, dtype=dtype,
         )
 
     @staticmethod
@@ -106,6 +120,13 @@ class TransformerConfig:
         return TransformerConfig(
             vocab_size=32000, dim=2048, n_layers=22, n_heads=32, n_kv_heads=4,
             hidden_dim=5632, dtype=dtype,
+        )
+
+    @staticmethod
+    def llama3_8b(dtype: torch.dtype = torch.bfloat16) -> "TransformerConfig":
+        return TransformerConfig(
+            vocab_size=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+            hidden_dim=14336, rope_theta=500000.0, dtype=dtype,
         )
 
 
@@ -187,20 +208,24 @@ class Attention(torch.nn.Module):
         hd = q.shape[-1]
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (b, heads, s, hd)
         scale = hd ** -0.5
-        # the model-level gate of transformer.py:4086-4117: bf16 on the card
-        # with no padding mask and a head_dim the kernel is built for takes
-        # the flash kernel (which reads the grouped k/v heads itself);
-        # everything else takes the einsum path
-        if (
-            q.is_cuda
-            and q.dtype == torch.bfloat16
-            and attn_mask is None
-            and hd in KERNEL_HEAD_DIMS
-        ):
+        if _use_flash_kernel(q, attn_mask):
             out = flash_attention(q, k, v, scale)
         else:
             out = causal_attention_plain(q, k, v, scale, attn_mask)
         return self.finish(out.transpose(1, 2).reshape(b, s, -1))
+
+
+def _use_flash_kernel(q: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> bool:
+    """The model-level gate of transformer.py:4086-4117: bf16 on the card
+    with no padding mask and a head_dim the kernel is built for takes the
+    flash kernel (which reads the grouped k/v heads itself); everything
+    else, an all-ones mask included, takes the einsum path."""
+    return (
+        q.is_cuda
+        and q.dtype == torch.bfloat16
+        and attn_mask is None
+        and q.shape[-1] in KERNEL_HEAD_DIMS
+    )
 
 
 class MLP(torch.nn.Module):
@@ -391,14 +416,48 @@ class Decoder(torch.nn.Module):
         )
         self.layers = torch.nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
+        self.remat = cfg.remat
 
     def forward(
         self, input_ids: torch.Tensor, attn_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
-            x = layer(x, attn_mask)
+            if self.remat and torch.is_grad_enabled():
+                x = _checkpointed(layer, x, attn_mask)
+            else:
+                x = layer(x, attn_mask)
         return self.norm(x)
+
+
+def _checkpointed(layer: Block, x: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``layer(x, attn_mask)`` under ``torch.utils.checkpoint``: the block's
+    activations are recomputed in the backward pass.  checkpoint replays
+    the global RNG itself; a module's own ``generator`` (LoRA dropout) is
+    rewound for the recompute and put back after it, so the recompute
+    draws the forward's masks, as the JAX package's remat replays keys."""
+    gens = [m.generator for m in layer.modules()
+            if isinstance(getattr(m, "generator", None), torch.Generator)]
+
+    def contexts():
+        start = [g.get_state() for g in gens]
+
+        @contextlib.contextmanager
+        def replay():
+            now = [g.get_state() for g in gens]
+            for g, state in zip(gens, start):
+                g.set_state(state)
+            try:
+                yield
+            finally:
+                for g, state in zip(gens, now):
+                    g.set_state(state)
+
+        return contextlib.nullcontext(), replay()
+
+    return torch.utils.checkpoint.checkpoint(
+        layer, x, attn_mask, use_reentrant=False, context_fn=contexts
+    )
 
 
 class CausalLM(torch.nn.Module):
