@@ -35,6 +35,13 @@ same TinyLlama-width model and a JSONL of the repository's prose, with the
 example TinyLlama YAMLs' values, then its ``finetune`` task on the artifact,
 whose result is served fused and through ``generate``.
 
+Slice 9 runs the rest of cached serving: the CLI's ``generate`` task on the
+slice-8 snapshot and artifact (sampled with the example YAML's values, beam
+search, speculative decoding with and without its gate, int8), and the
+slice-1 model, original and fused decomposed, through ragged ``generate``,
+``generate_beam``, ``generate_speculative``, the continuous batcher and the
+sampling filters, its tokens checked on f32 copies.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -47,8 +54,12 @@ LoRA logits before and after the merge), trainer_llm_decompose (the CLI's
 walk: summary, ranks, launches, the walk's fine-tuning, eigh and
 plain-attention time, peak memory, the artifact reloaded twice),
 trainer_llm_finetune (step time, losses, perplexities, the fused serve and
-``generate`` of the result), dwain_mlp, falor_resnet50 and
-falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
+``generate`` of the result), trainer_llm_generate (each run's wall,
+tokens/s, tokens, speculative stats and gate, launches), serving_paths (the
+f32 token checks with the tokens each compared and its near-tie stops, the
+bf16 ragged prefill gate, decode / beam / batcher step ms, speculative
+round ms, acceptance and the gate's measured ratio), dwain_mlp,
+falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
 lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
 and the planted decomposition, artifact, fused serve), moe_serve bf16, moe_reference bf16 (against its f32 twin on the
 card), moe_serve int8, moe_reference int8 (the int8 run's step logits and a
@@ -90,6 +101,7 @@ if not torch.cuda.is_available():
 
 import ptdeco_tpu_torch as ptt  # noqa: E402
 from ptdeco_tpu_torch import dwain, engine, falor, finetune, lockd, models, nn as pnn, ops, quant, serving, utils  # noqa: E402
+from ptdeco_tpu_torch import serving_batcher  # noqa: E402
 from ptdeco_tpu_torch.dwain import decomposition  # noqa: E402
 from ptdeco_tpu_torch.falor import decomposition as falor_decomposition  # noqa: E402
 from ptdeco_tpu_torch.lockd import train as lockd_train  # noqa: E402
@@ -171,6 +183,26 @@ LOCKD_GRAD_LIMITS = {"max_rel": 0.05, "rms_rel": 0.02, "gain_err": 0.01}
 TRAINER_PROSE = ("README.md", "SURVEY.md", "COMPONENTS.md", "docs/*.md", "NOTES_ROUND*.md")
 TRAINER_SNAPSHOT_NAME = "tinyllama-snapshot"  # not a known config: the generic llama branch
 TRAINER_PROMPT, TRAINER_NEW = 128, 16
+
+# Slice 9: the rest of cached serving.  trainer_llm_generate runs the CLI's
+# generate task with apps/trainer_llm/examples_config/generate_tinyllama.yaml's
+# values (batch 8, 128 new tokens, temperature 0.7, top_p 0.95, eos) on the
+# slice-8 snapshot and artifact, for 16 prompts of 64-512 bytes cut from the
+# prose; then with 4 beams, speculative (k 4, the auto gate on and off) and
+# int8.  serving_paths serves the slice-1 model, original and fused
+# decomposed, on 8 ragged prompts of 64-512 random tokens; its token checks
+# run on f32 copies over 32 new tokens, a row's comparison stopping at the
+# reference's first step whose top-1 minus top-2 logit gap is under NEAR_TIE
+# (near ties are common over 32000 logits, and other paths round otherwise)
+GEN_PROMPTS, GEN_PROMPT_BYTES, GEN_NEW = 16, (64, 512), 128
+PATH_BATCH, PATH_LENS, PATH_NEW, NEAR_TIE = 8, (64, 512), 32, 1e-3
+# four beams' best cumulative logprob may not fall below greedy's by more
+# than f32 rounding; a sampled token's probability mass before it under
+# top-p is summed in f32 (its rounding, ~1e-7 a term over 32000 terms)
+BEAM_SLACK, TOP_P_SLACK = 1e-4, 1e-5
+# a model drafting for itself over 32 tokens at k 4: 25 of 28 drafts a row
+# are emitted (the budget cuts the last round), 0.89
+SELF_DRAFT_ACCEPTANCE = 0.75
 
 # Model-level gates, about 2-3x the readings on an H100 at seed 0 (PERF.md):
 # fused vs unfused logits read max 0.031 (one bf16 ulp), RMS-relative 1.8e-3;
@@ -333,27 +365,10 @@ def attention_term_rss(q, k, v, scale):
     return torch.sqrt(p.square() @ vf.square())
 
 
-def kernel_checks(dev) -> dict[str, list[dict]]:
-    g = torch.Generator(device=dev).manual_seed(1)
+def flash_check(dev, g, recs: dict, b: int, s: int) -> None:
+    """Flash against its plain version at TinyLlama's heads, b x s."""
+    h, h_kv, hd = 32, 4, 64
     bf = torch.bfloat16
-    recs: dict[str, list[dict]] = {k: [] for k in KERNEL_INFO}
-
-    for d in (5632, 2048):
-        y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
-        recs["syrk_gram"].append(check_kernel(
-            "syrk_gram",
-            lambda: ops.syrk_gram(y),
-            lambda: ops.syrk_gram_plain(y),
-            lambda: y.t() @ y,
-            flops=SEQ * d * d,
-            nbytes=SEQ * d * 2 + d * d * 4,
-            # f32 sums of exact bf16 products, in another order
-            tol_fn=lambda ref: torch.full_like(ref, 1e-4 * float(ref.abs().max())),
-            shape={"N": SEQ, "d": d, "dtype": "bf16"},
-            graph=True,
-        ))
-
-    b, h, h_kv, s, hd = 1, 32, 4, SEQ, 64
     q = torch.randn(b, h, s, hd, device=dev, generator=g).to(bf)
     k = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
     v = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
@@ -378,14 +393,44 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
         graph=True, path="tma_wgmma",
     ))
 
+
+def kernel_checks(dev) -> dict[str, list[dict]]:
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    recs: dict[str, list[dict]] = {k: [] for k in KERNEL_INFO}
+
+    for d in (5632, 2048):
+        y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
+        recs["syrk_gram"].append(check_kernel(
+            "syrk_gram",
+            lambda: ops.syrk_gram(y),
+            lambda: ops.syrk_gram_plain(y),
+            lambda: y.t() @ y,
+            flops=SEQ * d * d,
+            nbytes=SEQ * d * 2 + d * d * 4,
+            # f32 sums of exact bf16 products, in another order
+            tol_fn=lambda ref: torch.full_like(ref, 1e-4 * float(ref.abs().max())),
+            shape={"N": SEQ, "d": d, "dtype": "bf16"},
+            graph=True,
+        ))
+
+    # the decompose walk's 1 x 1024 forward; then a ragged batch's padded
+    # prefill (serving_paths at seed 0: 8 rows padded to 402, not a
+    # multiple of the kernel's 128-row tiles)
+    for b, s in ((1, SEQ), (8, 402)):
+        flash_check(dev, g, recs, b, s)
+
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
     # then wider ranks with a bias, then the rows `generate` runs them at:
-    # a decode step of the batch of 4 and its 4 x 128 prefill
+    # a decode step of the batch of 4 and its 4 x 128 prefill; then
+    # serving_paths' decode steps: the batch of 8, and 4 beams of it
     shapes = ((SEQ, 2048, 32, 5632, False), (SEQ, 5632, 32, 2048, False),
               (SEQ, 2048, 256, 5632, True), (SEQ, 2048, 44, 5632, True),
               (4, 2048, 32, 5632, False), (4, 5632, 32, 2048, False),
-              (512, 2048, 32, 5632, False), (512, 5632, 32, 2048, False))
+              (512, 2048, 32, 5632, False), (512, 5632, 32, 2048, False),
+              (8, 2048, 32, 5632, False), (8, 5632, 32, 2048, False),
+              (32, 2048, 32, 5632, False), (32, 5632, 32, 2048, False))
     for n, d_in, r, d_out, with_bias in shapes:
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
@@ -1856,6 +1901,329 @@ def trainer_llm_finetune(dev, seed: int, root: pathlib.Path, snap, data, artifac
     return counts
 
 
+# --- slice 9: the rest of cached serving -----------------------------------
+
+SUMMARY_KEYS = {"n_prompts", "max_new_tokens", "total_new_tokens", "num_beams",
+                "generate_wall_s", "tokens_per_s", "decomposed", "device"}
+
+
+def generation_prompts(data: pathlib.Path, seed: int) -> list[str]:
+    """``GEN_PROMPTS`` prompts cut from the prose's paragraphs, each to a
+    length drawn from ``GEN_PROMPT_BYTES`` (a cut inside a UTF-8 character
+    drops its bytes)."""
+    rng = np.random.default_rng(seed + 20)
+    paragraphs = [json.loads(line)["text"] for line in data.read_text().splitlines()]
+    usable = [p for p in paragraphs if len(p.encode()) >= GEN_PROMPT_BYTES[0]]
+    picks = rng.choice(len(usable), GEN_PROMPTS, replace=False)
+    cuts = rng.integers(GEN_PROMPT_BYTES[0], GEN_PROMPT_BYTES[1] + 1, GEN_PROMPTS)
+    return [usable[i].encode()[:n].decode("utf-8", errors="ignore") for i, n in zip(picks, cuts)]
+
+
+def trainer_generate_config(snap: pathlib.Path, artifact: pathlib.Path, prompts: pathlib.Path,
+                            **over) -> dict:
+    """generate_tinyllama.yaml's values, pointed at the snapshot, the
+    decompose task's artifact and the prose prompts; ``over`` replaces
+    values (None drops the key)."""
+    cfg = dict(task="generate", decomposed_model_name=TRAINER_SNAPSHOT_NAME,
+               decomposed_model_checkpoint_path=str(snap), decomposed_model_dtype="bfloat16",
+               decompose_config=str(artifact / "decompose_config.json"),
+               decompose_state_dict=str(artifact / "decompose_state_dict.pt"),
+               prompts_file=str(prompts), max_new_tokens=GEN_NEW, temperature=0.7, top_p=0.95,
+               batch_size=8, stop_at_eos=True)
+    cfg.update(over)
+    return {k: v for k, v in cfg.items() if v is not None}
+
+
+@contextlib.contextmanager
+def served_tokens():
+    """Every token tensor that serving's three entry points return while the
+    block runs (the CLI and the gate call them through the module)."""
+    seen: list[torch.Tensor] = []
+    saved = {n: getattr(serving, n) for n in ("generate", "generate_beam", "generate_speculative")}
+
+    def wrap(fn):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.append(out[0] if isinstance(out, tuple) else out)
+            return out
+        return recorded
+
+    for n, fn in saved.items():
+        setattr(serving, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(serving, n, fn)
+
+
+def trainer_llm_generate(dev, seed: int, root: pathlib.Path, snap, data, artifact) -> dict:
+    """The CLI's generate task on the decompose task's artifact: sampled (the
+    example YAML's values), beam search, speculative decoding with and
+    without its auto gate, and int8.  Each run's summary has the JAX
+    trainer's keys, every token served (the gate's probes included) lies in
+    the vocabulary, no generation passes the budget, and flash launched."""
+    prompts = generation_prompts(data, seed)
+    prompts_file = root / "prompts.jsonl"
+    prompts_file.write_text("".join(json.dumps({"text": p}) + "\n" for p in prompts))
+    greedy = dict(temperature=0.0, top_p=None)
+    runs = {"sampled": {}, "beam": dict(num_beams=4, **greedy),
+            "speculative_gated": dict(speculative=True, speculative_k=4, **greedy),
+            "speculative": dict(speculative=True, speculative_k=4, speculative_auto_gate=False,
+                                **greedy),
+            "int8": dict(quantize_int8=True)}
+    vocab = tinyllama_2_layer().vocab_size
+    recs = {}
+    ops.reset_launch_counts()
+    for name, over in runs.items():
+        cfg_path, out = root / f"generate_{name}.json", root / f"generate_{name}_out"
+        cfg_path.write_text(json.dumps(trainer_generate_config(snap, artifact, prompts_file, **over)))
+        before = ops.launch_counts()
+        with served_tokens() as served:
+            rc = trainer_run.main(["--config", str(cfg_path), "--output-path", str(out)])
+            torch.cuda.synchronize()
+        counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        summary = json.loads((out / "summary.json").read_text())
+        rows = [json.loads(line) for line in (out / "generations.jsonl").read_text().splitlines()]
+        keys = SUMMARY_KEYS | ({"speculative"} if name.startswith("speculative") else set())
+        ids = torch.cat([t.reshape(-1) for t in served])
+        rec = {"generate_wall_s": summary["generate_wall_s"], "tokens_per_s": summary["tokens_per_s"],
+               "total_new_tokens": summary["total_new_tokens"],
+               **({"speculative": summary["speculative"]} if "speculative" in summary else {}),
+               "served_calls": len(served), "launches": counts}
+        recs[name] = rec
+        if rc != 0 or set(summary) != keys or len(rows) != GEN_PROMPTS or not served \
+                or not (0 <= int(ids.min()) and int(ids.max()) < vocab) \
+                or any(r["n_new_tokens"] > GEN_NEW for r in rows) or counts["flash_attention"] <= 0:
+            emit({"phase": "trainer_llm_generate", "run": name, **rec, "summary": summary, "ok": False})
+            raise AssertionError(f"trainer_llm_generate {name}: rc {rc}, summary {summary}")
+    emit({"phase": "trainer_llm_generate", "prompts": GEN_PROMPTS,
+          "prompt_bytes": [min(len(p.encode()) for p in prompts), max(len(p.encode()) for p in prompts)],
+          "new_tokens": GEN_NEW, "runs": recs, "device": summary["device"],
+          "launches": ops.launch_counts(), "nvidia_smi": nvidia_smi()})
+    return ops.launch_counts()
+
+
+def near_tie_stops(ref_logits: torch.Tensor) -> torch.Tensor:
+    """(b,) each row's first step whose top-1 minus top-2 logit gap is
+    under ``NEAR_TIE`` (the row's length where there is none)."""
+    top2 = torch.topk(ref_logits.float(), 2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < NEAR_TIE
+    return torch.where(tie.any(dim=1), tie.to(torch.int32).argmax(dim=1), tie.shape[1]).cpu()
+
+
+def tokens_agree(got: torch.Tensor, want: torch.Tensor, ref_logits: torch.Tensor, what: str,
+                 limit: list | None = None) -> dict:
+    """Each row of ``got`` equals ``want`` up to the first near-tie step of
+    the reference's logits (and its ``limit``, where given); returns the
+    tokens compared and the rows stopped by a near-tie."""
+    limit = torch.tensor(limit if limit is not None else [want.shape[1]] * want.shape[0])
+    ties = near_tie_stops(ref_logits)
+    stops = torch.minimum(ties, limit)
+    got, want = got.cpu(), want.cpu()
+    bad = [i for i, s in enumerate(stops.tolist()) if not torch.equal(got[i, :s], want[i, :s])]
+    rec = {"compared": int(stops.sum()), "of": int(limit.sum()), "stops": int((ties < limit).sum())}
+    if bad:
+        emit({"phase": "serving_paths", "check": what, **rec, "rows_differing": bad, "ok": False})
+        raise AssertionError(f"serving_paths {what}: rows {bad} differ before a near-tie")
+    return rec
+
+
+def filter_violations(tokens: torch.Tensor, logits: torch.Tensor, temperature: float, *,
+                      top_k=None, top_p=None, min_p=None) -> int:
+    """Sampled tokens outside the filter, computed here from the logits they
+    were drawn from: the top-k logits; the tokens whose mass before them in
+    the probability-sorted vocabulary is under top_p (f32 prefix sums,
+    ``TOP_P_SLACK``); those at or above min_p times the largest probability."""
+    scaled = logits.float() / temperature
+    tok = tokens[..., None]
+    if top_k is not None:
+        kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
+        ok = torch.gather(scaled, -1, tok) >= kth
+    elif top_p is not None:
+        p_sorted, order = torch.sort(torch.softmax(scaled, dim=-1), dim=-1, descending=True, stable=True)
+        before = torch.cumsum(p_sorted, dim=-1) - p_sorted
+        rank = (order == tok).to(torch.int32).argmax(dim=-1, keepdim=True)
+        ok = torch.gather(before, -1, rank) < top_p + TOP_P_SLACK
+    else:
+        p = torch.softmax(scaled, dim=-1)
+        ok = torch.gather(p, -1, tok) >= min_p * p.amax(dim=-1, keepdim=True) * (1 - 1e-6)
+    return int((~ok).sum())
+
+
+def timed_s(fn) -> float:
+    """Best of two runs of ``fn`` after a warm one, each ending in a
+    synchronize, in seconds."""
+    fn()
+    best = math.inf
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def step_ms(run, hi: int = 64, lo: int = 16) -> float:
+    """ms a decode step of ``run(n)`` (n new tokens): the time of hi less
+    that of lo tokens, over hi - lo."""
+    return (timed_s(lambda: run(hi)) - timed_s(lambda: run(lo))) / (hi - lo) * 1e3
+
+
+class _ChunkTimer:
+    """Wraps the batcher's decode chunk: host clock around each chunk
+    between two synchronizes, and the steps it ran."""
+
+    def __init__(self, fn) -> None:
+        self.fn, self.seconds, self.steps = fn, 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.steps += kwargs["chunk"]
+        return out
+
+
+def serving_paths(dev, cfg, weights, deco_model, seed: int) -> dict:
+    """The rest of cached serving on the slice-1 model, the original
+    (``weights``) and its fused decomposition (``deco_model``), on ragged
+    prompts.  On f32 copies: ragged batch == each row alone, one beam ==
+    greedy, four beams' best cumulative logprob >= greedy's, speculative
+    decoding with the fused draft == the target's greedy, the batcher's
+    stream == each request alone (each up to the reference's first near-tie),
+    and every token sampled under top-k, top-p or min-p inside its filter.
+    In bf16: the ragged prefill against each row alone at the served-logits
+    gates, flash and low-rank launched; decode, beam, batcher and
+    speculative timings and the gate's measured ratio."""
+    rng = np.random.default_rng(seed + 30)
+    lens = rng.integers(PATH_LENS[0], PATH_LENS[1] + 1, PATH_BATCH)
+    rows = [torch.from_numpy(rng.integers(0, cfg.vocab_size, n)).to(dev) for n in lens]
+    padded = torch.zeros((PATH_BATCH, int(lens.max())), dtype=torch.int64, device=dev)
+    for i, r in enumerate(rows):
+        padded[i, : len(r)] = r
+    lens_t = torch.from_numpy(lens).to(dev)
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+    orig = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev), weights)
+    deco32 = copy.deepcopy(deco_model).to(dev)
+    deco = copy.deepcopy(deco32).to(torch.bfloat16)
+    orig32 = f32_twin(orig)
+    checks = {}
+
+    # --- f32 token checks ----------------------------------------------
+    toks, logits = serving.generate(orig32, padded, PATH_NEW, prompt_lens=lens_t, return_logits=True)
+    alone = [serving.generate(orig32, r[None], PATH_NEW, return_logits=True) for r in rows]
+    a_toks = torch.cat([a[0] for a in alone])
+    a_logits = torch.cat([a[1] for a in alone])
+    checks["ragged_vs_alone"] = tokens_agree(toks, a_toks, a_logits, "ragged_vs_alone")
+    beam1 = serving.generate_beam(orig32, padded, PATH_NEW, num_beams=1, prompt_lens=lens_t)
+    checks["beam1_vs_greedy"] = tokens_agree(beam1, toks, logits, "beam1_vs_greedy")
+    _, beam_scores = serving.generate_beam(orig32, padded, PATH_NEW, num_beams=4, length_penalty=0.0,
+                                           prompt_lens=lens_t, return_scores=True)
+    greedy_lp = torch.gather(torch.log_softmax(logits.float(), -1), -1, toks[..., None])[..., 0].sum(1)
+    margin = beam_scores - greedy_lp
+    checks["beam4_vs_greedy_logprob"] = {"min_margin": float(margin.min()),
+                                         "mean_margin": float(margin.mean()),
+                                         "limit": -BEAM_SLACK}
+    if float(margin.min()) < -BEAM_SLACK:
+        emit({"phase": "serving_paths", "check": "beam4", **checks["beam4_vs_greedy_logprob"],
+              "ok": False})
+        raise AssertionError(f"serving_paths: 4 beams scored below greedy: {margin.tolist()}")
+    spec, spec_stats = serving.generate_speculative(orig32, deco32, padded, PATH_NEW, k=4,
+                                                    prompt_lens=lens_t, return_stats=True)
+    checks["speculative_vs_greedy"] = {**tokens_agree(spec, toks, logits, "speculative_vs_greedy"),
+                                       **spec_stats}
+    # the target as its own draft: every draft the verify pass sees is its
+    # own greedy pick (but at a layout flip), so the loop's acceptance is
+    # bounded only by the budget's cut of the last round
+    own, own_stats = serving.generate_speculative(orig32, orig32, padded, PATH_NEW, k=4,
+                                                  prompt_lens=lens_t, return_stats=True)
+    own_acceptance = own_stats["accepted"] / own_stats["drafted"]
+    checks["speculative_self_draft"] = {**tokens_agree(own, toks, logits, "speculative_self_draft"),
+                                        **own_stats, "acceptance": own_acceptance,
+                                        "limit_acceptance": SELF_DRAFT_ACCEPTANCE}
+    if own_acceptance < SELF_DRAFT_ACCEPTANCE:
+        emit({"phase": "serving_paths", "check": "self_draft", **checks["speculative_self_draft"],
+              "ok": False})
+        raise AssertionError(f"serving_paths: self-draft acceptance {own_acceptance}")
+    budgets = [PATH_NEW - 4 * (i % 4) for i in range(PATH_BATCH)]
+    eng = serving_batcher.ContinuousBatcher(orig32, n_slots=PATH_BATCH // 2,
+                                            max_len=int(lens.max()) + PATH_NEW, decode_chunk=8)
+    for r, budget in zip(rows, budgets):
+        eng.submit(r.cpu().numpy(), budget)
+    done = {f.req_id: f.tokens for f in eng.run()}
+    stream = torch.zeros_like(a_toks)
+    for i, budget in enumerate(budgets):
+        if len(done[i]) != budget:
+            raise AssertionError(f"serving_paths: request {i} returned {len(done[i])} of {budget} tokens")
+        stream[i, :budget] = torch.from_numpy(done[i].astype(np.int64))
+    checks["batcher_vs_alone"] = tokens_agree(stream, a_toks, a_logits, "batcher_vs_alone", budgets)
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    filters = {}
+    for name, kw in (("top_k", dict(top_k=40)), ("top_p", dict(top_p=0.9)), ("min_p", dict(min_p=0.05))):
+        s_toks, s_logits = serving.generate(orig32, padded, PATH_NEW // 2, temperature=0.7,
+                                            generator=gen, prompt_lens=lens_t, return_logits=True, **kw)
+        filters[name] = {"sampled": s_toks.numel(),
+                         "outside": filter_violations(s_toks, s_logits, 0.7, **kw)}
+        if filters[name]["outside"]:
+            emit({"phase": "serving_paths", "check": name, **filters[name], "ok": False})
+            raise AssertionError(f"serving_paths: tokens sampled outside {name}: {filters[name]}")
+    checks["filters"] = filters
+    del orig32, deco32, logits, a_logits
+    torch.cuda.empty_cache()
+
+    # --- bf16: the kernels' path, and timings ---------------------------
+    caches = serving.init_cache(deco, PATH_BATCH, padded.shape[1])
+    ragged, _ = serving.forward_with_cache(deco, padded, caches, 0, last_pos=lens_t - 1)
+    single = torch.cat([serving.forward_with_cache(deco, r[None], serving.init_cache(deco, 1, len(r)), 0,
+                                                   last_pos=torch.tensor([len(r) - 1], device=dev))[0]
+                        for r in rows])
+    checks["bf16_ragged_prefill_vs_alone"] = logits_agree(ragged, single, GEN_MAX_ABS, GEN_RMS_REL,
+                                                          "serving_paths_ragged_prefill")
+    timings = {
+        "decode_step_ms": step_ms(lambda n: serving.generate(deco, padded, n, prompt_lens=lens_t)),
+        "decode_step_original_ms": step_ms(
+            lambda n: serving.generate(orig, padded, n, prompt_lens=lens_t)),
+        "beam4_step_ms": step_ms(lambda n: serving.generate_beam(deco, padded, n, num_beams=4,
+                                                                 prompt_lens=lens_t)),
+    }
+    chunk_timer = _ChunkTimer(serving_batcher._decode_chunk_impl)
+    serving_batcher._decode_chunk_impl = chunk_timer
+    try:
+        eng = serving_batcher.ContinuousBatcher(deco, n_slots=PATH_BATCH,
+                                                max_len=int(lens.max()) + 64, decode_chunk=8)
+        for r in rows:
+            eng.submit(r.cpu().numpy(), 64)
+        eng.run()
+    finally:
+        serving_batcher._decode_chunk_impl = chunk_timer.fn
+    timings["batcher_step_ms"] = chunk_timer.seconds / chunk_timer.steps * 1e3
+    # one uniform decode step of the batch: host enqueue and device busy
+    timings["decode_step_breakdown"] = serve_timings(deco, padded, padded[:, -1:])
+    stats = {}
+
+    def speculative():
+        stats.update(serving.generate_speculative(orig, deco, padded, 64, k=4, prompt_lens=lens_t,
+                                                  return_stats=True)[1])
+
+    spec_s = timed_s(speculative)
+    timings["speculative_round_ms"] = spec_s / stats["rounds"] * 1e3
+    timings["speculative_ms_per_token"] = spec_s / 64 * 1e3
+    acceptance = stats["accepted"] / max(stats["drafted"], 1)
+    gate = serving.measure_speculative_speedup_probe(orig, deco, padded, k=4, prompt_lens=lens_t)
+    counts = ops.launch_counts()
+    require_launches(counts, ("flash_attention", "lowrank_matmul"), "serving_paths")
+    emit({"phase": "serving_paths", "batch": PATH_BATCH, "prompt_lens": lens.tolist(),
+          "new_tokens": PATH_NEW, "near_tie": NEAR_TIE, "checks": checks, "timings": timings,
+          "speculative_stats": stats, "acceptance": acceptance, "gate": gate,
+          "wall_s": time.perf_counter() - t_start, "launches": counts, "nvidia_smi": nvidia_smi()})
+    return counts
+
+
 def profiler(out_dir):
     if not out_dir:
         return contextlib.nullcontext()
@@ -1997,10 +2365,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     lora_counts = decompose_ft_lora(dev, cfg, weights, args.seed, probe)
 
-    # --- slice 8: the trainer CLI's two tasks ----------------------------
+    # --- slice 8: the trainer CLI's two tasks; slice 9: its generate task,
+    # and the rest of cached serving on slice 1's model ------------------
     with tempfile.TemporaryDirectory() as tmp, restored_logging():
         snap, data, artifact, cli_counts = trainer_llm_decompose(dev, cfg, args.seed, pathlib.Path(tmp))
         cli_ft_counts = trainer_llm_finetune(dev, args.seed, pathlib.Path(tmp), snap, data, artifact)
+        cli_gen_counts = trainer_llm_generate(dev, args.seed, pathlib.Path(tmp), snap, data, artifact)
+        paths_counts = serving_paths(dev, cfg, weights, model, args.seed)
+        del model
     torch.cuda.empty_cache()
     mlp_counts = dwain_mlp(dev, args.seed)
 
@@ -2012,6 +2384,7 @@ def main() -> None:
     by_path = {"decompose_serve": counts, "tinyllama_generate": gen["counts"],
                "decompose_ft": ft_counts, "decompose_ft_lora": lora_counts,
                "trainer_llm_decompose": cli_counts, "trainer_llm_finetune": cli_ft_counts,
+               "trainer_llm_generate": cli_gen_counts, "serving_paths": paths_counts,
                "dwain_mlp": mlp_counts, **resnet_counts, **moe_serve(dev, args.seed)}
     emit({"phase": "kernels", "launches": by_path})
     main_path = {"syrk_gram": "decompose_serve", "flash_attention": "decompose_serve",

@@ -2,7 +2,8 @@
 
 Low-rank decomposition of torch.nn models by the library's three methods
 (dwain, falor and lockd; LLMs and ResNets), weight-only int8, and
-KV-cached serving of llama and Mixtral causal LMs, and the LLM trainer CLI
+KV-cached serving of llama and Mixtral causal LMs (sampling, beam
+search, speculative decoding, continuous batching), and the LLM trainer CLI
 (``apps/trainer_llm``), with the JAX package's TPU kernels rewritten by
 hand for NVIDIA Hopper (``csrc/``).  Entry points
 run on the card (``device="cuda"``) unless the caller asks for the CPU,
@@ -19,5 +20,6 @@ from . import falor  # noqa: F401
 from . import lockd  # noqa: F401
 from . import quant  # noqa: F401
 from . import serving  # noqa: F401
+from . import serving_batcher  # noqa: F401
 
 __version__ = "0.1.0"

@@ -24,7 +24,7 @@ import types
 import typing
 from typing import Any, Literal, Optional, Union
 
-__all__ = ["DTYPES_PATTERN", "DecomposeDWAINConfig", "FinetuneConfig"]
+__all__ = ["DTYPES_PATTERN", "DecomposeDWAINConfig", "FinetuneConfig", "GenerateConfig"]
 
 DTYPES_PATTERN = r"^float32$|^bfloat16$|^float16$"
 
@@ -188,6 +188,52 @@ class DecomposeDWAINConfig(_VersionConfig):
                 "use_pallas_gram=False: the port takes the SYRK kernel for every bf16 Gram "
                 "on the card; the switch is deferred (ROADMAP.md Queue 1 preamble)"
             )
+
+
+@dataclasses.dataclass(kw_only=True)
+class GenerateConfig(_VersionConfig):
+    """Serve a (decomposed) causal LM: batched KV-cache generation from a
+    prompts file or inline prompts."""
+
+    task: Literal["generate"]
+
+    decomposed_model_name: str
+    decomposed_model_checkpoint_path: Optional[str] = None
+    decomposed_model_revision: str = "main"
+    decomposed_model_custom_builder_path: Optional[str] = None
+    decomposed_model_custom_builder_config: Optional[dict[str, Any]] = None
+    decomposed_model_dtype: str
+    # None = serve the original model (a baseline)
+    decompose_config: Optional[str] = None
+    decompose_state_dict: Optional[str] = None
+
+    # one of: a .jsonl file ({"text": ...} rows), a plain-text file (one
+    # prompt per line), or inline prompts
+    prompts_file: Optional[str] = None
+    prompts: Optional[list[str]] = None
+
+    max_new_tokens: int = 128
+    temperature: float = 0.0
+    top_p: Optional[float] = None  # nucleus sampling (with temperature > 0)
+    top_k: Optional[int] = None  # top-k sampling (with temperature > 0)
+    min_p: Optional[float] = None  # drop tokens below min_p * max prob
+    repetition_penalty: Optional[float] = None  # HF processor semantics
+    num_beams: int = 1  # > 1: deterministic beam search (temperature 0)
+    length_penalty: float = 1.0  # beam ranking: score / len**penalty
+    quantize_int8: bool = False  # weight-only int8 serving form
+    # speculative decoding: serve the original model with the decomposed
+    # artifact (decompose_config / state_dict) as the draft; the output is
+    # exactly the original's greedy continuation.  Needs temperature 0 and
+    # num_beams 1
+    speculative: bool = False
+    speculative_k: int = 4  # draft tokens per round
+    # time the speculative loop against plain decode on the device first,
+    # once, and serve plain decode if drafting does not pay
+    speculative_auto_gate: bool = True
+    batch_size: int = 8
+    max_prompt_length: Optional[int] = None
+    stop_at_eos: bool = True
+    seed: int = 0
 
 
 @dataclasses.dataclass(kw_only=True)

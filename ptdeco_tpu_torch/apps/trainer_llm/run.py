@@ -5,11 +5,11 @@
 Counterpart of ``apps/trainer_llm/run.py``: logging set-up, the repro
 bundle (``repro/config.yaml`` with version stamps, ``pip freeze``, the
 custom builder file), the config copied as ``config_original.yaml``, and
-the task dispatch: ``decompose_dwain`` and ``finetune``.  The config is
-read with ``yaml.safe_load`` where PyYAML is importable, else as JSON (a
-JSON file is YAML, so both read the same mapping); ``repro/config.yaml``
-is written the same way.  The task runs on the card unless ``--device``
-or the config's ``device`` says ``cpu``.  ``task: generate`` and the
+the task dispatch: ``decompose_dwain``, ``finetune`` and ``generate``.
+The config is read with ``yaml.safe_load`` where PyYAML is importable,
+else as JSON (a JSON file is YAML, so both read the same mapping);
+``repro/config.yaml`` is written the same way.  The task runs on the card
+unless ``--device`` or the config's ``device`` says ``cpu``.  The
 multi-process flags are not ported yet and raise ``NotImplementedError``.
 """
 
@@ -26,7 +26,7 @@ import sys
 from typing import Any, Optional, Sequence
 
 from ... import __version__
-from . import run_decompose_dwain, run_finetune
+from . import run_decompose_dwain, run_finetune, run_generate
 
 __all__ = ["TRAINER_LLM_VERSION", "copy_config", "main", "parse_args", "setup_logging"]
 
@@ -115,11 +115,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         )
     config = load_config(args.config)
     task = config.get("task")
-    if task == "generate":
-        raise NotImplementedError(
-            "task: generate needs the rest of serving.py in the port (ROADMAP.md Queue 1 item 3)"
-        )
-    if task not in ("decompose_dwain", "finetune"):
+    tasks = {"decompose_dwain": run_decompose_dwain.main, "finetune": run_finetune.main,
+             "generate": run_generate.main}
+    if task not in tasks:
         raise ValueError(f"Unknown task {task!r}")
     args.output_path.mkdir(exist_ok=True, parents=True)
     copy_config(args.config, args.output_path)
@@ -127,10 +125,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.config.resolve() != original.resolve():
         shutil.copy(args.config, original)
 
-    if task == "decompose_dwain":
-        run_decompose_dwain.main(config, args.output_path, device=args.device)
-    else:
-        run_finetune.main(config, args.output_path, device=args.device)
+    tasks[task](config, args.output_path, device=args.device)
     return 0
 
 

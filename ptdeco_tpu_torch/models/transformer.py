@@ -143,9 +143,13 @@ class RMSNorm(torch.nn.Module):
         return (y * self.weight.to(torch.float32)).to(x.dtype)
 
 
-def _positions(b: int, s: int, start: int, device: Any) -> torch.Tensor:
-    """(b, s) absolute positions ``start + arange(s)``."""
-    return (start + torch.arange(s, device=device)).expand(b, s)
+def _positions(b: int, s: int, start: Any, device: Any) -> torch.Tensor:
+    """(b, s) absolute positions ``start + arange(s)``; ``start`` is an int
+    or a per-row (b,) tensor (ragged decode)."""
+    steps = torch.arange(s, device=device)
+    if isinstance(start, torch.Tensor):
+        return start.to(device=device, dtype=torch.int64)[:, None] + steps[None, :]
+    return (start + steps).expand(b, s)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

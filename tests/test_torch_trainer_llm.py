@@ -674,7 +674,8 @@ def test_config_reads_without_pyyaml(workdir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("over,argv,error,match", [
-    ({"task": "generate"}, [], NotImplementedError, "Queue 1 item 3"),
+    # a decompose_dwain config relabelled: the generate schema refuses its keys
+    ({"task": "generate"}, [], ValueError, "extra fields not permitted"),
     ({"mesh_tp": 2}, [], NotImplementedError, "Queue 1 item 7"),
     ({}, ["--distributed"], NotImplementedError, "Queue 1 item 7"),
     ({}, ["--num-processes", "2"], NotImplementedError, "Queue 1 item 7"),
