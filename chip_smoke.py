@@ -42,6 +42,14 @@ slice-1 model, original and fused decomposed, through ragged ``generate``,
 ``generate_beam``, ``generate_speculative``, the continuous batcher and the
 sampling filters, its tokens checked on f32 copies.
 
+Slice 10 runs the other decoder families: the CLI's ``decompose_dwain``
+task on a local phi-2 snapshot (2 layers, ``model_type: phi``) with
+decompose_dwain_phi2.yaml's values, its artifact and its biased pairs
+served fused; and slice 1's path (decompose, artifact, fused serve, cached
+``generate``, ragged f32 token checks, the CPU f32 reference) on 2-layer
+Qwen2-1.5B-width and Gemma-2B-width models, whose attention takes the
+flash kernel at head dim 128 (group 6) and 256 (one kv head).
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -58,7 +66,10 @@ trainer_llm_finetune (step time, losses, perplexities, the fused serve and
 tokens/s, tokens, speculative stats and gate, launches), serving_paths (the
 f32 token checks with the tokens each compared and its near-tie stops, the
 bf16 ragged prefill gate, decode / beam / batcher step ms, speculative
-round ms, acceptance and the gate's measured ratio), dwain_mlp,
+round ms, acceptance and the gate's measured ratio), phi2_cli_decompose
+(wall, ranks, launches: SYRK and no flash; the artifact reloaded, the fused
+serve against its pairs and its f32 twin), qwen2_1_5b and gemma_2b (wall,
+ranks, artifact, fused serve, ``generate``, f32 tokens, reference), dwain_mlp,
 falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
 lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
 and the planted decomposition, artifact, fused serve), moe_serve bf16, moe_reference bf16 (against its f32 twin on the
@@ -203,6 +214,39 @@ BEAM_SLACK, TOP_P_SLACK = 1e-4, 1e-5
 # a model drafting for itself over 32 tokens at k 4: 25 of 28 drafts a row
 # are emitted (the budget cuts the last round), 0.89
 SELF_DRAFT_ACCEPTANCE = 0.75
+
+# Slice 10: the other decoder families, each cut to 2 layers with
+# planted-rank weights.  Qwen2-1.5B at TransformerConfig.qwen2_1_5b's widths
+# (vocab 151936, dim 1536, 12 / 2 heads of 128, MLP 8960, q/k/v biases,
+# tied) and Gemma-2B at its config.json's (google/gemma-2b; the keys the
+# converter reads: head dim 256, one kv head, GeGLU, sqrt(dim)-scaled tied
+# embeddings, (1 + w) norms) run slice 1's path at its arguments, then
+# ragged cached generation on f32 copies (FAMILY_PROMPTS prompts of
+# FAMILY_PROMPT_LENS tokens); phi-2 at PhiConfig.phi2's widths (vocab 51200,
+# dim 2560, 32 heads of 80 with 32 rotary dims, MLP 10240, every projection
+# biased) runs the trainer CLI with decompose_dwain_phi2.yaml's values and
+# slice 8's cuts
+GEMMA_2B = dict(
+    model_type="gemma", vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+    num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+    rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="gelu", attention_bias=False,
+    max_position_embeddings=8192,
+)
+FAMILY_LAYERS = 2
+FAMILY_PROMPTS, FAMILY_PROMPT_LENS = 8, (128, 256)
+PHI_SNAPSHOT_NAME = "phi2-snapshot"  # not a known config: the generic phi branch
+# Their model-level gates (max_abs, rms_rel), about 2-3x the readings on an
+# H100 at seed 0 (PERF.md): "serve" holds the fused model against its pairs
+# and cached against uncached logits, "reference" against an f32 copy (the
+# unfused twin on the card for phi, the CPU for the others).  phi-2 read
+# 0.031 / 4.2e-3 and 0.029 / 4.4e-3; Qwen2-1.5B 0.033-0.035 / 4.5e-3-5.0e-3
+# and 0.032 / 5.3e-3; Gemma-2B 0.25 / 6.0e-3-6.2e-3 (one bf16 ulp of logits
+# in [32, 64)) and 0.151 / 6.6e-3
+FAMILY_GATES = {
+    "phi2": {"serve": (0.0625, 1e-2), "reference": (0.06, 1e-2)},
+    "qwen2_1_5b": {"serve": (0.1, 1.25e-2), "reference": (0.08, 1.3e-2)},
+    "gemma_2b": {"serve": (0.5, 1.5e-2), "reference": (0.4, 1.6e-2)},
+}
 
 # Model-level gates, about 2-3x the readings on an H100 at seed 0 (PERF.md):
 # fused vs unfused logits read max 0.031 (one bf16 ulp), RMS-relative 1.8e-3;
@@ -365,9 +409,10 @@ def attention_term_rss(q, k, v, scale):
     return torch.sqrt(p.square() @ vf.square())
 
 
-def flash_check(dev, g, recs: dict, b: int, s: int) -> None:
-    """Flash against its plain version at TinyLlama's heads, b x s."""
-    h, h_kv, hd = 32, 4, 64
+def flash_check(dev, g, recs: dict, b: int, s: int, h: int = 32, h_kv: int = 4,
+                hd: int = 64) -> None:
+    """Flash against its plain version at b x s and the given heads
+    (TinyLlama's by default)."""
     bf = torch.bfloat16
     q = torch.randn(b, h, s, hd, device=dev, generator=g).to(bf)
     k = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
@@ -399,7 +444,9 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     bf = torch.bfloat16
     recs: dict[str, list[dict]] = {k: [] for k in KERNEL_INFO}
 
-    for d in (5632, 2048):
+    # TinyLlama's MLP and model widths; then phi-2's MLP (10240) and
+    # Gemma-2B's (16384) Grams (Qwen2-1.5B's 8960 and 1536 lie between)
+    for d in (5632, 2048, 10240, 16384):
         y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
         recs["syrk_gram"].append(check_kernel(
             "syrk_gram",
@@ -419,18 +466,25 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # multiple of the kernel's 128-row tiles)
     for b, s in ((1, SEQ), (8, 402)):
         flash_check(dev, g, recs, b, s)
+    # Qwen2-1.5B's heads (head dim 128, group 6) and Gemma-2B's (head dim
+    # 256, one kv head for eight) at the walk's 1 x 1024
+    flash_check(dev, g, recs, 1, SEQ, h=12, h_kv=2, hd=128)
+    flash_check(dev, g, recs, 1, SEQ, h=8, h_kv=1, hd=256)
 
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
     # then wider ranks with a bias, then the rows `generate` runs them at:
     # a decode step of the batch of 4 and its 4 x 128 prefill; then
-    # serving_paths' decode steps: the batch of 8, and 4 beams of it
+    # serving_paths' decode steps: the batch of 8, and 4 beams of it; then
+    # phi-2's fc1 and fc2
     shapes = ((SEQ, 2048, 32, 5632, False), (SEQ, 5632, 32, 2048, False),
               (SEQ, 2048, 256, 5632, True), (SEQ, 2048, 44, 5632, True),
               (4, 2048, 32, 5632, False), (4, 5632, 32, 2048, False),
               (512, 2048, 32, 5632, False), (512, 5632, 32, 2048, False),
               (8, 2048, 32, 5632, False), (8, 5632, 32, 2048, False),
-              (32, 2048, 32, 5632, False), (32, 5632, 32, 2048, False))
+              (32, 2048, 32, 5632, False), (32, 5632, 32, 2048, False),
+              # phi-2's biased MLP pairs at rank 32
+              (SEQ, 2560, 32, 10240, True), (SEQ, 10240, 32, 2560, True))
     for n, d_in, r, d_out, with_bias in shapes:
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
@@ -594,25 +648,7 @@ def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
         del xg, w_q, scales
         torch.cuda.empty_cache()
 
-    b, h, h_kv, s, hd = MOE_BATCH, 32, 8, MOE_PROMPT, 128
-    q = torch.randn(b, h, s, hd, device=dev, generator=g).to(bf)
-    k = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
-    v = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
-    scale = hd ** -0.5
-    rss = attention_term_rss(q, k, v, scale)
-    recs["flash_attention"].append(check_kernel(
-        "flash_attention",
-        lambda: ops.flash_attention(q, k, v, scale),
-        lambda: ops.causal_attention_plain(q, k, v, scale),
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale, enable_gqa=True
-        ),
-        flops=2 * 2 * b * h * hd * s * (s + 1) / 2,
-        nbytes=2 * (2 * b * h * s * hd + 2 * b * h_kv * s * hd),
-        tol_fn=lambda ref: 2.0 ** -6 * ref.abs() + 2.0 ** -5 * rss,  # as at head_dim 64
-        shape={"b": b, "h": h, "h_kv": h_kv, "s": s, "head_dim": hd, "dtype": "bf16"},
-        graph=True, path="tma_wgmma",
-    ))
+    flash_check(dev, g, recs, MOE_BATCH, MOE_PROMPT, h=32, h_kv=8, hd=128)
 
 
 def tinyllama_2_layer() -> models.TransformerConfig:
@@ -620,10 +656,9 @@ def tinyllama_2_layer() -> models.TransformerConfig:
     return dataclasses.replace(full, n_layers=N_LAYERS)
 
 
-def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, np.ndarray]:
-    """Random weights in HF llama names; every decomposable projection is
-    ``A @ B / sqrt(r * d_in)`` plus 1% noise, r = 256."""
-    rng = np.random.default_rng(seed)
+def _planted(rng):
+    """``planted(d_out, d_in)``: ``A @ B / sqrt(r * d_in)`` plus 1% noise, r
+    = 256, from ``rng``."""
     f32 = np.float32
 
     def planted(d_out: int, d_in: int) -> np.ndarray:
@@ -633,8 +668,23 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, 
         w += 0.01 * rng.standard_normal((d_out, d_in), dtype=f32) / np.sqrt(d_in, dtype=f32)
         return w
 
+    return planted
+
+
+def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, np.ndarray]:
+    """Random weights in HF names; every decomposable projection is planted
+    at rank 256 (``_planted``).  Qwen2's q/k/v biases are 0.1-scale noise;
+    norms are the identity (zeros for gemma's (1 + w) norms); a tied
+    embedding has RMS 1 / sqrt(dim), so the tied head's logits have RMS 1
+    (and gemma's sqrt(dim)-scaled embeddings RMS 1)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    planted = _planted(rng)
     hd = cfg.head_dim
-    sd = {"model.embed_tokens.weight": rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=f32)}
+    norm = (np.zeros if cfg.norm_plus_one else np.ones)(cfg.dim, f32)
+    embed = rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=f32)
+    sd = {"model.embed_tokens.weight": embed / np.sqrt(cfg.dim, dtype=f32) if cfg.tie_embeddings
+          else embed}
     for i in range(cfg.n_layers):
         p = f"model.layers.{i}."
         sd[p + "self_attn.q_proj.weight"] = planted(cfg.n_heads * hd, cfg.dim)
@@ -644,12 +694,19 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, 
         sd[p + "mlp.gate_proj.weight"] = planted(cfg.hidden_dim, cfg.dim)
         sd[p + "mlp.up_proj.weight"] = planted(cfg.hidden_dim, cfg.dim)
         sd[p + "mlp.down_proj.weight"] = planted(cfg.dim, cfg.hidden_dim)
-        sd[p + "input_layernorm.weight"] = np.ones(cfg.dim, f32)
-        sd[p + "post_attention_layernorm.weight"] = np.ones(cfg.dim, f32)
-    sd["model.norm.weight"] = np.ones(cfg.dim, f32)
-    sd["lm_head.weight"] = rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=f32) / np.sqrt(
-        cfg.dim, dtype=f32
-    )
+        if cfg.qkv_bias:
+            for proj, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)):
+                sd[p + f"self_attn.{proj}_proj.bias"] = 0.1 * rng.standard_normal(heads * hd, dtype=f32)
+        if cfg.qk_norm:
+            sd[p + "self_attn.q_norm.weight"] = (np.zeros if cfg.norm_plus_one else np.ones)(hd, f32)
+            sd[p + "self_attn.k_norm.weight"] = sd[p + "self_attn.q_norm.weight"]
+        sd[p + "input_layernorm.weight"] = norm
+        sd[p + "post_attention_layernorm.weight"] = norm
+    sd["model.norm.weight"] = norm
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=f32) / np.sqrt(
+            cfg.dim, dtype=f32
+        )
     return sd
 
 
@@ -822,12 +879,14 @@ def mixtral_2_layer() -> models.TransformerConfig:
 
 
 def f32_twin(model):
-    """A deep copy of ``model`` in f32 on the card.  f32 takes the plain
-    routes by the dtype rule (the plain grouped product, plain attention,
-    int8 grids dequantized exactly in f32), so holding the model against
-    its twin holds the kernels and their wrappers against the plain path
-    end to end."""
-    return copy.deepcopy(model).to(torch.float32)
+    """A deep copy of ``model`` in f32 on the card, its fused factor pairs
+    unfused.  f32 takes the plain routes by the dtype rule (the plain
+    grouped product, plain attention, int8 grids dequantized exactly in
+    f32, cuBLAS for the pairs), so holding the model against its twin holds
+    the kernels and their wrappers against the plain path end to end."""
+    twin = copy.deepcopy(model)
+    pnn.unfuse_factor_pairs(twin)
+    return twin.to(torch.float32)
 
 
 def against_twin(twin, ids: torch.Tensor, routes: dict, logits: torch.Tensor, start: int,
@@ -936,6 +995,12 @@ def moe_serve(dev, seed: int) -> dict[str, dict[str, int]]:
 # and bench.py's MLP workload, through dwain.decompose --------------------
 
 
+def causal_lm(cfg, dev):
+    """A fresh model of ``cfg``: a PhiCausalLM of a PhiConfig, else a CausalLM."""
+    return (models.PhiCausalLM if isinstance(cfg, models.PhiConfig) else models.CausalLM)(
+        cfg, device=dev)
+
+
 def artifact_round_trip(model, config, cfg, probe, dev, what: str) -> dict:
     """Write the artifact (decompose_config.json + decompose_state_dict.pt),
     reload it into a fresh model and require the probe's logits bit-equal:
@@ -950,7 +1015,7 @@ def artifact_round_trip(model, config, cfg, probe, dev, what: str) -> dict:
         sd_bytes = (tmp / "decompose_state_dict.pt").stat().st_size
         with open(tmp / "decompose_config.json") as f:
             config2 = json.load(f)
-        fresh = models.CausalLM(cfg, device=dev)
+        fresh = causal_lm(cfg, dev)
         utils.apply_decompose_config(fresh, config2)
         utils.load_state_dict(fresh, utils.load_state_dict_pt(str(tmp / "decompose_state_dict.pt")))
     with torch.no_grad():
@@ -1732,8 +1797,8 @@ class _PlainAttentionTimer:
 def walk_breakdown():
     """The trainer walk's plain-attention forwards (device seconds, calls)
     and its fine-tuning calls (``TimedFinetune``), instrumented for the
-    block: the model's plain attention and ``finetune.make_finetune_fn``
-    are wrapped, and put back after."""
+    block: the llama-family and phi models' plain attention and
+    ``finetune.make_finetune_fn`` are wrapped, and put back after."""
     timer = _PlainAttentionTimer(models.transformer.causal_attention_plain)
     made: list[TimedFinetune] = []
     make = finetune.make_finetune_fn
@@ -1742,12 +1807,12 @@ def walk_breakdown():
         made.append(TimedFinetune(make(*args, **kwargs)))
         return made[-1]
 
-    models.transformer.causal_attention_plain = timer
+    models.transformer.causal_attention_plain = models.phi.causal_attention_plain = timer
     finetune.make_finetune_fn = timed_make
     try:
         yield timer, made
     finally:
-        models.transformer.causal_attention_plain = timer.fn
+        models.transformer.causal_attention_plain = models.phi.causal_attention_plain = timer.fn
         finetune.make_finetune_fn = make
 
 
@@ -2004,6 +2069,19 @@ def trainer_llm_generate(dev, seed: int, root: pathlib.Path, snap, data, artifac
     return ops.launch_counts()
 
 
+def ragged_prompts(vocab: int, seed: int, dev, n: int, lens: tuple[int, int]) -> tuple:
+    """``n`` rows of random tokens, their lengths drawn from ``lens``
+    (inclusive): the rows, the rows right-padded with zeros, and the
+    lengths."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lens[0], lens[1] + 1, n)
+    rows = [torch.from_numpy(rng.integers(0, vocab, k)).to(dev) for k in lens]
+    padded = torch.zeros((n, int(lens.max())), dtype=torch.int64, device=dev)
+    for i, r in enumerate(rows):
+        padded[i, : len(r)] = r
+    return rows, padded, torch.from_numpy(lens).to(dev)
+
+
 def near_tie_stops(ref_logits: torch.Tensor) -> torch.Tensor:
     """(b,) each row's first step whose top-1 minus top-2 logit gap is
     under ``NEAR_TIE`` (the row's length where there is none)."""
@@ -2099,13 +2177,8 @@ def serving_paths(dev, cfg, weights, deco_model, seed: int) -> dict:
     In bf16: the ragged prefill against each row alone at the served-logits
     gates, flash and low-rank launched; decode, beam, batcher and
     speculative timings and the gate's measured ratio."""
-    rng = np.random.default_rng(seed + 30)
-    lens = rng.integers(PATH_LENS[0], PATH_LENS[1] + 1, PATH_BATCH)
-    rows = [torch.from_numpy(rng.integers(0, cfg.vocab_size, n)).to(dev) for n in lens]
-    padded = torch.zeros((PATH_BATCH, int(lens.max())), dtype=torch.int64, device=dev)
-    for i, r in enumerate(rows):
-        padded[i, : len(r)] = r
-    lens_t = torch.from_numpy(lens).to(dev)
+    rows, padded, lens_t = ragged_prompts(cfg.vocab_size, seed + 30, dev, PATH_BATCH, PATH_LENS)
+    lens = lens_t.cpu().numpy()
     ops.reset_launch_counts()
     t_start = time.perf_counter()
     orig = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev), weights)
@@ -2222,6 +2295,236 @@ def serving_paths(dev, cfg, weights, deco_model, seed: int) -> dict:
           "speculative_stats": stats, "acceptance": acceptance, "gate": gate,
           "wall_s": time.perf_counter() - t_start, "launches": counts, "nvidia_smi": nvidia_smi()})
     return counts
+
+
+# --- slice 10: phi-2 through the trainer CLI; Qwen2 and Gemma -------------
+
+
+def f32_token_checks(model, vocab: int, seed: int, dev, what: str) -> dict:
+    """Ragged cached generation on the model's f32 twin against
+    each row alone, tokens equal up to the first near-tie (serving_paths'
+    check); the twin launches no kernel."""
+    twin = f32_twin(model)
+    rows, padded, lens = ragged_prompts(vocab, seed, dev, FAMILY_PROMPTS, FAMILY_PROMPT_LENS)
+    ops.reset_launch_counts()
+    toks, _ = serving.generate(twin, padded, PATH_NEW, prompt_lens=lens, return_logits=True)
+    alone = [serving.generate(twin, r[None], PATH_NEW, return_logits=True) for r in rows]
+    torch.cuda.synchronize()
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{what}: the f32 twin launched kernels: {ops.launch_counts()}")
+    got = tokens_agree(toks, torch.cat([a[0] for a in alone]), torch.cat([a[1] for a in alone]),
+                       what)
+    del twin
+    torch.cuda.empty_cache()
+    return {"prompt_lens": lens.tolist(), "new_tokens": PATH_NEW, **got}
+
+
+def family_2_layer(name: str) -> models.TransformerConfig:
+    full = (models.TransformerConfig.qwen2_1_5b(dtype=torch.bfloat16) if name == "qwen2_1_5b"
+            else models.TransformerConfig.from_hf_config(GEMMA_2B, dtype=torch.bfloat16))
+    return dataclasses.replace(full, n_layers=FAMILY_LAYERS)
+
+
+def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
+    """Slice 1's path on the 2-layer ``qwen2_1_5b`` or ``gemma_2b``:
+    ``dwain.decompose`` (SYRK and flash launched), the artifact round trip,
+    the fused serve against its pairs (low-rank and flash launched), greedy
+    cached ``generate`` of 8 x 128 tokens against the uncached forward,
+    ragged f32 token checks, and the served model against itself on the CPU
+    in f32 on a short input.  Returns each part's launch counts."""
+    cfg = family_2_layer(name)
+    model = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev),
+                                        planted_rank_weights(cfg, seed))
+    n_sites = len(engine.get_decomposeable_submodule_names(model, ["lm_head"]))
+    params_before = utils.get_num_params(model)
+    probe = utils.to_device(next(token_batches(cfg.vocab_size, seed + 3)), dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, config = dwain.decompose(
+        module=model,
+        data_iterator=token_batches(cfg.vocab_size, seed + 1),
+        metric_iterator=token_batches(cfg.vocab_size, seed + 2),
+        loss_fn=models.ce_loss,
+        device=dev,
+        **DECOMPOSE_ARGS,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    walk = ops.launch_counts()
+    require_launches(walk, ("syrk_gram", "flash_attention"), f"{name} decompose")
+    if not config:
+        raise AssertionError(f"{name}: no site decomposed")
+    artifact = artifact_round_trip(model, config, cfg, probe, dev, f"{name}_artifact")
+
+    with torch.no_grad():
+        y_pairs = model(probe)
+        ops.reset_launch_counts()
+        pnn.fuse_factor_pairs(model)
+        y_fused = model(probe)
+    torch.cuda.synchronize()
+    serve_counts = ops.launch_counts()
+    require_launches(serve_counts, ("lowrank_matmul", "flash_attention"), f"{name} serve")
+    gates = FAMILY_GATES[name]
+    serve = logits_agree(y_fused, y_pairs, *gates["serve"], f"{name}_serve")
+    with torch.no_grad():
+        fused_ms = time_ms(lambda: model(probe), reps=10)
+    del y_pairs, y_fused
+
+    _, padded, _ = ragged_prompts(cfg.vocab_size, seed + 4, dev, FAMILY_PROMPTS, FAMILY_PROMPT_LENS)
+    gen = cached_generate(model, padded[:, :FAMILY_PROMPT_LENS[0]], TINY_NEW, f"{name}_generate",
+                          *gates["serve"])
+    require_launches(gen["counts"], ("flash_attention", "lowrank_matmul"), f"{name} generate")
+    tokens = f32_token_checks(model, cfg.vocab_size, seed + 5, dev, f"{name}_ragged_vs_alone")
+
+    short = {"input_ids": probe["input_ids"][:, :128]}
+    with torch.no_grad():
+        y_card = model(short).float().cpu()
+        short = utils.to_device(short, "cpu")
+        y_cpu = model.to("cpu", torch.float32)(short)
+    ref = logits_agree(y_card, y_cpu, *gates["reference"], f"{name}_reference")
+    emit({"phase": name, "layers": cfg.n_layers, "head_dim": cfg.head_dim,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "wall_s": wall, "sites": n_sites,
+          "decomposed": len(config), "params_before": params_before,
+          "param_fraction": utils.get_num_params(model) / params_before,
+          "ranks": {k: v["modules"]["0"]["out_features"] for k, v in config.items()},
+          "artifact": artifact, "serve": serve, "fused_ms": fused_ms,
+          "generate": {"batch": FAMILY_PROMPTS, "prompt": FAMILY_PROMPT_LENS[0],
+                       "new_tokens": TINY_NEW, "wall_s": gen["wall_s"], **gen["gate"]},
+          "f32_tokens": tokens, "reference": ref, "walk_launches": walk,
+          "serve_launches": serve_counts, "generate_launches": gen["counts"]})
+    return {f"{name}_decompose": walk, f"{name}_serve": serve_counts,
+            f"{name}_generate": gen["counts"]}
+
+
+def phi2_2_layer() -> models.PhiConfig:
+    return dataclasses.replace(models.PhiConfig.phi2(dtype=torch.bfloat16), n_layers=FAMILY_LAYERS)
+
+
+def planted_phi_weights(cfg: models.PhiConfig, seed: int) -> dict[str, np.ndarray]:
+    """Random weights in HF phi names: every projection planted at rank 256
+    (``_planted``) with a 0.1-scale bias, LayerNorms the identity, the head
+    as slice 1's with a 0.1-scale bias."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    planted = _planted(rng)
+    d, hid = cfg.dim, cfg.hidden_dim
+
+    def bias(n: int) -> np.ndarray:
+        return 0.1 * rng.standard_normal(n, dtype=f32)
+
+    sd = {"model.embed_tokens.weight": rng.standard_normal((cfg.vocab_size, d), dtype=f32)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        for proj in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.dense"):
+            sd[p + proj + ".weight"], sd[p + proj + ".bias"] = planted(d, d), bias(d)
+        sd[p + "mlp.fc1.weight"], sd[p + "mlp.fc1.bias"] = planted(hid, d), bias(hid)
+        sd[p + "mlp.fc2.weight"], sd[p + "mlp.fc2.bias"] = planted(d, hid), bias(d)
+        sd[p + "input_layernorm.weight"], sd[p + "input_layernorm.bias"] = np.ones(d, f32), np.zeros(d, f32)
+    sd["model.final_layernorm.weight"], sd["model.final_layernorm.bias"] = np.ones(d, f32), np.zeros(d, f32)
+    sd["lm_head.weight"] = rng.standard_normal((cfg.vocab_size, d), dtype=f32) / np.sqrt(d, dtype=f32)
+    sd["lm_head.bias"] = bias(cfg.vocab_size)
+    return sd
+
+
+def phi2_cli_decompose(dev, seed: int, root: pathlib.Path, data: pathlib.Path) -> dict:
+    """The trainer CLI's decompose_dwain task on a local phi-2 snapshot (2
+    layers, bf16 planted weights, ``model_type: phi``) with
+    decompose_dwain_phi2.yaml's values and slice 8's cuts: summary finite,
+    parameters cut, SYRK launched and flash not (phi's attention is the
+    plain one, as in JAX); the artifact reloads through the trainer's
+    builder bit-equal to the saved state dict and to a fresh PhiCausalLM
+    given it; that model served with its biased pairs fused (low-rank
+    launched) against its pairs and against its unfused f32 twin.  Returns
+    the walk's and the serve's launch counts."""
+    cfg = phi2_2_layer()
+    snap = root / "phi2_snapshot"
+    snap.mkdir()
+    hf = dict(model_type="phi", architectures=["PhiForCausalLM"], vocab_size=cfg.vocab_size,
+              hidden_size=cfg.dim, intermediate_size=cfg.hidden_dim,
+              num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads,
+              num_key_value_heads=cfg.n_heads, partial_rotary_factor=cfg.partial_rotary_factor,
+              layer_norm_eps=cfg.norm_eps, rope_theta=cfg.rope_theta, hidden_act="gelu_new",
+              max_position_embeddings=2048, tie_word_embeddings=False, torch_dtype="bfloat16")
+    (snap / "config.json").write_text(json.dumps(hf, indent=2))
+    torch.save({k: torch.from_numpy(v).to(torch.bfloat16)
+                for k, v in planted_phi_weights(cfg, seed).items()}, snap / "pytorch_model.bin")
+    run_cfg = {**trainer_decompose_config(snap, data), "decomposed_model_name": PHI_SNAPSHOT_NAME,
+               "decomposed_model_enable_gradient_checkpointing": True,
+               "lm_eval_initial": False, "lm_eval_tasks": None}
+    cfg_path, out = root / "phi2_decompose.json", root / "phi2_decompose_out"
+    cfg_path.write_text(json.dumps(run_cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with walk_breakdown() as (attention, fts):
+        rc = trainer_run.main(["--config", str(cfg_path), "--output-path", str(out)])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    walk = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    summary = json.loads((out / "summary.json").read_text())
+    config = json.loads((out / "decompose_config.json").read_text())
+    numbers = {k: v for k, v in summary.items() if isinstance(v, (int, float))}
+    if rc != 0 or not all(math.isfinite(v) for v in numbers.values()) \
+            or not summary["mparams_frac"] < 100.0 or not config:
+        raise AssertionError(f"phi2_cli_decompose: rc {rc}, summary {summary}")
+    require_launches(walk, ("syrk_gram",), "phi2_cli_decompose")
+    if walk["flash_attention"]:
+        raise AssertionError(f"phi2_cli_decompose: phi's attention launched flash: {walk}")
+
+    config_path, sd_path = out / "decompose_config.json", out / "decompose_state_dict.pt"
+    saved = utils.load_state_dict_pt(str(sd_path))
+    model, tok = trainer_artifact_reload(run_cfg, config_path, sd_path, dev)
+    if not isinstance(model, models.PhiCausalLM):
+        raise AssertionError(f"phi2_cli_decompose: the builder made {type(model)}")
+    reloaded = utils.state_dict(model)
+    if reloaded.keys() != saved.keys() or not all(torch.equal(reloaded[k], saved[k]) for k in saved):
+        raise AssertionError("phi2_cli_decompose: the artifact did not reload bit-equal")
+    del reloaded
+    fresh = causal_lm(cfg, dev)
+    utils.apply_decompose_config(fresh, config)
+    utils.load_state_dict(fresh, saved)
+    model.eval()
+    text = "\n\n".join(json.loads(line)["text"] for line in data.read_text().splitlines()[:60])
+    probe = {"input_ids": torch.tensor(tok(text)["input_ids"][:SEQ], device=dev)[None]}
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        y_pairs = model(probe)
+        fresh_equal = logits_agree(fresh(probe), y_pairs, 0.0, 0.0, "phi2_fresh_reload")
+        del fresh
+        pnn.fuse_factor_pairs(model)
+        y_fused = model(probe)
+    torch.cuda.synchronize()
+    serve_counts = ops.launch_counts()
+    require_launches(serve_counts, ("lowrank_matmul",), "phi2_cli_decompose serve")
+    serve = logits_agree(y_fused, y_pairs, *FAMILY_GATES["phi2"]["serve"], "phi2_serve")
+    fused = [m for m in model.modules() if isinstance(m, pnn.FusedLowRankLinear)]
+    twin = f32_twin(model)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        y32 = twin(probe)
+    torch.cuda.synchronize()
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"phi2_cli_decompose: the f32 twin launched {ops.launch_counts()}")
+    vs_f32 = logits_agree(y_fused, y32, *FAMILY_GATES["phi2"]["reference"], "phi2_vs_f32")
+    del twin, y32
+    torch.cuda.empty_cache()
+    ft_s = sum(f.seconds for f in fts)
+    emit({"phase": "phi2_cli_decompose", "layers": cfg.n_layers, "wall_s": wall,
+          "time_decomposition": summary["time_decomposition"],
+          "ppl_initial": summary["ppl_initial"], "ppl_final": summary["ppl_final"],
+          "mparams_frac": summary["mparams_frac"], "gflops_frac": summary["gflops_frac"],
+          "device": summary["device"], "decomposed": len(config),
+          "ranks": {k: v["modules"]["0"]["out_features"] for k, v in config.items()},
+          "biased_fused": sum(m.bias is not None for m in fused), "fused": len(fused),
+          "finetune_s": ft_s, "finetune_calls": sum(f.calls for f in fts),
+          "plain_attention_s": attention.seconds(), "plain_attention_calls": len(attention.events),
+          "peak_memory_gb": peak / 1e9, "fresh_reload": fresh_equal, "serve": serve,
+          "fused_vs_f32": vs_f32, "walk_launches": walk, "serve_launches": serve_counts,
+          "nvidia_smi": nvidia_smi()})
+    return {"phi2_cli_decompose": walk, "phi2_serve": serve_counts}
 
 
 def profiler(out_dir):
@@ -2373,6 +2676,12 @@ def main() -> None:
         cli_gen_counts = trainer_llm_generate(dev, args.seed, pathlib.Path(tmp), snap, data, artifact)
         paths_counts = serving_paths(dev, cfg, weights, model, args.seed)
         del model
+        torch.cuda.empty_cache()
+        # --- slice 10: phi-2 through the CLI, on the same prose ----------
+        phi_counts = phi2_cli_decompose(dev, args.seed, pathlib.Path(tmp), data)
+    torch.cuda.empty_cache()
+    family_counts = {**family_serve(dev, "qwen2_1_5b", args.seed),
+                     **family_serve(dev, "gemma_2b", args.seed)}
     torch.cuda.empty_cache()
     mlp_counts = dwain_mlp(dev, args.seed)
 
@@ -2385,6 +2694,7 @@ def main() -> None:
                "decompose_ft": ft_counts, "decompose_ft_lora": lora_counts,
                "trainer_llm_decompose": cli_counts, "trainer_llm_finetune": cli_ft_counts,
                "trainer_llm_generate": cli_gen_counts, "serving_paths": paths_counts,
+               **phi_counts, **family_counts,
                "dwain_mlp": mlp_counts, **resnet_counts, **moe_serve(dev, args.seed)}
     emit({"phase": "kernels", "launches": by_path})
     main_path = {"syrk_gram": "decompose_serve", "flash_attention": "decompose_serve",

@@ -2,8 +2,9 @@
 
 Counterpart of ``apps/trainer_llm/builder.py``: a custom builder file wins
 (``make_model_and_tokenizer(config) -> (model, tokenizer)``); a known name
-builds the port's llama architecture; otherwise a local HF snapshot with a
-llama ``config.json`` builds generically.  Weights come from the snapshot
+builds the port's phi or llama-family architecture; otherwise a local HF
+snapshot whose ``config.json`` names a llama, mistral, qwen2, qwen3, gemma
+or phi model builds generically.  Weights come from the snapshot
 when one is given, else from a seeded ``torch.Generator``.  The tokenizer
 comes from ``transformers`` where it is importable and resolves the name,
 else it is the byte-level ``ByteTokenizer``.
@@ -46,17 +47,28 @@ _KNOWN_CONFIGS = {
     "tiny": models.TransformerConfig.tiny,
     "tinyllama-1.1b": models.TransformerConfig.tinyllama_1_1b,
     "TinyLlama/TinyLlama-1.1B-Chat-v1.0": models.TransformerConfig.tinyllama_1_1b,
+    "qwen2-1.5b": models.TransformerConfig.qwen2_1_5b,
+    "Qwen/Qwen2-1.5B": models.TransformerConfig.qwen2_1_5b,
     "llama3-8b": models.TransformerConfig.llama3_8b,
     "meta-llama/Meta-Llama-3-8B": models.TransformerConfig.llama3_8b,
+}
+
+_PHI_CONFIGS = {
+    "phi-2": models.PhiConfig.phi2,
+    "microsoft/phi-2": models.PhiConfig.phi2,
+    "phi-tiny": models.PhiConfig.tiny,
 }
 
 # alias -> canonical HF repo id, for tokenizer resolution
 _HF_IDS = {
     "tinyllama-1.1b": "TinyLlama/TinyLlama-1.1B-Chat-v1.0",
+    "qwen2-1.5b": "Qwen/Qwen2-1.5B",
     "llama3-8b": "meta-llama/Meta-Llama-3-8B",
+    "phi-2": "microsoft/phi-2",
 }
 
-_GENERIC_MODEL_TYPES = ("llama",)
+# the model types a snapshot's config.json may name
+_GENERIC_MODEL_TYPES = (*models.transformer.HF_FAMILIES, "phi")
 
 
 def str_to_dtype(s: str) -> torch.dtype:
@@ -105,12 +117,15 @@ def make_model_and_tokenizer(
     snapshot_cfg = None
     if checkpoint_path is not None and (pathlib.Path(checkpoint_path) / "config.json").exists():
         snapshot_cfg = hf_loader.read_hf_config(checkpoint_path)
-    if model_name in _KNOWN_CONFIGS:
-        cfg = dataclasses.replace(
-            _KNOWN_CONFIGS[model_name](dtype=tdtype), remat=enable_gradient_checkpointing
-        )
+    remat = enable_gradient_checkpointing
+    cfg: Any
+    if model_name in _PHI_CONFIGS:
+        cfg = dataclasses.replace(_PHI_CONFIGS[model_name](dtype=tdtype), remat=remat)
+    elif model_name in _KNOWN_CONFIGS:
+        cfg = dataclasses.replace(_KNOWN_CONFIGS[model_name](dtype=tdtype), remat=remat)
     elif snapshot_cfg is not None:
-        # generic path: a llama snapshot builds from its config.json
+        # generic path: a snapshot of a family the port has builds from its
+        # config.json
         mt = snapshot_cfg.get("model_type")
         logger.info(f"Building {model_name!r} generically from config.json (model_type={mt!r})")
         if mt not in _GENERIC_MODEL_TYPES:
@@ -118,19 +133,19 @@ def make_model_and_tokenizer(
                 f"model_type={mt!r}: the port builds {list(_GENERIC_MODEL_TYPES)} "
                 "from a config.json"
             )
-        cfg = models.TransformerConfig.from_hf_config(
-            snapshot_cfg, dtype=tdtype, remat=enable_gradient_checkpointing
-        )
+        config_cls = models.PhiConfig if mt == "phi" else models.TransformerConfig
+        cfg = config_cls.from_hf_config(snapshot_cfg, dtype=tdtype, remat=remat)
     else:
         raise ValueError(
-            f"Unknown model {model_name!r}; known: {sorted(_KNOWN_CONFIGS)} "
-            "(or pass a checkpoint dir with a llama config.json, "
-            "or decomposed_model_custom_builder_path)"
+            f"Unknown model {model_name!r}; known: "
+            f"{sorted(_KNOWN_CONFIGS) + sorted(_PHI_CONFIGS)} (or pass a checkpoint dir "
+            "with a llama-family or phi config.json, or decomposed_model_custom_builder_path)"
         )
-    if enable_gradient_checkpointing:
+    if remat:
         logger.info("Per-block gradient checkpointing enabled")
     gen = torch.Generator(device=device).manual_seed(seed)
-    model: torch.nn.Module = models.CausalLM(cfg, device=device, generator=gen)
+    model_cls = models.PhiCausalLM if isinstance(cfg, models.PhiConfig) else models.CausalLM
+    model: torch.nn.Module = model_cls(cfg, device=device, generator=gen)
 
     if checkpoint_path is not None:
         translator = None if snapshot_cfg is None else hf_loader.translator_for(snapshot_cfg)

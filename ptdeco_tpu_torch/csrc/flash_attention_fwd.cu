@@ -21,26 +21,29 @@
 //     handed to the consumers with setmaxnreg), and two consumer warpgroups
 //     of 64 query rows each;
 //   * for each tile the producer loads Q (once the consumers are done with
-//     the last tile's), then the K and V tiles of 128 keys up to the causal
-//     diagonal (tiles above it are never loaded) into a 2-stage ring (3
-//     and 4 stages measured no faster), each tile completing on its own
+//     the last tile's), then the K and V tiles of kBN keys (128; 64 at head
+//     dim 256, where a 128-key ring would not fit shared memory) up to the
+//     causal diagonal (tiles above it are never loaded) into a 2-stage ring
+//     (3 and 4 stages measured no faster), each tile completing on its own
 //     mbarrier; a consumer warp arrives on the stage's "empty" barrier when
 //     its products have read it.  The tensor maps are 4D (head_dim, seq,
 //     heads, batch) with the caller's strides, so the model's transposed
 //     (b, s, h, d) views are read as they lie, and a box that runs past seq
 //     is zero-filled instead of reading the next head's rows;
-//   * S = Q K^T is wgmma m64n128k16 with Q and K both K-major (head_dim
-//     contiguous) in 128-byte-swizzled shared memory, a 128-wide head_dim
-//     being two 64-column swizzle atoms;
+//   * S = Q K^T is wgmma m64n{kBN}k16 with Q and K both K-major (head_dim
+//     contiguous) in 128-byte-swizzled shared memory, a head_dim of 128 or
+//     256 being two or four 64-column swizzle atoms;
 //   * online softmax in base 2 and f32 on the accumulator layout, each
 //     thread holding two rows, the scale folded into one FMA before the
-//     special-function unit's 2^x; only the diagonal tile is masked (key >
-//     row, and key >= seq, which TMA's zeros would not hide: a zero key
-//     gives a logit of 0, not -inf);
+//     special-function unit's 2^x; only the key tiles that reach the query
+//     tile's first row are masked (key > row, and key >= seq, which TMA's
+//     zeros would not hide: a zero key gives a logit of 0, not -inf);
 //   * P is rounded to bf16 in registers and re-packed from the S
 //     accumulators into wgmma's register A fragments, and O += P V is
-//     wgmma m64n{64,128}k16 in its register-A form with V as an MN-major B
-//     operand (the transpose bit); O is normalised once at the end;
+//     wgmma m64n{64,128,256}k16 in its register-A form with V as an MN-major
+//     B operand (the transpose bit); O is normalised once at the end.  At
+//     head dim 256 a consumer thread's O is 128 f32 registers; S and P of a
+//     64-key tile add 48, inside the 240 that setmaxnreg gives it;
 //   * the tiles with the most key tiles come first (ops/flash_attention.py:
 //     flash_schedule), so the causal tail is short, and the next tile's Q
 //     and first K/V tiles load while the last tile's products and stores
@@ -67,7 +70,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 128;  // query rows a CTA: 64 a consumer warpgroup
-constexpr int kBN = 128;  // keys a K/V tile
 // K/V ring depth, chosen by measurement (tools/tile_sweep.py; PERF.md)
 constexpr int kStages = 2;
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
@@ -75,6 +77,10 @@ constexpr int kConsumerWarps = 8;
 
 template <int D>
 struct Layout {
+  // keys a K/V tile (ops/flash_attention.py:block_n): 128 keys of a 256-wide
+  // head would make a 320 KB CTA
+  static constexpr int kBN = D == 256 ? 64 : 128;
+  static_assert(kBM % kBN == 0, "a query tile's diagonal spans whole key tiles");
   static constexpr int kAtoms = D / 64;    // 64-column swizzle atoms of a row
   static constexpr int kQ = kBM * D;       // elements of the Q tile
   static constexpr int kKV = kBN * D;      // elements of one K or V tile
@@ -97,8 +103,20 @@ template <int D>
 __device__ __forceinline__ void pv_product(float* o, const uint32_t* p, uint64_t db) {
   if constexpr (D == 64) {
     ptdeco::wgmma::rs_m64n64k16<1>(o, p, db, 1);
-  } else {
+  } else if constexpr (D == 128) {
     ptdeco::wgmma::rs_m64n128k16<1>(o, p, db, 1);
+  } else {
+    ptdeco::wgmma::rs_m64n256k16<1>(o, p, db, 1);
+  }
+}
+
+// S (+)= Q K^T for one 16-wide step of head_dim: a key tile of N keys
+template <int N>
+__device__ __forceinline__ void qk_product(float* s, uint64_t dq, uint64_t dk, int scale_d) {
+  if constexpr (N == 64) {
+    ptdeco::wgmma::ss_m64n64k16<0, 0>(s, dq, dk, scale_d);
+  } else {
+    ptdeco::wgmma::ss_m64n128k16<0, 0>(s, dq, dk, scale_d);
   }
 }
 
@@ -125,6 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      int bh_count, int h, int h_kv, int s, int n_q, float scale_log2,
                      long long o_sb, long long o_sh, long long o_ss) {
   using L = Layout<D>;
+  constexpr int kBN = L::kBN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (ptdeco::smem_addr(smem_raw) & 1023)) & 1023);
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -162,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int t = blockIdx.x, tc = 0; t < n_tiles; t += gridDim.x, ++tc) {
         const TileOf tile(t, bh_count, h, n_q);
         const int kvh = tile.head / (h / h_kv);
-        const int n_blocks = tile.qt + 1;  // key tiles up to the diagonal (kBN == kBM)
+        const int n_blocks = (tile.qt + 1) * (kBM / kBN);  // key tiles up to the diagonal
         ptdeco::mbar_wait(q_empty, (tc & 1) ^ 1);
         ptdeco::mbar_expect(q_full, L::kQ * 2);
 #pragma unroll
@@ -205,7 +224,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   int it = 0;  // K/V tiles consumed so far, as the producer counts them
   for (int t = blockIdx.x, tc = 0; t < n_tiles; t += gridDim.x, ++tc) {
     const TileOf tile(t, bh_count, h, n_q);
-    const int n_blocks = tile.qt + 1;  // key tiles up to the diagonal (kBN == kBM)
+    const int n_blocks = (tile.qt + 1) * (kBM / kBN);  // key tiles up to the diagonal
     const int row_a = tile.qt * kBM + wg * 64 + (warp & 3) * 16 + g8, row_b = row_a + 8;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
@@ -219,9 +238,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int atom = kk >> 2, col = (kk & 3) * 16;
-        ptdeco::wgmma::ss_m64n128k16<0, 0>(
-            sacc, ptdeco::wgmma::desc(qw + atom * kBM * 64 + col, 16, 1024),
-            ptdeco::wgmma::desc(kb + atom * kBN * 64 + col, 16, 1024), kk > 0 ? 1 : 0);
+        qk_product<kBN>(sacc, ptdeco::wgmma::desc(qw + atom * kBM * 64 + col, 16, 1024),
+                        ptdeco::wgmma::desc(kb + atom * kBN * 64 + col, 16, 1024),
+                        kk > 0 ? 1 : 0);
       }
     };
     // O += P V of key tile j, in 16-key steps (8 KB of V rows each)
@@ -231,13 +250,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < kBN / 16; ++kk)
         pv_product<D>(oacc, pf[kk], ptdeco::wgmma::desc(vb + kk * 16 * 64, kBN * 64 * 2, 1024));
     };
-    // the online softmax of key tile j's logits in sacc: on the diagonal
-    // tile mask keys past the row or seq, raise the running max (base 2,
+    // the online softmax of key tile j's logits in sacc: on a key tile that
+    // reaches the query tile's first row (the diagonal's kBM / kBN tiles,
+    // which hold every key >= seq too) mask keys past the row or seq, raise
+    // the running max (base 2,
     // scaled: sm_scale > 0, so the scaled max is the max scaled), leave
     // exp2(logit * scale - max) in sacc, rescale the row sums; returns the
     // factors by which O's rows must be rescaled
     auto softmax = [&](int j, float& alpha_a, float& alpha_b) {
-      if (j == n_blocks - 1) {
+      if ((j + 1) * kBN > tile.qt * kBM) {
 #pragma unroll
         for (int q = 0; q < kBN / 8; ++q) {
 #pragma unroll
@@ -390,6 +411,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h, i
   }
   CUtensorMap qmap, kmap, vmap;
   int rc = ptdeco::encode_heads(&qmap, q, b, h, s, D, st[0], st[1], st[2], kBM);
+  constexpr int kBN = Layout<D>::kBN;
   if (rc == 0) rc = ptdeco::encode_heads(&kmap, k, b, h_kv, s, D, st[3], st[4], st[5], kBN);
   if (rc == 0) rc = ptdeco::encode_heads(&vmap, v, b, h_kv, s, D, st[6], st[7], st[8], kBN);
   if (rc != 0) return rc;
@@ -405,7 +427,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h, i
 }  // namespace
 
 // q, o: (b, h, s, d); k, v: (b, h_kv, s, d); bf16, d contiguous, h % h_kv
-// == 0, d in {64, 128}, sm_scale > 0.  strides: the (batch, head, seq) element strides
+// == 0, d in {64, 128, 256}, sm_scale > 0.  strides: the (batch, head, seq) element strides
 // of q, k, v and o in that order (12 values), each a multiple of 8; every
 // base 16-byte aligned.  Launches on `stream`, allocates nothing, returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported head_dim or
@@ -417,10 +439,14 @@ extern "C" int ptdeco_flash_attention_fwd(const void* q, const void* k, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
   if (d == 128) return launch<128>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
+  if (d == 256) return launch<256>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dynamic shared memory of one CTA at head_dim d (0 for another d)
 extern "C" int ptdeco_flash_smem_bytes(int d) {
-  return d == 64 ? Layout<64>::kSmemBytes : d == 128 ? Layout<128>::kSmemBytes : 0;
+  return d == 64    ? Layout<64>::kSmemBytes
+         : d == 128 ? Layout<128>::kSmemBytes
+         : d == 256 ? Layout<256>::kSmemBytes
+                    : 0;
 }

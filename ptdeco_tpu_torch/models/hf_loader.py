@@ -1,10 +1,14 @@
 """Load local HuggingFace checkpoints into the port's models.
 
-Counterpart of the llama-family part of ``ptdeco_tpu/models/hf_loader.py``:
-the port's parameter names are HF llama's (``model.layers.0.self_attn.
-q_proj.weight`` ...) and in torch layout, so an HF state dict loads as it
-is.  Shards are read from ``*.safetensors`` where that package is
-importable, else from ``pytorch_model*.bin`` with ``torch.load``.
+Counterpart of the llama-family and phi part of
+``ptdeco_tpu/models/hf_loader.py``: the port's parameter names are HF's
+(``model.layers.0.self_attn.q_proj.weight``, phi's
+``model.layers.0.self_attn.dense.weight`` ...) and in torch layout, so an
+HF state dict of a llama, mistral, qwen2, qwen3, gemma or phi snapshot
+loads as it is (a tied model needs no ``lm_head.weight``; one the snapshot
+holds anyway is ignored); Mixtral's expert names are translated.  Shards
+are read from ``*.safetensors`` where that package is importable, else
+from ``pytorch_model*.bin`` with ``torch.load``.
 """
 
 from __future__ import annotations
@@ -90,13 +94,19 @@ def translate_mixtral_state_dict(sd: dict[str, torch.Tensor]) -> dict[str, torch
     return out
 
 
+# model types whose HF names are the port model's own
+_SAME_NAMES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "phi")
+
+
 def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:
     """The checkpoint-layout translator for a config's ``model_type``: None
-    where HF's names are the model's already (llama).  Raises for a model
-    type the port has no model for."""
+    where HF's names are the model's already.  Raises for a model type the
+    port has no model for."""
     mt = hf_cfg.get("model_type")
-    if mt == "llama":
+    if mt in _SAME_NAMES:
         return None
     if mt == "mixtral":
         return translate_mixtral_state_dict
-    raise ValueError(f"model_type={mt!r}: the port has models for llama and mixtral only")
+    raise ValueError(
+        f"model_type={mt!r}: the port has models for {list(_SAME_NAMES)} and mixtral only"
+    )

@@ -1,12 +1,15 @@
-"""Decoder-only causal LM, llama and Mixtral subset, in PyTorch.
+"""Decoder-only causal LM, llama family and Mixtral, in PyTorch.
 
-Counterpart of the llama and Mixtral parts of
-``ptdeco_tpu/models/transformer.py``: RMSNorm, HF rotate-half rope at
-absolute positions, grouped-query attention, SwiGLU MLP, the top-k routed
+Counterpart of the llama-family and Mixtral parts of
+``ptdeco_tpu/models/transformer.py``: RMSNorm (optionally the gemma (1 + w)
+flavour), HF rotate-half rope at absolute positions, grouped-query
+attention (optionally with Qwen2's q/k/v biases and Qwen3's per-head q/k
+RMSNorm), a gated MLP (SwiGLU, or gemma's tanh-GELU), the top-k routed
 mixture of SwiGLU experts (``MoEMLP``), pre-norm blocks (optionally each
-under ``torch.utils.checkpoint``, the config's ``remat``), and a
-dict-in/logits-out ``CausalLM``.  Every projection is an ``nn.Linear`` site
-and parameter names follow HF llama and the JAX package's MoE layout
+under ``torch.utils.checkpoint``, the config's ``remat``), an embedding
+optionally scaled by sqrt(dim) (gemma), and a dict-in/logits-out
+``CausalLM``.  Every projection is an ``nn.Linear`` site and parameter
+names follow HF llama and the JAX package's MoE layout
 (``model.layers.0.self_attn.q_proj.weight``,
 ``model.layers.0.mlp.experts.3.down_proj.weight``), so decompose configs
 and state dicts line up with the JAX package and with HF checkpoints.
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import math
 from typing import Any, Optional
 
@@ -38,7 +42,14 @@ __all__ = [
     "Decoder",
     "CausalLM",
     "ce_loss",
+    "HF_FAMILIES",
 ]
+
+logger = logging.getLogger(__name__)
+
+
+# the HF model types ``TransformerConfig.from_hf_config`` builds
+HF_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "mixtral")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +62,17 @@ class TransformerConfig:
     hidden_dim: int = 5632
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    qkv_bias: bool = False  # Qwen2: biases on q/k/v, added before rope
     tie_embeddings: bool = False
+    # gemma (HF GemmaConfig): an explicit head_dim (gemma-7b has
+    # n_heads * head_dim != dim), the tanh-GELU MLP, the embedding scaled
+    # by sqrt(dim), and the (1 + w) RMSNorm
+    head_dim_override: Optional[int] = None
+    mlp_act: str = "silu"  # "silu" | "gelu_tanh"
+    scale_embeddings: bool = False
+    norm_plus_one: bool = False
+    # Qwen3: a per-head RMSNorm on q and k before rope
+    qk_norm: bool = False
     dtype: torch.dtype = torch.float32
     # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
     # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
@@ -64,32 +85,63 @@ class TransformerConfig:
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
         return self.dim // self.n_heads
 
     @staticmethod
     def from_hf_config(
         hf: dict[str, Any], dtype: torch.dtype = torch.bfloat16, remat: bool = False
     ) -> "TransformerConfig":
-        """HF ``config.json`` of a llama or Mixtral checkpoint -> config.
-        Raises ValueError on anything this subset does not express.  A
-        Mixtral ``sliding_window`` is not applied (full causal attention),
-        as in the JAX package: exact for sequences within the window."""
+        """HF ``config.json`` of a llama, mistral, qwen2, qwen3, gemma (first
+        generation) or mixtral checkpoint -> config, as the JAX package's
+        family branch builds it.  Raises ValueError on anything these
+        families do not express here (rope scaling, other bias layouts,
+        gemma2 / gemma3 and every other model type; ROADMAP.md lists them).
+        A ``sliding_window`` (mistral, mixtral) is logged and not applied:
+        full causal attention, exact for sequences within the window."""
         mt = hf.get("model_type", "llama")
-        if mt not in ("llama", "mixtral"):
+        if mt not in HF_FAMILIES:
             raise ValueError(
-                f"model_type={mt!r}: this package has the llama and mixtral subsets only"
+                f"model_type={mt!r}: the port builds {list(HF_FAMILIES)} from a config.json "
+                "(and phi through PhiConfig); the other families wait in ROADMAP.md"
             )
-        if hf.get("rope_scaling") is not None:
-            raise ValueError("rope_scaling is not implemented in the llama subset")
-        if hf.get("hidden_act", "silu") != "silu":
-            raise ValueError(f"Unsupported hidden_act={hf.get('hidden_act')!r}")
-        if bool(hf.get("attention_bias", False)) or bool(hf.get("mlp_bias", False)):
-            raise ValueError("attention_bias / mlp_bias are not expressed by the llama subset")
+        rs = hf.get("rope_scaling")
+        if rs is not None and rs.get("rope_type", rs.get("type")) not in (None, "default"):
+            raise ValueError(
+                f"rope_scaling {rs!r} is not implemented in the port (ROADMAP.md)"
+            )
+        # gemma configs carry hidden_activation (the authoritative field;
+        # older snapshots say hidden_act "gelu" and run the tanh form)
+        act = hf.get("hidden_activation") or hf.get("hidden_act", "silu")
+        act_map = {"silu": "silu", "gelu": "gelu_tanh", "gelu_pytorch_tanh": "gelu_tanh"}
+        if act not in act_map:
+            raise ValueError(f"Unsupported hidden_act={act!r}")
+        # qwen2's layout (biases on q/k/v, none on o_proj) is the only
+        # attention bias expressed; llama / mistral with attention_bias also
+        # bias o_proj, and mlp_bias biases gate/up/down
+        if bool(hf.get("attention_bias", False)) and mt != "qwen2":
+            raise ValueError(
+                "attention_bias=True with an o_proj bias is not expressed (only "
+                "qwen2's q/k/v-bias layout is); ROADMAP.md lists the other layouts"
+            )
+        if bool(hf.get("mlp_bias", False)):
+            raise ValueError(
+                "mlp_bias=True (biases on gate/up/down) is not expressed; ROADMAP.md lists it"
+            )
         n_heads = int(hf["num_attention_heads"])
         dim = int(hf["hidden_size"])
         head_dim = hf.get("head_dim")
-        if head_dim is not None and int(head_dim) * n_heads != dim:
-            raise ValueError("head_dim * num_attention_heads != hidden_size is not expressed")
+        override = (
+            int(head_dim) if head_dim is not None and int(head_dim) * n_heads != dim else None
+        )
+        sliding = hf.get("sliding_window")
+        if sliding is not None and hf.get("use_sliding_window", True):
+            logger.info(
+                "sliding_window=%s in config: full causal attention is used; keep "
+                "sequences within the window for exactness", sliding,
+            )
+        gemma = mt == "gemma"
         return TransformerConfig(
             vocab_size=int(hf["vocab_size"]),
             dim=dim,
@@ -99,7 +151,13 @@ class TransformerConfig:
             hidden_dim=int(hf["intermediate_size"]),
             norm_eps=float(hf.get("rms_norm_eps", 1e-6)),
             rope_theta=float(hf.get("rope_theta", 10000.0)),
-            tie_embeddings=bool(hf.get("tie_word_embeddings", False)),
+            qkv_bias=bool(hf.get("attention_bias", mt == "qwen2")),
+            tie_embeddings=bool(hf.get("tie_word_embeddings", gemma)),
+            head_dim_override=override,
+            mlp_act=act_map[act],
+            scale_embeddings=gemma,
+            norm_plus_one=gemma,
+            qk_norm=mt == "qwen3",
             dtype=dtype,
             # HF MixtralSparseMoeBlock: softmax over all experts, top-k,
             # always renormalized; experts at intermediate_size
@@ -123,6 +181,14 @@ class TransformerConfig:
         )
 
     @staticmethod
+    def qwen2_1_5b(dtype: torch.dtype = torch.bfloat16) -> "TransformerConfig":
+        return TransformerConfig(
+            vocab_size=151936, dim=1536, n_layers=28, n_heads=12, n_kv_heads=2,
+            hidden_dim=8960, qkv_bias=True, tie_embeddings=True,
+            rope_theta=1000000.0, norm_eps=1e-6, dtype=dtype,
+        )
+
+    @staticmethod
     def llama3_8b(dtype: torch.dtype = torch.bfloat16) -> "TransformerConfig":
         return TransformerConfig(
             vocab_size=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
@@ -131,16 +197,25 @@ class TransformerConfig:
 
 
 class RMSNorm(torch.nn.Module):
-    def __init__(self, dim: int, eps: float, dtype: torch.dtype, device: Any) -> None:
+    """RMSNorm in f32, cast back to x's dtype.  ``plus_one`` is gemma's
+    flavour: y * (1 + w), w zero-initialized; the stored weight is HF's raw
+    value."""
+
+    def __init__(
+        self, dim: int, eps: float, dtype: torch.dtype, device: Any, plus_one: bool = False
+    ) -> None:
         super().__init__()
-        self.weight = torch.nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        init = torch.zeros if plus_one else torch.ones
+        self.weight = torch.nn.Parameter(init(dim, dtype=dtype, device=device))
         self.eps = eps
+        self.plus_one = plus_one
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
         var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
-        return (y * self.weight.to(torch.float32)).to(x.dtype)
+        w = self.weight.to(torch.float32)
+        return (y * (w + 1.0 if self.plus_one else w)).to(x.dtype)
 
 
 def _positions(b: int, s: int, start: Any, device: Any) -> torch.Tensor:
@@ -171,10 +246,15 @@ class Attention(torch.nn.Module):
         super().__init__()
         hd = cfg.head_dim
         kw = {"dtype": cfg.dtype, "device": device}
-        self.q_proj = torch.nn.Linear(cfg.dim, cfg.n_heads * hd, bias=False, **kw)
-        self.k_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=False, **kw)
-        self.v_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=False, **kw)
+        self.q_proj = torch.nn.Linear(cfg.dim, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.k_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.v_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
         self.o_proj = torch.nn.Linear(cfg.n_heads * hd, cfg.dim, bias=False, **kw)
+        if cfg.qk_norm:  # Qwen3: per head, over head_dim
+            self.q_norm = RMSNorm(hd, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
+            self.k_norm = RMSNorm(hd, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
+        else:
+            self.q_norm = self.k_norm = None
         self.n_heads = cfg.n_heads
         self.n_kv_heads = cfg.n_kv_heads
         self.head_dim = hd
@@ -183,19 +263,21 @@ class Attention(torch.nn.Module):
     def project_qkv(
         self, x: torch.Tensor, positions: Optional[torch.Tensor] = None
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Projections and rope at absolute ``positions`` (b, s; arange when
-        None): q (b, s, heads, hd) and k, v (b, s, kv_heads, hd), before any
-        GQA repeat.  The cached attention (``serving.py``) reuses it."""
+        """Projections (with their biases), the per-head q/k norms and rope
+        at absolute ``positions`` (b, s; arange when None): q (b, s, heads,
+        hd) and k, v (b, s, kv_heads, hd), before any GQA repeat.  The
+        cached attention (``serving.py``) reuses it."""
         b, s, _ = x.shape
         q = self.q_proj(x)
         hd = q.shape[-1] // self.n_heads  # robust to decomposed projections
-        k = self.k_proj(x)
-        v = self.v_proj(x)
+        q = q.reshape(b, s, self.n_heads, hd)
+        k = self.k_proj(x).reshape(b, s, self.n_kv_heads, hd)
+        v = self.v_proj(x).reshape(b, s, self.n_kv_heads, hd)
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
         if positions is None:
             positions = _positions(b, s, 0, x.device)
-        q = _rope(q.reshape(b, s, self.n_heads, hd), positions, self.rope_theta)
-        k = _rope(k.reshape(b, s, self.n_kv_heads, hd), positions, self.rope_theta)
-        return q, k, v.reshape(b, s, self.n_kv_heads, hd)
+        return _rope(q, positions, self.rope_theta), _rope(k, positions, self.rope_theta), v
 
     def finish(self, merged: torch.Tensor) -> torch.Tensor:
         """The output projection of the merged heads (b, s, heads * hd)."""
@@ -221,9 +303,9 @@ class Attention(torch.nn.Module):
 
 def _use_flash_kernel(q: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> bool:
     """The model-level gate of transformer.py:4086-4117: bf16 on the card
-    with no padding mask and a head_dim the kernel is built for takes the
-    flash kernel (which reads the grouped k/v heads itself); everything
-    else, an all-ones mask included, takes the einsum path."""
+    with no padding mask and a head_dim the kernel is built for (64, 128 or
+    256) takes the flash kernel (which reads the grouped k/v heads itself);
+    everything else, an all-ones mask included, takes the einsum path."""
     return (
         q.is_cuda
         and q.dtype == torch.bfloat16
@@ -233,7 +315,8 @@ def _use_flash_kernel(q: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> boo
 
 
 class MLP(torch.nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """Gated MLP: down(act(gate(x)) * up(x)), act silu (SwiGLU) or tanh-GELU
+    (gemma's GeGLU)."""
 
     def __init__(self, cfg: TransformerConfig, device: Any) -> None:
         super().__init__()
@@ -241,9 +324,14 @@ class MLP(torch.nn.Module):
         self.gate_proj = torch.nn.Linear(cfg.dim, cfg.hidden_dim, bias=False, **kw)
         self.up_proj = torch.nn.Linear(cfg.dim, cfg.hidden_dim, bias=False, **kw)
         self.down_proj = torch.nn.Linear(cfg.hidden_dim, cfg.dim, bias=False, **kw)
+        if cfg.mlp_act not in ("silu", "gelu_tanh"):
+            raise ValueError(f"mlp_act={cfg.mlp_act!r}")
+        self.act = cfg.mlp_act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        g = self.gate_proj(x)
+        g = F.silu(g) if self.act == "silu" else F.gelu(g, approximate="tanh")
+        return self.down_proj(g * self.up_proj(x))
 
 
 def _use_int8_kernel(x: torch.Tensor) -> bool:
@@ -393,9 +481,10 @@ class MoEMLP(torch.nn.Module):
 class Block(torch.nn.Module):
     def __init__(self, cfg: TransformerConfig, device: Any) -> None:
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
+        norm = (cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
+        self.input_layernorm = RMSNorm(*norm)
         self.self_attn = Attention(cfg, device)
-        self.post_attention_layernorm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
+        self.post_attention_layernorm = RMSNorm(*norm)
         self.mlp = MoEMLP(cfg, device) if cfg.n_experts > 0 else MLP(cfg, device)
 
     def forward(
@@ -419,13 +508,24 @@ class Decoder(torch.nn.Module):
             cfg.vocab_size, cfg.dim, dtype=cfg.dtype, device=device
         )
         self.layers = torch.nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
-        self.norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
+        self.norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
         self.remat = cfg.remat
+        self.scale_embeddings = cfg.scale_embeddings
+
+    def embed_inputs(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Everything before the layer stack: the token embedding, scaled by
+        sqrt(dim) for gemma (the factor computed in f32, cast to the
+        activation dtype, as the JAX decoder's ``embed_inputs``).  The
+        cached forward (``serving.py``) reuses it."""
+        x = self.embed_tokens(input_ids)
+        if self.scale_embeddings:
+            x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=torch.float32).to(x.dtype)
+        return x
 
     def forward(
         self, input_ids: torch.Tensor, attn_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        x = self.embed_tokens(input_ids)
+        x = self.embed_inputs(input_ids)
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
                 x = _checkpointed(layer, x, attn_mask)
@@ -464,6 +564,23 @@ def _checkpointed(layer: Block, x: torch.Tensor, attn_mask: Optional[torch.Tenso
     )
 
 
+@torch.no_grad()
+def init_weights(root: torch.nn.Module, gen: Optional[torch.Generator], device: Any) -> None:
+    """The JAX package's initial distributions, drawn from ``gen`` (a fresh
+    generator on ``device`` seeded 0 when None): Linear weights and biases
+    uniform in +-1/sqrt(in_features), embeddings normal with std 0.02."""
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+    for m in root.modules():
+        if isinstance(m, torch.nn.Linear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            m.weight.uniform_(-bound, bound, generator=gen)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=gen)
+        elif isinstance(m, torch.nn.Embedding):
+            m.weight.normal_(0.0, 0.02, generator=gen)
+
+
 class CausalLM(torch.nn.Module):
     """Callable with a batch dict {"input_ids", optional "attention_mask"}
     (or a bare id tensor), returning logits.  Weights are drawn from
@@ -483,20 +600,7 @@ class CausalLM(torch.nn.Module):
             if cfg.tie_embeddings
             else torch.nn.Linear(cfg.dim, cfg.vocab_size, bias=False, dtype=cfg.dtype, device=device)
         )
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        self._init_weights(generator)
-
-    @torch.no_grad()
-    def _init_weights(self, gen: torch.Generator) -> None:
-        for m in self.modules():
-            if isinstance(m, torch.nn.Linear):
-                bound = 1.0 / math.sqrt(m.in_features)
-                m.weight.uniform_(-bound, bound, generator=gen)
-                if m.bias is not None:
-                    m.bias.uniform_(-bound, bound, generator=gen)
-            elif isinstance(m, torch.nn.Embedding):
-                m.weight.normal_(0.0, 0.02, generator=gen)
+        init_weights(self, generator, device)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Vocab logits of final-normed hidden states."""

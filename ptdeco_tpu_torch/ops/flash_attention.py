@@ -27,21 +27,29 @@ __all__ = [
     "causal_attention_plain",
     "KERNEL_HEAD_DIMS",
     "flash_schedule",
+    "block_n",
     "smem_bytes",
 ]
 
-# head_dim values the kernel is compiled for (a template parameter)
-KERNEL_HEAD_DIMS = (64, 128)
-# query rows and keys a CTA takes at a time, K/V ring depth
-# (csrc/flash_attention_fwd.cu: kBM, kBN, kStages)
-BLOCK_M, BLOCK_N, STAGES = 128, 128, 2
+# head_dim values the kernel is compiled for (a template parameter): 64,
+# 128 and 256
+KERNEL_HEAD_DIMS = (64, 128, 256)
+# query rows a CTA takes at a time, K/V ring depth
+# (csrc/flash_attention_fwd.cu: kBM, kStages)
+BLOCK_M, STAGES = 128, 2
+
+
+def block_n(head_dim: int) -> int:
+    """Keys a K/V tile holds (``Layout<D>::kBN``): 128, and 64 at head dim
+    256, where a 128-key ring would not fit a CTA's shared memory."""
+    return 64 if head_dim == 256 else 128
 
 
 def smem_bytes(head_dim: int) -> int:
     """Dynamic shared memory of one CTA: the Q tile, the K and V ring, the
     mbarriers (Q full and empty, K and V full and empty a stage), 1 KB of
     alignment slack."""
-    tiles = BLOCK_M * head_dim + 2 * STAGES * BLOCK_N * head_dim
+    tiles = BLOCK_M * head_dim + 2 * STAGES * block_n(head_dim) * head_dim
     return tiles * 2 + (2 + 4 * STAGES) * 8 + 1024
 
 
@@ -50,7 +58,8 @@ def flash_schedule(b: int, h: int, s: int, n_ctas: int) -> list[list[tuple[int, 
     persistent grid takes, in order.  The grid is ``min(tiles, n_ctas)``
     CTAs (the kernel passes the card's SM count); tile t of the walk is
     head ``t % (b * h)`` and q-tile ``n_q - 1 - t // (b * h)``, so the
-    tiles with the most causal key tiles (``qt + 1``) come first, and CTA
+    tiles with the most causal key tiles (``(qt + 1) * BLOCK_M / block_n``)
+    come first, and CTA
     c takes tiles c, c + grid, ...  (csrc/flash_attention_fwd.cu:TileOf)."""
     n_q, bh = -(-s // BLOCK_M), b * h
     walk = [(t % bh, n_q - 1 - t // bh) for t in range(bh * n_q)]

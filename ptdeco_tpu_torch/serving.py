@@ -11,9 +11,12 @@ Counterpart of the llama-family part of ``ptdeco_tpu/serving.py``:
     each row's cache slot equals its token position, so the pad tail that a
     prefill writes is causally invisible and overwritten as the row decodes.
     ``kv_mask`` (b, max_len) marks the valid key slots of left-padded rows;
-  * the projections, rope and output projection are the model's own
-    (``Attention.project_qkv`` / ``Attention.finish``), so the cached path
-    cannot drift from the uncached forward;
+  * the embedding step, the projections (biases and q/k norms included),
+    rope and the output projection are the model's own
+    (``Decoder.embed_inputs``, ``Attention.project_qkv`` /
+    ``Attention.finish``), so the cached path cannot drift from the
+    uncached forward, for every family ``TransformerConfig`` builds (phi,
+    whose JAX serving path does not exist, is not served from the cache);
   * a prefill from an empty cache (a host ``0`` for ``cache_pos``, no
     ``kv_mask``) launches the flash kernel on the un-repeated GQA k/v, a
     right-padded ragged prefill included (its pad tail is causally later
@@ -258,7 +261,7 @@ def forward_with_cache(
     b, s = input_ids.shape
     prefill0 = _is_static_zero(cache_pos)
     positions = _positions(b, s, cache_pos, input_ids.device)
-    x = lm.model.embed_tokens(input_ids)
+    x = lm.model.embed_inputs(input_ids)
     for layer, (k_cache, v_cache) in zip(_model_layers(lm), caches):
         cached = CachedAttention(
             layer.self_attn, k_cache, v_cache, cache_pos, kv_mask=kv_mask,

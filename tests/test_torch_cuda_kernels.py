@@ -48,7 +48,10 @@ def test_syrk_gram(dev, n, d, dtype):
 
 
 @pytest.mark.parametrize(
-    "b,h,h_kv,s,d", [(1, 4, 4, 128, 64), (2, 4, 2, 100, 64), (1, 2, 1, 70, 128), (1, 8, 2, 1, 64)]
+    "b,h,h_kv,s,d",
+    [(1, 4, 4, 128, 64), (2, 4, 2, 100, 64), (1, 2, 1, 70, 128), (1, 8, 2, 1, 64),
+     # Qwen2-1.5B's heads (group 6) and Gemma-2B's (head dim 256, one kv head)
+     (1, 12, 2, 300, 128), (1, 8, 1, 300, 256), (2, 4, 2, 257, 256)],
 )
 def test_flash_attention(dev, b, h, h_kv, s, d):
     q = torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16)
@@ -62,11 +65,12 @@ def test_flash_attention(dev, b, h, h_kv, s, d):
 
 
 @pytest.mark.parametrize("rep", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [1, 127, 129, 1000])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s", [1, 63, 127, 129, 1000])
 def test_flash_attention_edges(dev, s, d, rep):
-    """Sequences shorter than, one past and ragged against the 128-row tile,
-    at both head dims and grouped-query repeats of 1, 4 and 8."""
+    """Sequences shorter than, one past and ragged against the 128-row tile
+    (and the 64-key tile of head dim 256), at every head dim and
+    grouped-query repeats of 1, 4 and 8."""
     h = 8
     q = torch.randn(1, h, s, d, device=dev, dtype=torch.bfloat16)
     k = torch.randn(1, h // rep, s, d, device=dev, dtype=torch.bfloat16)
@@ -79,7 +83,7 @@ def test_flash_attention_edges(dev, s, d, rep):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=3e-2)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_attention_strided_views(dev, d):
     """The model's transposed (b, s, h, d) views are read as they lie and the
     output takes q's layout; a view whose seq stride TMA cannot address

@@ -700,14 +700,15 @@ def test_builder_paths(tmp_path, monkeypatch):
         model_name="tiny", enable_gradient_checkpointing=True, device="cpu")
     assert model.model.remat and isinstance(tok, builder.ByteTokenizer)
     (tmp_path / "config.json").write_text(json.dumps({**TINY_HF, "model_type": "gpt2"}))
-    with pytest.raises(ValueError, match=r"\['llama'\]"):
+    with pytest.raises(ValueError, match=r"model_type='gpt2': the port builds \['llama', "):
         builder.make_model_and_tokenizer(model_name="x", checkpoint_path=str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
-        builder.make_model_and_tokenizer(model_name="qwen2-1.5b", device="cpu")
-    assert hf_loader.translator_for({"model_type": "llama"}) is None
+        builder.make_model_and_tokenizer(model_name="qwen2-7b", device="cpu")
+    for mt in ("llama", "mistral", "qwen2", "qwen3", "gemma", "phi"):
+        assert hf_loader.translator_for({"model_type": mt}) is None
     assert hf_loader.translator_for({"model_type": "mixtral"}) is hf_loader.translate_mixtral_state_dict
-    with pytest.raises(ValueError, match="llama and mixtral"):
-        hf_loader.translator_for({"model_type": "phi"})
+    with pytest.raises(ValueError, match="and mixtral only"):
+        hf_loader.translator_for({"model_type": "gpt2"})
     assert isinstance(builder.make_tokenizer("tinyllama-1.1b", 32000), builder.ByteTokenizer)
 
 

@@ -39,7 +39,7 @@ declare -A GATE=(
 declare -A SED=(
   [scale_x1.02]='s/const float scale_log2 = sm_scale \* 1.4426950408889634f;/const float scale_log2 = sm_scale * 1.02f * 1.4426950408889634f;/'
   [o_without_alpha]='s/oacc\[4 \* q\( + [1-3]\)\?\] \*= alpha_\([ab]\);/(void)alpha_\2;/'
-  [diag_tile_dropped]='s/const int n_blocks = tile.qt + 1;/const int n_blocks = tile.qt;/'
+  [diag_tile_dropped]='s/const int n_blocks = (tile.qt + 1) \* (kBM \/ kBN);/const int n_blocks = tile.qt * (kBM \/ kBN);/'
   [store_past_group]='s/const int row_end = r1;/const int row_end = m;/'
   [int8_partial_dropped]='s/for (int s = 0; s < ks; ++s) {/for (int s = 1; s < ks; ++s) {/'
   [int8_last_tile_unscaled]='s/const float s0 = sc\[j\], s1 = j + 1 < cols ? sc\[j + 1\] : 0.f;/const bool last = blockIdx.y + 1 == gridDim.y; const float s0 = last ? 1.f : sc[j], s1 = last ? 1.f : (j + 1 < cols ? sc[j + 1] : 0.f);/'
