@@ -50,6 +50,16 @@ served fused; and slice 1's path (decompose, artifact, fused serve, cached
 Qwen2-1.5B-width and Gemma-2B-width models, whose attention takes the
 flash kernel at head dim 128 (group 6) and 256 (one kv head).
 
+Slice 11 runs the vision trainer CLI (``python -m
+ptdeco_tpu_torch.apps.trainer_vision.run``, in process) at the shipped
+yamls' widths on 224 x 224 synthetic images with planted-rank weights:
+``decompose_dwain`` on ConvNeXt-Tiny and SwinV2-Tiny (f32, cut in depth),
+``decompose_lockd`` on EfficientFormerV2-S0 (bf16, batch 256) and the
+``finetune`` task (KD) on its artifact, stopped and resumed from its
+checkpoint, and ``decompose_falor`` on ResNet-18 as shipped; each
+artifact is reloaded bit-equal and a bf16 copy served with its pairs
+fused through the low-rank kernel.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -72,7 +82,11 @@ serve against its pairs and its f32 twin), qwen2_1_5b and gemma_2b (wall,
 ranks, artifact, fused serve, ``generate``, f32 tokens, reference), dwain_mlp,
 falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
 lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
-and the planted decomposition, artifact, fused serve), moe_serve bf16, moe_reference bf16 (against its f32 twin on the
+and the planted decomposition, artifact, fused serve),
+trainer_vision_dwain_convnext, trainer_vision_dwain_swinv2,
+trainer_vision_lockd_efficientformer, trainer_vision_finetune and
+trainer_vision_falor_resnet18 (wall, decisions, ms a step, peak memory,
+the resumed run's difference, the fused serve), moe_serve bf16, moe_reference bf16 (against its f32 twin on the
 card), moe_serve int8, moe_reference int8 (the int8 run's step logits and a
 128-token forward against the quantized model's f32 twin), kernels (launch
 counts of each path).  Then the card's name and power limit as nvidia-smi
@@ -92,6 +106,7 @@ import logging
 import math
 import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -120,6 +135,11 @@ from ptdeco_tpu_torch.ops import _build, gmm, gmm_int8  # noqa: E402
 from ptdeco_tpu_torch.apps.trainer_llm import builder as trainer_builder  # noqa: E402
 from ptdeco_tpu_torch.apps.trainer_llm import run as trainer_run  # noqa: E402
 from ptdeco_tpu_torch.apps.trainer_llm import run_finetune as trainer_finetune  # noqa: E402
+from ptdeco_tpu_torch.apps.trainer_vision import builder as vision_builder  # noqa: E402
+from ptdeco_tpu_torch.apps.trainer_vision import configurator as vision_config  # noqa: E402
+from ptdeco_tpu_torch.apps.trainer_vision import datasets_image as vision_data  # noqa: E402
+from ptdeco_tpu_torch.apps.trainer_vision import metrics as vision_metrics  # noqa: E402
+from ptdeco_tpu_torch.apps.trainer_vision import run as vision_run  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
@@ -247,6 +267,72 @@ FAMILY_GATES = {
     "qwen2_1_5b": {"serve": (0.1, 1.25e-2), "reference": (0.08, 1.3e-2)},
     "gemma_2b": {"serve": (0.5, 1.5e-2), "reference": (0.4, 1.6e-2)},
 }
+
+# Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
+# in process) at the shipped yamls' widths on 224 x 224 images of the
+# synthetic pipeline (its batches held on the card), with planted-rank
+# weights loaded as a .pt through decompose_model_checkpoint_path.  The
+# yamls' values (apps/trainer_vision/examples_config/) are repeated here,
+# so no PyYAML is needed, with these cuts (PERF.md section 4):
+# ConvNeXt-Tiny's depth (3, 3, 9, 3) -> CONVNEXT_DEPTHS, its calibration
+# steps 32 -> 8 and fine-tuning steps 100 -> 4; SwinV2-Tiny's depth
+# (2, 2, 6, 2) -> SWIN_DEPTHS (the blacklist trimmed to the blocks left),
+# its metric steps 8 -> 2 and fine-tuning steps 50 -> 4; lockd's 10 epochs
+# -> 31 steps and the KD task's 20 epochs -> 16 steps, an epoch being
+# EF_POOL batches.  The layer scales (init 1e-6 / 1e-5) are set to
+# VISION_BRANCH_SCALE so that the planted branches count.
+VISION_HW, VISION_POOL, VISION_BRANCH_SCALE = 224, 4, 0.5
+CONVNEXT_DEPTHS, SWIN_DEPTHS = (1, 1, 3, 1), (2, 2, 2, 2)
+CONVNEXT_CUT, SWIN_CUT = "convnext_tiny_cut", "swinv2_tiny_patch4_window7_224_cut"
+DWAIN_CONVNEXT_BATCH, DWAIN_SWIN_BATCH = 64, 80
+DWAIN_CONVNEXT = dict(
+    task="decompose_dwain", num_data_steps=8, num_metric_steps=8, trade_off_factor=0.5,
+    reduction_factor=0.5, max_accepted_ppl_diff=0.1, nsr_final_threshold=0.05, min_rank=16,
+    decompose_in_float64=True, precomputing_covariance_num_splits=4, blacklisted_modules=["head"],
+    finetuning_run=True, finetuning_lr=1e-4, finetuning_optimizer="AdamW",
+    finetuning_reverting=True, finetuning_batch_norms_in_eval=True, finetuning_num_steps=4,
+    finetuning_num_log_steps=10, finetuning_num_last_finetuned_modules=8,
+)
+DWAIN_SWIN = dict(
+    task="decompose_dwain", num_data_steps=8, num_metric_steps=2, trade_off_factor=0.5,
+    reduction_factor=0.5, max_accepted_ppl_diff=0.1, nsr_final_threshold=1.0, min_rank=4,
+    decompose_in_float64=True, precomputing_covariance_num_splits=1,
+    blacklisted_modules=[f"stages.{s}.blocks.{b}.attn.cpb_fc{i}"
+                         for s, depth in enumerate(SWIN_DEPTHS) for b in range(depth)
+                         for i in (1, 2)] + ["head"],
+    finetuning_run=True, finetuning_lr=5e-5, finetuning_optimizer="AdamW",
+    finetuning_reverting=True, finetuning_batch_norms_in_eval=True, finetuning_num_steps=4,
+    finetuning_num_log_steps=10, finetuning_num_last_finetuned_modules=10000,
+)
+EF_POOL, EF_VAL_BATCH = 8, 64
+LOCKD_EF = dict(
+    task="decompose_lockd", proportion_threshold=0.9,
+    blacklisted_modules=[f"stages.3.blocks.{b}.token_mixer.talking_head{i}"
+                         for b in (2, 3) for i in (1, 2)],
+    lmbda=0.1, nsr_threshold=0.02, finetune_only_decomposed=True, lr=1e-3, lr_t_warmup="1ep",
+    lr_scheduler="cosine", max_duration="31ba", optimizer="AdamW", precision="bf16",
+    alg_gradient_clipping_type="norm", alg_gradient_clipping_threshold=1.0, mesh_dp=None,
+)
+FINETUNE_EF = dict(
+    task="finetune", proportion_threshold=0.9, blacklisted_modules=[],
+    finetune_only_decomposed=True, lr=3e-4, lr_t_warmup="1ep", lr_scheduler="cosine",
+    max_duration="16ba", optimizer="AdamW", precision="bf16", alg_gradient_clipping_type="norm",
+    alg_gradient_clipping_threshold=1.0, mesh_dp=None, save_interval_steps=EF_POOL,
+)
+FALOR_RN18 = dict(task="decompose_falor", proportion_threshold=0.8, nsr_final_threshold=0.01,
+                  kl_final_threshold=0.01, num_data_steps=16, num_metric_steps=8,
+                  use_float64=True, blacklisted_modules=[])
+# fused serves against their pairs (max_abs, rms_rel), bf16, about 3x the
+# readings on an H100 at seeds 0-1 (PERF.md): ConvNeXt read 0.0156 /
+# 3.6e-4-5.4e-4, Swin 0.0156 / 3.4e-3-3.7e-3; EfficientFormer read 0 / 0
+# (its fused logits bit-equal to the pairs'), and is held to two bf16 ulps
+# of its largest logits (in [0.5, 1)) and ConvNeXt's relative limit
+CONVNEXT_FUSED_GATES, SWIN_FUSED_GATES, EF_FUSED_GATES = (0.05, 1.5e-3), (0.05, 1e-2), (2 ** -7, 1.5e-3)
+# the resumed KD run against the unbroken one (f32 masters and BatchNorm
+# statistics, relative to each tensor's largest value): it read 0 at seed
+# 0, and an f32 rounding over 8 steps is about 1e-7
+RESUME_REL = 1e-5
+
 
 # Model-level gates, about 2-3x the readings on an H100 at seed 0 (PERF.md):
 # fused vs unfused logits read max 0.031 (one bf16 ulp), RMS-relative 1.8e-3;
@@ -1414,26 +1500,30 @@ def resnet_round_trip(model, config, probe, dev, what: str) -> dict:
     return {"state_dict_bytes": sd_bytes, **logits_agree(y_fresh, y, 0.0, 0.0, what)}
 
 
-def resnet_fused_serve(model, probe, what: str) -> tuple[dict, dict[str, int]]:
-    """The decomposed ResNet-50 with its plain 1x1 pairs fused against its
-    pairs: logits gated, the fused forward's launches and the inputs it had
-    to copy into rows (none for channels_last), and both forwards timed.
-    Returns the record and the fused forward's launch counts."""
+def resnet_fused_serve(model, probe, what: str, max_abs: float = RN_FUSED_MAX_ABS,
+                       rms_rel: float = RN_FUSED_RMS_REL) -> tuple[dict, dict[str, int]]:
+    """The decomposed model (ResNet-50, or a slice-11 vision model) with its
+    plain pairs fused against its pairs: logits gated, the fused forward's
+    launches (one for each fused pair) and the inputs it had to copy into
+    rows (none for channels_last), and both forwards timed.  Returns the
+    record and the fused forward's launch counts."""
     with torch.no_grad():
         y_pairs = model(probe)
         pairs_ms = time_ms(lambda: model(probe), reps=10)
         pnn.fuse_factor_pairs(model)
+        fused = sum(isinstance(m, pnn.FusedLowRankLinear) for m in model.modules())
         ops.reset_launch_counts()
         y_fused = model(probe)
         torch.cuda.synchronize()
         counts, copies = ops.launch_counts(), ops.lowrank_matmul.input_copies
         fused_ms = time_ms(lambda: model(probe), reps=10)
         pnn.unfuse_factor_pairs(model)
-    if counts["lowrank_matmul"] <= 0 or copies:
-        raise AssertionError(f"{what}: launches {counts}, {copies} input copies")
+    if counts["lowrank_matmul"] != fused or fused <= 0 or copies:
+        raise AssertionError(f"{what}: {fused} fused pairs, launches {counts}, "
+                             f"{copies} input copies")
     return {"fused_pairs": counts["lowrank_matmul"], "input_copies": copies,
             "fused_ms": fused_ms, "pairs_ms": pairs_ms,
-            **logits_agree(y_fused, y_pairs, RN_FUSED_MAX_ABS, RN_FUSED_RMS_REL, what)}, counts
+            **logits_agree(y_fused, y_pairs, max_abs, rms_rel, what)}, counts
 
 
 def falor_resnet50(dev, seed: int, use_mean: bool) -> dict[str, int]:
@@ -2527,6 +2617,479 @@ def phi2_cli_decompose(dev, seed: int, root: pathlib.Path, data: pathlib.Path) -
     return {"phi2_cli_decompose": walk, "phi2_serve": serve_counts}
 
 
+class CardPipeline:
+    """``SyntheticImagePipeline``'s batches, made once from the seed and
+    held on the card as tensors (the trainers take them as they take the
+    numpy batches), so that drawing a batch costs neither the host's
+    random draws nor a copy."""
+
+    def __init__(self, batch: int, n_batches: int, seed: int, dev) -> None:
+        pipe = vision_data.SyntheticImagePipeline(batch, (VISION_HW, VISION_HW), 1000, n_batches,
+                                                  seed=seed)
+        self.batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in pipe]
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def plant_sites(model: torch.nn.Module, names: list[str], rng) -> None:
+    """Each named Linear or 1x1 conv ``A @ B / sqrt(r * d_in)`` plus 1%
+    noise at r = full_rank // 4, as ``planted_resnet50`` plants them."""
+    f32 = np.float32
+    with torch.no_grad():
+        for name in names:
+            w = pnn.get_submodule(model, name).weight
+            d_out, d_in = w.shape[:2]
+            r = min(d_in, d_out) // 4
+            planted = (rng.standard_normal((d_out, r), dtype=f32)
+                       @ rng.standard_normal((r, d_in), dtype=f32)) / np.sqrt(r * d_in, dtype=f32)
+            planted += 0.01 * rng.standard_normal((d_out, d_in), dtype=f32) / np.sqrt(d_in, dtype=f32)
+            w.copy_(torch.from_numpy(planted).reshape(w.shape))
+
+
+@torch.no_grad()
+def calibrate_batchnorm(model: torch.nn.Module, batches: list[torch.Tensor]) -> None:
+    """Every BatchNorm's running statistics set to its own input's over the
+    batches (one train-mode f32 forward each, cumulative averages)."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None
+    model.train()
+    for x in batches:
+        model(x)
+    for m in bns:
+        m.momentum = 0.1
+    model.eval()
+
+
+def planted_vision_weights(name: str, seed: int, dev, root: pathlib.Path) -> tuple[str, int]:
+    """A ``.pt`` of the named model's planted weights, as the CLI loads it
+    through ``decompose_model_checkpoint_path``, and the model's count of
+    decomposable sites: those sites planted (not Swin's 2-wide
+    position-bias MLPs nor EfficientFormer's 8-wide talking heads), the
+    layer scales (init 1e-6 / 1e-5) at ``VISION_BRANCH_SCALE`` so that the
+    blocks' branches count, and the BatchNorms calibrated on two batches
+    as ``planted_resnet50`` calibrates them (ResNet-18's residual branches
+    end at scale ``RN_BRANCH_GAMMA``)."""
+    model = vision_builder.make_model(name, seed=seed, input_h_w=(VISION_HW, VISION_HW),
+                                      device=dev)
+    rng = np.random.default_rng(seed)
+    sites = engine.get_decomposeable_submodule_names(model)
+    plant_sites(model, [s for s in sites if not s.endswith(
+        ("cpb_fc1", "cpb_fc2", "talking_head1", "talking_head2"))], rng)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith((".gamma", ".ls1", ".ls2")):
+                p.fill_(VISION_BRANCH_SCALE)
+        for m in model.modules():
+            if isinstance(m, models.resnet.BasicBlock):
+                m.bn2.weight.fill_(RN_BRANCH_GAMMA)
+    if any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules()):
+        calibrate_batchnorm(model, image_batches(seed + 30, 2, 64, dev, torch.float32))
+    path = root / f"{name}-planted.pt"
+    utils.save_state_dict_pt(utils.state_dict(model), str(path))
+    del model
+    torch.cuda.empty_cache()
+    return str(path), len(sites)
+
+
+def vision_cfg(task_values: dict, name: str, weights: str, batch: int) -> dict:
+    """A run config: the shipped yaml's values with the model and weights
+    swapped in and the ImageNet folders named but unused (the synthetic
+    pipeline replaces them)."""
+    return {**task_values, "decompose_model_name": name, "decompose_model_checkpoint_path": weights,
+            "imagenet_root_dir": "/data/imagenet",
+            "trn_imagenet_classes_fname": "/data/imagenet/train_classes.txt",
+            "val_imagenet_classes_fname": "/data/imagenet/val_classes.txt",
+            "batch_size": batch, "normalization": "imagenet", "input_h_w": [VISION_HW, VISION_HW]}
+
+
+def vision_cli(run_cfg: dict, root: pathlib.Path, what: str, pipes,
+               out: pathlib.Path | None = None) -> dict:
+    """The CLI in process on ``run_cfg``: its wall, launches, peak memory,
+    summary and config; every summary number finite."""
+    cfg_path, out = root / f"{what}.json", out or root / what
+    cfg_path.write_text(json.dumps(run_cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = vision_run.main(["--config", str(cfg_path), "--output-path", str(out)], *pipes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = json.loads((out / "summary.json").read_text())
+    numbers = {k: v for k, v in summary.items() if isinstance(v, (int, float))}
+    if rc != 0 or not all(math.isfinite(v) for v in numbers.values()):
+        raise AssertionError(f"{what}: rc {rc}, summary {summary}")
+    return {"out": out, "wall_s": wall, "launches": ops.launch_counts(),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "summary": summary,
+            "config": json.loads((out / "decompose_config.json").read_text())}
+
+
+def vision_reload(run_cfg: dict, out: pathlib.Path, dev,
+                  state_dict: str = "decompose_state_dict.pt") -> torch.nn.Module:
+    """The artifact onto a fresh model from the builder (the run's weights),
+    every key consumed and reloaded bit-equal; channels_last, eval mode."""
+    model = vision_builder.make_model(
+        run_cfg["decompose_model_name"], checkpoint_path=run_cfg["decompose_model_checkpoint_path"],
+        input_h_w=tuple(run_cfg["input_h_w"]), device=dev)
+    utils.apply_decompose_config(model, json.loads((out / "decompose_config.json").read_text()))
+    saved = utils.load_state_dict_pt(str(out / state_dict))
+    utils.load_state_dict(model, saved)
+    sd = utils.state_dict(model)
+    if sd.keys() != saved.keys() or not all(torch.equal(sd[k], saved[k]) for k in saved):
+        raise AssertionError(f"{out}: the artifact did not reload bit-equal")
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def fusable_pairs(config: dict) -> int:
+    """The config's pairs ``fuse_factor_pairs`` takes: two Linears, or two
+    plain 1x1 convs."""
+    def plain(m: dict) -> bool:
+        return "in_features" in m or (m.get("kernel_size") == [1, 1] and m.get("stride") == [1, 1]
+                                      and m.get("padding") in ([0, 0], 0))
+    return sum(plain(c["modules"]["0"]) and plain(c["modules"]["1"]) for c in config.values())
+
+
+def vision_serve(model, probe: torch.Tensor, what: str, gates: tuple[float, float],
+                 config: dict) -> tuple[dict, dict[str, int]]:
+    """The reloaded artifact's f32 logits finite, then a bf16
+    channels_last copy served with its pairs fused against its pairs
+    (``resnet_fused_serve``: one low-rank launch for each fused pair, no
+    input copied into rows), every pair the kernel takes fused."""
+    with torch.no_grad():
+        y32 = model(probe.float())
+    if not torch.isfinite(y32).all() or tuple(y32.shape) != (probe.shape[0], 1000):
+        raise AssertionError(f"{what}: f32 logits {tuple(y32.shape)} not finite")
+    served = copy.deepcopy(model).to(torch.bfloat16, memory_format=torch.channels_last)
+    rec, counts = resnet_fused_serve(served, probe.to(torch.bfloat16), what, *gates)
+    if rec["fused_pairs"] != fusable_pairs(config):
+        raise AssertionError(f"{what}: {rec['fused_pairs']} fused pairs of "
+                             f"{fusable_pairs(config)} the kernel takes")
+    # how much the logits vary across the images: the gates' scale
+    return {**rec, "logits_batch_std": float(y32.std(dim=0).mean()),
+            "logits_rms": float(y32.square().mean().sqrt())}, counts
+
+
+def ranks(config: dict) -> dict[str, int]:
+    def rank(m: dict) -> int:
+        return m.get("out_features", m.get("out_channels"))
+    return {k: rank(v["modules"]["0"]) for k, v in config.items()}
+
+
+def trainer_vision_dwain(dev, seed: int, root: pathlib.Path, what: str, name: str,
+                         task_values: dict, batch: int, gates: tuple[float, float]) -> dict[str, int]:
+    """The CLI's decompose_dwain task (f32, as shipped) on the planted
+    model: sites decomposed and parameters cut, the artifact reloaded
+    bit-equal, its bf16 copy served fused.  The f32 walk reaches no kernel
+    (SYRK takes bf16 activations); its launches are recorded."""
+    weights, n_sites = planted_vision_weights(name, seed, dev, root)
+    run_cfg = vision_cfg(task_values, name, weights, batch)
+    pipes = (CardPipeline(batch, VISION_POOL, seed + 31, dev), CardPipeline(batch, 1, seed + 32, dev))
+    with pipelined_eigh_log() as eighs:
+        run = vision_cli(run_cfg, root, what, pipes)
+    summary, config = run["summary"], run["config"]
+    rec = {"phase": what, "wall_s": run["wall_s"], "batch": batch, "sites": n_sites,
+           "time_decomposition": summary["time_decomposition"], "decomposed": len(config),
+           "ranks": ranks(config), "mparams_frac": summary["mparams_frac"],
+           "gflops_frac": summary["gflops_frac"], "accuracy_initial": summary["accuracy_initial"],
+           "accuracy_final": summary["accuracy_final"], **overlap(eighs),
+           "peak_memory_gb": run["peak_memory_gb"], "walk_launches": run["launches"],
+           "device": summary["device"]}
+    if not config or not summary["mparams_frac"] < 100.0:
+        emit({**rec, "ok": False})
+        raise AssertionError(f"{what}: {len(config)} sites decomposed, summary {summary}")
+    model = vision_reload(run_cfg, run["out"], dev)
+    probe = vision_metrics.nchw(pipes[1].batches[0]["inputs"], dev)
+    rec["serve"], serve_counts = vision_serve(model, probe, what + "_serve", gates, config)
+    del model, pipes
+    torch.cuda.empty_cache()
+    counts = {k: run["launches"][k] + serve_counts[k] for k in serve_counts}
+    require_launches(counts, ("lowrank_matmul",), what)
+    emit({**rec, "launches": counts})
+    return counts
+
+
+def pointwise_teacher(m: torch.nn.Module) -> torch.nn.Module | None:
+    """A wrapped layer's teacher if it is a Linear or a plain 1x1 conv."""
+    t = m.lin_orig if isinstance(m, lockd.WrappedLOCKDLinear) else m.conv_orig
+    if isinstance(t, torch.nn.Linear) or (t.kernel_size == (1, 1) and t.stride == (1, 1)
+                                          and t.padding in ((0, 0), 0)):
+        return t
+    return None
+
+
+@torch.no_grad()
+def plant_students(m: torch.nn.Module, teacher: torch.nn.Module) -> None:
+    """Close every other gate of a wrapped pointwise layer and set its
+    student to the teacher's truncated SVD on the open channels (as many
+    as the kept rank, which covers the planted full_rank // 4)."""
+    w = teacher.weight.float().reshape(teacher.weight.shape[0], -1)
+    u, sv, vh = torch.linalg.svd(w, full_matrices=False)
+    kept = torch.arange(0, m.logits.numel(), 2, device=w.device)
+    r = kept.numel()
+    first, second = (m.lin_0, m.lin_1) if isinstance(m, lockd.WrappedLOCKDLinear) else (
+        m.conv_1, m.conv_2)
+    f = torch.zeros(first.weight.shape[0], w.shape[1], device=w.device)
+    g = torch.zeros(w.shape[0], second.weight.shape[1], device=w.device)
+    f[kept] = sv[:r, None].sqrt() * vh[:r]
+    g[:, kept] = u[:, :r] * sv[:r].sqrt()
+    first.weight.copy_(f.reshape(first.weight.shape))
+    second.weight.copy_(g.reshape(second.weight.shape))
+    if teacher.bias is not None:
+        second.bias.copy_(teacher.bias)
+    m.logits.fill_(3.0)
+    m.logits[1::2] = -3.0
+
+
+@contextlib.contextmanager
+def planted_lockd_gates(record: dict):
+    """The lockd task's decomposition, planted: the cut run's 31 steps
+    leave the gates open (every layer would revert) and the students near
+    their random start, so before ``lockd.decompose`` (wrapped for the
+    block) each pointwise layer's gates are half closed and its student
+    set to the teacher's truncated SVD on the open half
+    (``plant_students``); the 3x3 convs keep their trained gates.
+    ``record`` gets how many layers the trained gates would have
+    decomposed, the wrapped and the planted counts."""
+    decompose = lockd.decompose
+
+    def planted(module, proportion_threshold, blacklisted_module_names=None):
+        wrapped = list(lockd.named_wrapped_modules(module))
+        record["trained_would_decompose"] = sum(
+            float(torch.sigmoid(m.logits.detach().float()).mean()) < proportion_threshold
+            for _, m in wrapped)
+        record["wrapped"] = len(wrapped)
+        record["planted"] = 0
+        for _, m in wrapped:
+            teacher = pointwise_teacher(m)
+            if teacher is not None:
+                plant_students(m, teacher)
+                record["planted"] += 1
+        return decompose(module, proportion_threshold, blacklisted_module_names)
+
+    lockd.decompose = planted
+    try:
+        yield record
+    finally:
+        lockd.decompose = decompose
+
+
+def trainer_vision_lockd_efficientformer(dev, seed: int, root: pathlib.Path) -> tuple:
+    """The CLI's decompose_lockd task on the planted EfficientFormerV2-S0
+    (bf16 over f32 masters, batch 256, the lockd yaml's loss, AdamW,
+    cosine schedule and clipping; 31 steps), its pointwise layers' gates
+    then half closed over SVD students (``planted_lockd_gates``): each of
+    them decomposed, the artifact reloaded bit-equal, its bf16 copy
+    served fused (the 1x1-conv and head pairs).  Returns the launch
+    counts, the run config and the output directory."""
+    weights, n_sites = planted_vision_weights("efficientformerv2_s0", seed, dev, root)
+    run_cfg = vision_cfg(LOCKD_EF, "efficientformerv2_s0", weights, LOCKD_BATCH)
+    pipes = (CardPipeline(LOCKD_BATCH, EF_POOL, seed + 33, dev),
+             CardPipeline(EF_VAL_BATCH, 1, seed + 34, dev))
+    planted: dict = {}
+    with planted_lockd_gates(planted):
+        run = vision_cli(run_cfg, root, "trainer_vision_lockd_efficientformer", pipes)
+    summary, config = run["summary"], run["config"]
+    metrics0 = json.loads((run["out"] / "metrics.jsonl").read_text().splitlines()[0])
+    steps = vision_config.parse_duration(LOCKD_EF["max_duration"], EF_POOL)
+    rec = {"phase": "trainer_vision_lockd_efficientformer", "wall_s": run["wall_s"],
+           "batch": LOCKD_BATCH, "steps": steps, "time_training": summary["time_training"],
+           "step_ms": summary["time_training"] * 1e3 / steps, "sites": n_sites, **planted,
+           "decomposed": len(config), "loss_step0": metrics0["loss"],
+           "peak_memory_gb": run["peak_memory_gb"], "train_launches": run["launches"],
+           "device": summary["device"]}
+    if len(config) < planted["planted"] or not math.isfinite(metrics0["loss"]):
+        emit({**rec, "ok": False})
+        raise AssertionError(f"trainer_vision_lockd_efficientformer: {len(config)} layers "
+                             f"decomposed, {planted['planted']} planted, step-0 loss "
+                             f"{metrics0['loss']}")
+    model = vision_reload(run_cfg, run["out"], dev)
+    probe = vision_metrics.nchw(pipes[1].batches[0]["inputs"], dev)
+    rec["serve"], serve_counts = vision_serve(model, probe, "trainer_vision_lockd_efficientformer_serve",
+                                              EF_FUSED_GATES, config)
+    del model, pipes
+    torch.cuda.empty_cache()
+    counts = {k: run["launches"][k] + serve_counts[k] for k in serve_counts}
+    require_launches(counts, ("lowrank_matmul",), "trainer_vision_lockd_efficientformer")
+    emit({**rec, "launches": counts})
+    return counts, run_cfg, run["out"]
+
+
+def trainer_vision_finetune(dev, seed: int, root: pathlib.Path, lockd_cfg: dict,
+                            artifact: pathlib.Path) -> dict[str, int]:
+    """The CLI's finetune task (finetune_kd_resnet50.yaml's training values:
+    bf16, KD against the original, AdamW, cosine, norm clipping) on the
+    EfficientFormerV2 artifact, ``FINETUNE_EF_STEPS`` steps checkpointed
+    every ``EF_POOL``: then the run resumed from its checkpoint of step
+    ``EF_POOL - 1`` (a stop at step ``EF_POOL``; an epoch is ``EF_POOL``
+    batches, so the resumed data stream lines up) must end with the
+    trainable tensors and BatchNorm statistics of the unbroken run, within
+    ``RESUME_REL`` of each tensor's largest value."""
+    run_cfg = {**vision_cfg(FINETUNE_EF, lockd_cfg["decompose_model_name"],
+                            lockd_cfg["decompose_model_checkpoint_path"], LOCKD_BATCH),
+               "decompose_config": str(artifact / "decompose_config.json"),
+               "decompose_state_dict": str(artifact / "decompose_state_dict.pt")}
+    pipes = (CardPipeline(LOCKD_BATCH, EF_POOL, seed + 35, dev),
+             CardPipeline(EF_VAL_BATCH, 1, seed + 34, dev))
+    full = vision_cli(run_cfg, root, "trainer_vision_finetune", pipes)
+    resumed_out = root / "trainer_vision_finetune_resumed"
+    ck = f"step_{EF_POOL - 1:09d}.pt"
+    (resumed_out / "checkpoints").mkdir(parents=True)
+    shutil.copy(full["out"] / "checkpoints" / ck, resumed_out / "checkpoints" / ck)
+    resumed = vision_cli(run_cfg, root, "trainer_vision_finetune_resumed", pipes, out=resumed_out)
+    a = utils.load_state_dict_pt(str(full["out"] / "finetuned_state_dict.pt"))
+    b = utils.load_state_dict_pt(str(resumed_out / "finetuned_state_dict.pt"))
+    kept = full["config"]
+    trained = [k for k in a if k.rsplit(".", 2)[0] in kept or k.endswith(("running_mean", "running_var"))]
+    worst = max(float((a[k].float() - b[k].float()).abs().max() / a[k].float().abs().max().clamp_min(1e-30))
+                for k in trained)
+    steps = vision_config.parse_duration(FINETUNE_EF["max_duration"], EF_POOL)
+    rec = {"phase": "trainer_vision_finetune", "wall_s": full["wall_s"],
+           "resumed_wall_s": resumed["wall_s"], "batch": LOCKD_BATCH, "steps": steps,
+           "step_ms": full["summary"]["time_training"] * 1e3 / steps,
+           "n_decomposed": full["summary"]["n_decomposed"], "trained_tensors": len(trained),
+           "resume_max_rel_diff": worst, "limit_resume_rel": RESUME_REL,
+           "accuracy_initial": full["summary"]["accuracy_initial"],
+           "accuracy_final": full["summary"]["accuracy_final"],
+           "peak_memory_gb": full["peak_memory_gb"], "launches": full["launches"],
+           "device": full["summary"]["device"]}
+    if a.keys() != b.keys() or not trained or not worst <= RESUME_REL:
+        emit({**rec, "ok": False})
+        raise AssertionError(f"trainer_vision_finetune: the resumed run ends {worst} from the "
+                             "unbroken one")
+    emit(rec)
+    del pipes
+    torch.cuda.empty_cache()
+    return full["launches"]
+
+
+def trainer_vision_falor_resnet18(dev, seed: int, root: pathlib.Path) -> dict[str, int]:
+    """The CLI's decompose_falor task as decompose_falor_resnet18.yaml ships
+    it (f32, batch 64, 16 data and 8 metric steps) on a planted ResNet-18:
+    every planted site (the three strided downsamples and the fc)
+    decomposed, the artifact reloaded bit-equal, its bf16 copy served with
+    the fc fused (the strided pairs stay pairs)."""
+    weights, n_sites = planted_vision_weights("resnet18", seed, dev, root)
+    run_cfg = vision_cfg(FALOR_RN18, "resnet18", weights, RN_BATCH)
+    pipes = (CardPipeline(RN_BATCH, VISION_POOL, seed + 36, dev),
+             CardPipeline(RN_BATCH, 1, seed + 37, dev))
+    run = vision_cli(run_cfg, root, "trainer_vision_falor_resnet18", pipes)
+    summary, config = run["summary"], run["config"]
+    rec = {"phase": "trainer_vision_falor_resnet18", "wall_s": run["wall_s"], "batch": RN_BATCH,
+           "sites": n_sites, "decomposed": len(config), "ranks": ranks(config),
+           "time_decomposition": summary["time_decomposition"], "time_eval": summary["time_eval"],
+           "mparams_frac": summary["mparams_frac"], "kmapps_frac": summary["kmapps_frac"],
+           "peak_memory_gb": run["peak_memory_gb"], "walk_launches": run["launches"],
+           "device": summary["device"]}
+    if len(config) != n_sites:
+        emit({**rec, "ok": False})
+        raise AssertionError(f"trainer_vision_falor_resnet18: {len(config)} of {n_sites} sites")
+    model = vision_reload(run_cfg, run["out"], dev)
+    probe = vision_metrics.nchw(pipes[1].batches[0]["inputs"], dev)
+    rec["serve"], serve_counts = vision_serve(model, probe, "trainer_vision_falor_resnet18_serve",
+                                              (RN_FUSED_MAX_ABS, RN_FUSED_RMS_REL), config)
+    del model, pipes
+    torch.cuda.empty_cache()
+    counts = {k: run["launches"][k] + serve_counts[k] for k in serve_counts}
+    emit({**rec, "launches": counts})
+    return counts
+
+
+def trainer_vision(dev, seed: int) -> dict[str, dict[str, int]]:
+    """Slice 11's five phases, with the CLI's logging put back after, in one
+    temp directory; their launch counts by phase."""
+    cut_models()
+    with tempfile.TemporaryDirectory() as tmp, restored_logging():
+        root = pathlib.Path(tmp)
+        out = {
+            "trainer_vision_dwain_convnext": trainer_vision_dwain(
+                dev, seed, root, "trainer_vision_dwain_convnext", CONVNEXT_CUT, DWAIN_CONVNEXT,
+                DWAIN_CONVNEXT_BATCH, CONVNEXT_FUSED_GATES),
+            "trainer_vision_dwain_swinv2": trainer_vision_dwain(
+                dev, seed, root, "trainer_vision_dwain_swinv2", SWIN_CUT, DWAIN_SWIN,
+                DWAIN_SWIN_BATCH, SWIN_FUSED_GATES),
+        }
+        out["trainer_vision_lockd_efficientformer"], lockd_cfg, artifact = \
+            trainer_vision_lockd_efficientformer(dev, seed, root)
+        out["trainer_vision_finetune"] = trainer_vision_finetune(dev, seed, root, lockd_cfg, artifact)
+        out["trainer_vision_falor_resnet18"] = trainer_vision_falor_resnet18(dev, seed, root)
+    torch.cuda.empty_cache()
+    return out
+
+
+def vision_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
+    """SYRK and the low-rank kernel at slice 11's shapes, in bf16: the Grams
+    of ConvNeXt-Tiny's stage-1 pwconv1 (batch 64, 56 x 56 pixels, d 384)
+    and stage-4 pwconv1 (7 x 7, d 3072) and SwinV2-Tiny's stage-1 fc1
+    (batch 80, 3136 tokens, d 384); the fused pairs at full_rank // 4 of
+    ConvNeXt's stage-1 pwconv1 and stage-4 pwconv2, and of
+    EfficientFormerV2-S0's widest 1x1 convs (stage 4's v, 176 -> 1024, and
+    proj, 1024 -> 176, at batch 256's 7 x 7 pixels) as lockd's half-closed
+    students leave them (rank 88)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    for n, d_in, d, what in ((200704, 96, 384, "convnext stage1 pwconv1"),
+                             (3136, 768, 3072, "convnext stage4 pwconv1"),
+                             (250880, 96, 384, "swinv2 stage1 fc1")):
+        x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
+        w = (torch.randn(d, d_in, device=dev, generator=g) / d_in ** 0.5).to(bf)
+        y = x @ w.t()
+        recs["syrk_gram"].append(check_kernel(
+            "syrk_gram",
+            lambda: ops.syrk_gram(y),
+            lambda: ops.syrk_gram_plain(y),
+            lambda: y.t() @ y,
+            flops=n * d * d,
+            nbytes=n * d * 2 + d * d * 4,
+            tol_fn=lambda ref: torch.full_like(ref, 1e-4 * float(ref.abs().max())),
+            shape={"what": what, "N": n, "d": d, "dtype": "bf16"},
+            graph=True, extra_fns={"y_matmul": lambda: x @ w.t()},
+        ))
+        del x, w, y
+        torch.cuda.empty_cache()
+    for n, d_in, r, d_out, with_bias, what in (
+            (200704, 96, 24, 384, True, "convnext stage1 pwconv1"),
+            (3136, 3072, 192, 768, True, "convnext stage4 pwconv2"),
+            (12544, 176, 88, 1024, False, "efficientformerv2 stage4 v"),
+            (12544, 1024, 88, 176, False, "efficientformerv2 stage4 proj")):
+        x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
+        bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
+        k1 = (torch.randn(r, d_in, device=dev, generator=g) / d_in ** 0.5).to(bf).t()
+        k2 = (torch.randn(d_out, r, device=dev, generator=g) / r ** 0.5).to(bf).t()
+        recs["lowrank_matmul"].append(check_kernel(
+            "lowrank_matmul",
+            lambda: ops.lowrank_matmul(x, k1, k2, bias),
+            lambda: ops.lowrank_matmul_plain(x, k1, k2, bias),
+            lambda: (x @ k1) @ k2 if bias is None else torch.addmm(bias, x @ k1, k2),
+            flops=2 * n * r * (d_in + d_out),
+            nbytes=2 * (n * d_in + r * d_in + r * d_out + d_out * with_bias + n * d_out),
+            tol_fn=lambda ref: 2.0 ** -6 * (ref.abs() + ref.square().mean().sqrt()),
+            shape={"what": what, "n": n, "d_in": d_in, "r": r, "d_out": d_out,
+                   "bias": with_bias, "dtype": "bf16"},
+            graph=True,
+        ))
+        del x, k1, k2, bias
+        torch.cuda.empty_cache()
+
+
+def cut_models() -> None:
+    """The depth-cut ConvNeXt-Tiny and SwinV2-Tiny under names of their own
+    (the CLI builds the model by name)."""
+    vision_builder.register_model(
+        CONVNEXT_CUT, lambda num_classes=1000, **kw: models.ConvNeXt(
+            CONVNEXT_DEPTHS, (96, 192, 384, 768), num_classes, **kw))
+
+    def swin_cut(num_classes=1000, image_size=224, **kw):
+        return models.SwinV2(image_size, 4, 96, SWIN_DEPTHS, (3, 6, 12, 24), 7, num_classes, **kw)
+
+    vision_builder.register_model(SWIN_CUT, swin_cut)
+
+
 def profiler(out_dir):
     if not out_dir:
         return contextlib.nullcontext()
@@ -2576,6 +3139,7 @@ def main() -> None:
     recs = kernel_checks(dev)
     moe_kernel_checks(dev, recs)
     resnet_kernel_checks(dev, recs)
+    vision_kernel_checks(dev, recs)
 
     # --- main path: decompose -> artifact -> serve ----------------------
     cfg = tinyllama_2_layer()
@@ -2690,12 +3254,16 @@ def main() -> None:
                      "falor_resnet50_mean": falor_resnet50(dev, args.seed, use_mean=True),
                      "lockd_resnet50": lockd_resnet50(dev, args.seed)}
 
+    # --- slice 11: the vision trainer CLI's four tasks ---------------------
+    vision_counts = trainer_vision(dev, args.seed)
+
     by_path = {"decompose_serve": counts, "tinyllama_generate": gen["counts"],
                "decompose_ft": ft_counts, "decompose_ft_lora": lora_counts,
                "trainer_llm_decompose": cli_counts, "trainer_llm_finetune": cli_ft_counts,
                "trainer_llm_generate": cli_gen_counts, "serving_paths": paths_counts,
                **phi_counts, **family_counts,
-               "dwain_mlp": mlp_counts, **resnet_counts, **moe_serve(dev, args.seed)}
+               "dwain_mlp": mlp_counts, **resnet_counts, **vision_counts,
+               **moe_serve(dev, args.seed)}
     emit({"phase": "kernels", "launches": by_path})
     main_path = {"syrk_gram": "decompose_serve", "flash_attention": "decompose_serve",
                  "lowrank_matmul": "decompose_serve", "grouped_matmul": "moe_bf16",

@@ -1,10 +1,11 @@
 """ptdeco_tpu_torch: the PyTorch + CUDA port of ptdeco_tpu.
 
 Low-rank decomposition of torch.nn models by the library's three methods
-(dwain, falor and lockd; LLMs and ResNets), weight-only int8, and
-KV-cached serving of llama and Mixtral causal LMs (sampling, beam
-search, speculative decoding, continuous batching), and the LLM trainer CLI
-(``apps/trainer_llm``), with the JAX package's TPU kernels rewritten by
+(dwain, falor and lockd; LLMs, ResNets, ConvNeXt, SwinV2 and
+EfficientFormerV2), weight-only int8, and KV-cached serving of llama and
+Mixtral causal LMs (sampling, beam search, speculative decoding,
+continuous batching), and the trainer CLIs (``apps/trainer_llm``,
+``apps/trainer_vision``), with the JAX package's TPU kernels rewritten by
 hand for NVIDIA Hopper (``csrc/``).  Entry points
 run on the card (``device="cuda"``) unless the caller asks for the CPU,
 where each kernel's plain PyTorch version runs instead.

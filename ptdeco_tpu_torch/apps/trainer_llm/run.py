@@ -8,9 +8,11 @@ custom builder file), the config copied as ``config_original.yaml``, and
 the task dispatch: ``decompose_dwain``, ``finetune`` and ``generate``.
 The config is read with ``yaml.safe_load`` where PyYAML is importable,
 else as JSON (a JSON file is YAML, so both read the same mapping);
-``repro/config.yaml`` is written the same way.  The task runs on the card
-unless ``--device`` or the config's ``device`` says ``cpu``.  The
-multi-process flags are not ported yet and raise ``NotImplementedError``.
+``repro/config.yaml`` is written the same way; a ``.json`` file always
+reads as JSON (YAML 1.1 reads a float such as ``5e-05`` as a string).
+The task runs on the card unless ``--device`` or the config's ``device``
+says ``cpu``.  The multi-process flags are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def _has_yaml() -> bool:
 
 def load_config(config_path: pathlib.Path) -> dict[str, Any]:
     with open(config_path) as f:
-        if _has_yaml():
+        if _has_yaml() and pathlib.Path(config_path).suffix != ".json":
             import yaml
 
             config = yaml.safe_load(f)
@@ -86,8 +88,9 @@ def copy_config(config_path: pathlib.Path, output_path: pathlib.Path) -> None:
         logger.warning(f"pip freeze failed: {e}")
 
 
-def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    parser = argparse.ArgumentParser(description="ptdeco_tpu_torch LLM trainer")
+def parse_args(argv: Optional[Sequence[str]] = None,
+               description: str = "ptdeco_tpu_torch LLM trainer") -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--config", required=True, type=pathlib.Path)
     parser.add_argument("--output-path", required=True, type=pathlib.Path)
     parser.add_argument("--device", choices=("cuda", "cpu"), default=None,

@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["pack_greedy"]
+__all__ = ["pack_greedy", "shuffle_indices"]
 
 logger = logging.getLogger(__name__)
 
@@ -79,6 +79,9 @@ def _load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int32),
             ctypes.c_int64,
         ]
+        lib.shuffle_indices.restype = None
+        lib.shuffle_indices.argtypes = [ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                                        ctypes.c_uint64]
         _lib = lib
         return lib
 
@@ -111,3 +114,12 @@ def pack_greedy(
         max_seqlen, _i32p(out), max_rows,
     )
     return out[:n_rows].copy()
+
+
+def shuffle_indices(n: int, seed: int) -> np.ndarray:
+    """A permutation of ``range(n)`` (int64), the same for a seed as the JAX
+    package's ``native_packer.shuffle_indices``."""
+    lib = _load()
+    idx = np.arange(n, dtype=np.int64)
+    lib.shuffle_indices(_i64p(idx), n, seed)
+    return idx

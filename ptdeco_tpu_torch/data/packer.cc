@@ -42,4 +42,22 @@ int64_t pack_greedy(const int32_t* tokens, const int64_t* offsets,
   return n_rows;
 }
 
+// Uniformly shuffle row indices (Fisher-Yates) with a splitmix64 PRNG seeded
+// by ``seed``: the image pipeline's epoch shuffle.
+void shuffle_indices(int64_t* indices, int64_t n, uint64_t seed) {
+  auto next = [&seed]() {
+    seed += 0x9E3779B97f4A7C15ULL;
+    uint64_t z = seed;
+    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ULL;
+    z = (z ^ (z >> 27)) * 0x94D049BB133111EBULL;
+    return z ^ (z >> 31);
+  };
+  for (int64_t i = n - 1; i > 0; --i) {
+    int64_t j = static_cast<int64_t>(next() % static_cast<uint64_t>(i + 1));
+    int64_t tmp = indices[i];
+    indices[i] = indices[j];
+    indices[j] = tmp;
+  }
+}
+
 }  // extern "C"

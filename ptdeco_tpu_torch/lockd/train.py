@@ -6,9 +6,9 @@ with ``configurator.get_optimizer`` and ``configurator.bf16_compute``
 ``nsr_loss + lmbda * proportion_loss`` over a forward of the wrapped model
 in eval mode (BatchNorm on its running statistics) whose gates sample;
 only the students and the gate logits train, with AdamW (weight decay
-0.01) or Adam, the gradients clipped by their global norm first.  The port
-has no ``apps/`` yet, so the step lives here under the app function's
-name.
+0.01) or Adam, the gradients clipped by their global norm first.  The
+vision trainer's lockd task (``apps/trainer_vision/run_decompose_lockd``)
+runs its steps through it.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ def _make_update(
     nsr_threshold: float,
     precision: Optional[str] = None,
     clip_norm: Optional[float] = 1.0,
+    clip_value: Optional[float] = None,
 ) -> Callable[..., tuple[torch.Tensor, tuple]]:
     """The gate-training update of ``model`` (wrapped) in place.
 
@@ -69,7 +70,8 @@ def _make_update(
     sees bf16 copies of the f32 masters, as the JAX step's
     ``bf16_compute(nn.combine(trainable, frozen))`` does.  Parameters that
     do not train are frozen (``requires_grad`` False).  The gradients are
-    clipped to a global norm of ``clip_norm`` unless it is None."""
+    clipped to a global norm of ``clip_norm`` unless it is None, and each
+    to +-``clip_value`` when that is given (optax's ``clip``)."""
     if precision not in (None, "bf16"):
         raise ValueError(f"precision {precision!r} not in (None, 'bf16')")
     bf16 = precision == "bf16"
@@ -95,6 +97,8 @@ def _make_update(
         loss.backward()
         if clip_norm is not None:
             torch.nn.utils.clip_grad_norm_(params, clip_norm)
+        if clip_value is not None:
+            torch.nn.utils.clip_grad_value_(params, clip_value)
         if lr is not None:
             for group in optimizer.param_groups:
                 group["lr"] = lr
