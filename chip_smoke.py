@@ -143,6 +143,7 @@ from ptdeco_tpu_torch.apps.trainer_vision import run as vision_run  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 
 SEQ = 1024
@@ -438,7 +439,7 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[f
 
 def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, shape,
                  extra_fns=None, graph=False, plain_graph=True, path=None,
-                 peak=PEAK_BF16_FLOPS):
+                 peak=PEAK_BF16_FLOPS, other_bounds=None):
     """Hold the kernel against its plain version elementwise: every output
     must satisfy |out - ref| <= tol_fn(ref), a tensor of per-element limits.
     The record is printed before a failure is raised.  ``library_fn`` may
@@ -448,7 +449,9 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, s
     time) and ``eager_ms`` is the kernel's wrapper called from Python;
     ``plain_graph=False`` times a plain version that syncs with the host
     (which a graph cannot capture) by events.  ``path`` names the kernel's
-    route for this shape; ``peak`` is the card's rate for its operations."""
+    route for this shape; ``peak`` is the card's rate for its operations;
+    ``other_bounds`` maps a name to (flops, peak) of another way to do the
+    same work, recorded as ``bound_<name>_ms`` beside ``bound_ms``."""
     out = kernel_fn().float()
     ref = plain_fn().float()
     torch.cuda.synchronize()
@@ -476,6 +479,7 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol_fn, s
         **({"eager_ms": time_ms(kernel_fn)} if graph else {}),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        **{f"bound_{k}_ms": bound(f, nbytes, pk)[0] for k, (f, pk) in (other_bounds or {}).items()},
         **{f"{k}_ms": time_ms(fn) for k, fn in (extra_fns or {}).items()},
     })
     emit({"phase": "kernel", **rec, "bound_us": bound_ms * 1e3})
@@ -594,26 +598,44 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
         ))
 
     # the f32 path: dwain_mlp's served pairs (rank 32 at d 2048, with the
-    # second Linear's bias), and a rank the Pallas kernel's gate admits
-    for n, d_in, r, d_out in ((MLP_BATCH, MLP_DIM, 32, MLP_DIM), (MLP_BATCH, MLP_DIM, 256, MLP_DIM)):
+    # second Linear's bias), a rank the Pallas kernel's gate admits, a
+    # decode step's 8 rows into TinyLlama's MLP width, and ConvNeXt-Tiny's
+    # f32 pairs at full_rank // 4 (the shipped walks are f32; batch 64):
+    # stage 1's pwconv1 over 64 x 56 x 56 pixels and stage 4's pwconv2
+    for n, d_in, r, d_out in ((MLP_BATCH, MLP_DIM, 32, MLP_DIM), (MLP_BATCH, MLP_DIM, 256, MLP_DIM),
+                              (8, 2048, 32, 5632), (200704, 96, 24, 384), (3136, 3072, 192, 768)):
         x = torch.randn(n, d_in, device=dev, generator=g)
         bias = torch.randn(d_out, device=dev, generator=g)
         k1 = (torch.randn(r, d_in, device=dev, generator=g) / d_in ** 0.5).t()
         k2 = (torch.randn(d_out, r, device=dev, generator=g) / r ** 0.5).t()
+        # the cluster sums its partials in rank order: the same bits every run
+        first, again = ops.lowrank_matmul(x, k1, k2, bias), ops.lowrank_matmul(x, k1, k2, bias)
+        if not torch.equal(first, again):
+            raise AssertionError(f"lowrank_matmul f32 {(n, d_in, r, d_out)}: two launches differ "
+                                 f"by up to {float((first - again).abs().max())}")
+        del first, again
+        flops = 2 * n * r * (d_in + d_out)
         recs["lowrank_matmul"].append(check_kernel(
             "lowrank_matmul",
             lambda: ops.lowrank_matmul(x, k1, k2, bias),
             lambda: ops.lowrank_matmul_plain(x, k1, k2, bias),
             lambda: torch.addmm(bias, x @ k1, k2),
-            flops=2 * n * r * (d_in + d_out),
+            # the kernel's own work: three TF32 products for each f32 one;
+            # beside it, exact f32 on the CUDA cores
+            flops=3 * flops,
             nbytes=4 * (n * d_in + r * d_in + r * d_out + d_out + n * d_out),
-            # f32 sums of f32 products in another order: the error of a sum
-            # of K terms is about sqrt(K) * 2^-24 of their RMS, far under
-            # 2^-14 of the outputs' RMS
+            # each product within about 2^-20 of |a b| (3xTF32), f32 sums
+            # in another order: the error of a sum of K terms is about
+            # sqrt(K) * 2^-20 of their RMS, far under 2^-14 of the
+            # outputs' RMS (one-pass TF32 breaks it; tests/test_torch_lowrank_f32.py)
             tol_fn=lambda ref: 2.0 ** -14 * (ref.abs() + ref.square().mean().sqrt()),
-            shape={"n": n, "d_in": d_in, "r": r, "d_out": d_out, "bias": True, "dtype": "f32"},
-            graph=True, path="f32", peak=PEAK_F32_FLOPS,
+            shape={"n": n, "d_in": d_in, "r": r, "d_out": d_out, "bias": True, "dtype": "f32",
+                   "launch": ops.lowrank.launch_shape_f32(n, d_in, r, d_out)._asdict()},
+            graph=True, path="f32_3xtf32", peak=PEAK_TF32_FLOPS,
+            other_bounds={"f32": (flops, PEAK_F32_FLOPS)},
         ))
+        del x, k1, k2, bias
+        torch.cuda.empty_cache()
     return recs
 
 
@@ -1415,8 +1437,15 @@ def dwain_mlp(dev, seed: int) -> dict[str, int]:
                           "dwain_mlp_serve")
     if any(walk_counts.values()) or counts["lowrank_matmul"] != MLP_DEPTH:
         raise AssertionError(f"dwain_mlp: walk launches {walk_counts}, with the serve {counts}")
+    # served-forward latency, fused and unfused, after the counts are read
+    with torch.no_grad():
+        fused_ms = time_ms(lambda: model(batch))
+        pnn.unfuse_factor_pairs(model)
+        pairs_ms = time_ms(lambda: model(batch))
+        pnn.fuse_factor_pairs(model)
     emit({"phase": "dwain_mlp", "dim": MLP_DIM, "depth": MLP_DEPTH, "batch": MLP_BATCH,
-          "modes": rec, "serve": served, "walk_launches": walk_counts, "launches": counts,
+          "modes": rec, "serve": served, "serve_fused_ms": fused_ms, "serve_pairs_ms": pairs_ms,
+          "walk_launches": walk_counts, "launches": counts,
           "note": "f32 model: the walks launch no kernel (SYRK takes bf16); the fused pairs "
                   "take the low-rank kernel's f32 path"})
     return counts

@@ -48,15 +48,48 @@
 //     The hidden takes BM * (r_pad + 8) * 2 bytes; the wrapper halves the
 //     row tile for a large r and raises above the rank that fits at
 //     BM = 8 (10944), it never falls back.
-// f32 (the Pallas kernel takes it too; an f32 model's fused pairs): exact
-// f32 products on the CUDA cores, since the tensor cores take no f32
-// operands (TF32 rounds them).  A CTA computes its 16-row tile's f32
-// hidden into shared memory, then its column group's outputs from it,
-// operand tiles streaming through a 3-stage cp.async ring
-// (ptdeco_lowrank_matmul_f32).  The hidden takes 16 * (r padded to 64,
-// + 4) * 4 bytes beside the 65 KB ring, so ranks up to 2560.
-// Not yet done (later work): wgmma for the 64-row tiles; a persistent
-// grid; register tiling for the f32 path.
+// Not yet done (later work): wgmma for the 64-row tiles; a persistent grid.
+//
+// f32 (lowrank_f32_kernel, ptdeco_lowrank_matmul_f32): the same Pallas
+// kernel on f32 operands, an f32 model's fused pairs (bench.py's MLP, the
+// ConvNeXt and Swin walks); the hidden stays f32, as lowrank_xla keeps it
+// for an f32 x.  What bounds it: bytes at a small rank (n 256, 2048 -> 32
+// -> 2048 moves 4.5 MB, 1.4 us at 3.35 TB/s), operations at a large one.
+// Exact f32 on the CUDA cores peaks at 67 TFLOP/s; the tensor cores take
+// no f32 operand, but give 495 TFLOP/s in TF32, so the products are 3xTF32:
+// each operand a = hi + lo (hi rounded to TF32 as cvt.rna does, lo the
+// rest, truncated to TF32 by the tensor cores; split in registers after
+// the fragment load, so shared memory holds each operand once) and
+// a * b ~ hi*hi + hi*lo + lo*hi, mma.sync m16n8k8, each product within
+// about 2^-20 of |a b| (one-pass TF32 is ~2^-11).  The tensor cores
+// truncate as they add, so their accumulator is drained into an f32 sum
+// rounded to nearest after every 32-deep step.  Design, as the bf16 path:
+//   * grid = (row tiles, cluster x column groups); a cluster of C <= 8
+//     CTAs (along y) shares one row tile of BM = 16, 32 or 64 rows and
+//     splits the d_in contraction; ops/lowrank.py:launch_shape_f32 picks
+//     the shape so that the grid fills the card's 132 SMs in about one
+//     wave, column groups only where SMs would be idle;
+//   * phase 1: tiles of 32 contraction columns (128-byte rows, 128-byte
+//     swizzle) by TMA, or by cp.async where a row pitch is not a multiple
+//     of 16 bytes, through a 3-stage ring; each CTA computes the f32
+//     partial of its share, 128 hidden columns (a chunk) at a time, its 8
+//     warps split as 16 hidden columns x 16-row tiles x k slices (a narrow
+//     rank splits k too, so every warp works);
+//   * the exchange, through distributed shared memory: CTA q sums rows
+//     q * BM / C .. of all partials in rank order (no atomics: the same
+//     bits every run), then every CTA gathers the other rows, so all hold
+//     one bit-identical f32 hidden: phase 1 runs once a row tile and W1 is
+//     streamed once a row tile, split across the cluster;
+//   * phase 2: each warp takes 16-column units of its CTA's share of the
+//     output and streams their W2 rows through its own 3-stage ring; the
+//     bias is added in f32 and the tile stored from the fragments;
+//   * the hidden takes BM * (r padded to 32, + 4) * 4 bytes, so ranks up
+//     to 2592 at BM = 16 (ops.lowrank.MAX_RANK_F32).
+// Not yet done for f32 (PERF.md, ROADMAP Queue 2 item 1): it still loses to
+// cuBLAS at wide ranks with many row tiles, where every row tile streams
+// the weights again through L2 (a cluster over row tiles could multicast
+// them) and each warp splits its fragments again (wgmma would take
+// operand tiles split once in shared memory).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -428,7 +461,7 @@ cudaError_t opt_in() {
   return err;
 }
 
-cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, cudaStream_t stream, int cluster,
+cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, cudaStream_t stream, dim3 cluster,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -436,9 +469,9 @@ cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, cudaStream_t stream, i
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
+  attr->val.clusterDim.x = cluster.x;
+  attr->val.clusterDim.y = cluster.y;
+  attr->val.clusterDim.z = cluster.z;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
@@ -461,7 +494,8 @@ int launch(const bf16* x, const bf16* w1, const bf16* w2, const bf16* bias, bf16
   }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(dim3(cluster * groups, (n + BM - 1) / BM, 1),
-                                                smem_bytes(BM, r), stream, cluster, &attr);
+                                                smem_bytes(BM, r), stream, dim3(cluster, 1, 1),
+                                                &attr);
   err = cudaLaunchKernelEx(&cfg, tma ? lowrank_kernel<BM, true> : lowrank_kernel<BM, false>,
                            x_map, w1_map, w2_map, x, w1, w2, bias, out, n, d_in, r, d_out,
                            cols_per_cta, vec_in, vec_r, vec_out);
@@ -477,7 +511,7 @@ int max_clusters(int r, int cluster) {
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      cluster_config(dim3(cluster, 1, 1), smem_bytes(BM, r), nullptr, cluster, &attr);
+      cluster_config(dim3(cluster, 1, 1), smem_bytes(BM, r), nullptr, dim3(cluster, 1, 1), &attr);
   int count = 0;
   err = cudaOccupancyMaxActiveClusters(&count, lowrank_kernel<BM, true>, &cfg);
   return err != cudaSuccess ? -static_cast<int>(err) : count;
@@ -491,194 +525,538 @@ int copy_width(const void* p, int ld) {
   return 1;
 }
 
-// f32 path.  A CTA of 256 threads takes a tile of kF32Rows rows: it
-// computes their f32 hidden into shared memory, kF32Cols hidden columns a
-// pass over d_in, then its share of the output columns from that hidden,
-// kF32Cols a pass over r.  Each thread owns one column and 4 rows of a
-// pass.  Operand tiles of kF32K contraction columns stream through a
-// kF32Stages-deep cp.async ring (16-byte copies where a row pitch allows,
-// zero-filled past every edge); a thread reads its column's operand as a
-// float4 along the contraction (rows of kF32Ld floats keep 8 lanes on 32
-// distinct banks) and its rows' as broadcast float4s: 16 FMAs a 5 shared
-// loads.
-constexpr int kF32Rows = 16;
-constexpr int kF32Cols = 64;
-constexpr int kF32K = 64;
-constexpr int kF32Ld = kF32K + 4;
-constexpr int kF32Stages = 3;
-constexpr int kF32StageElems = (kF32Rows + kF32Cols) * kF32Ld;
+// ---- the f32 path (see the note at the top) -------------------------------
+constexpr int kFK = 32;              // contraction per step: one 128-byte row of f32
+constexpr int kFNT = 128;            // hidden columns per chunk (phase 1)
+constexpr int kFUnit = 16;           // output columns a warp takes at a time (phase 2)
+constexpr int kFPartLd = kFNT + 16;  // a row of the partials: WK slices of w + 4 floats
 
-__host__ __device__ constexpr int f32_rank_pad(int r) {
-  return (r + kF32Cols - 1) / kF32Cols * kF32Cols;
+__host__ __device__ constexpr int f32_rank_pad(int r) { return (r + kFK - 1) / kFK * kFK; }
+
+// W1 rows a phase-1 stage holds: one hidden chunk
+__host__ __device__ constexpr int f32_w1_rows(int r) {
+  return f32_rank_pad(r) < kFNT ? f32_rank_pad(r) : kFNT;
 }
 
-// the ring, then the hidden: kF32Rows rows of (r padded to 64) + 4 floats
-__host__ __device__ constexpr size_t f32_smem_bytes(int r) {
-  return (static_cast<size_t>(kF32Stages) * kF32StageElems +
-          static_cast<size_t>(kF32Rows) * (f32_rank_pad(r) + 4)) * 4;
+// 32-float rows of one ring stage: phase 1's x and W1 tiles, or phase 2's
+// eight warps' 16-row W2 tiles
+__host__ __device__ constexpr int f32_stage_rows(int bm, int r) {
+  return bm + f32_w1_rows(r) > 8 * kFUnit ? bm + f32_w1_rows(r) : 8 * kFUnit;
 }
 
-// rows [row0, row0 + rows) x columns [k0, k0 + kF32K) of a row-major f32
-// matrix of row pitch ld (columns < ld exist, rows < row_lim) into a tile
-// of row pitch kF32Ld, zero outside the matrix
-template <int Rows>
-__device__ __forceinline__ void f32_load_tile(float* dst, const float* src, int ld, int row0,
-                                              int row_lim, int k0, bool vec) {
-  if (vec) {  // ld % 4 == 0: a 4-float chunk lies wholly inside or outside
-    for (int e = threadIdx.x; e < Rows * kF32K / 4; e += kThreads) {
-      const int i = e / (kF32K / 4), k = e % (kF32K / 4) * 4;
-      const bool ok = row0 + i < row_lim && k0 + k < ld;
-      ptdeco::cp_async16_zfill(dst + i * kF32Ld + k,
-                               ok ? src + static_cast<size_t>(row0 + i) * ld + k0 + k : src, ok);
+// the ring, the f32 hidden (bm x (r padded to 32, + 4)), the partials
+// (bm x kFPartLd) and the mbarriers
+__host__ __device__ constexpr size_t f32_smem_bytes(int bm, int r) {
+  return (static_cast<size_t>(kStages) * f32_stage_rows(bm, r) * kFK +
+          static_cast<size_t>(bm) * (f32_rank_pad(r) + 4) + static_cast<size_t>(bm) * kFPartLd) *
+             4 +
+         kBarriers * 8;
+}
+
+// Offset of f32 element (r, c) of a tile of 32-float (128-byte) rows with
+// TMA's 128-byte swizzle: chunk c / 4 of row r lands at chunk (c / 4) ^ (r % 8)
+__device__ __forceinline__ int swz32(int r, int c) {
+  return r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+
+// Rows [row0, row0 + rows) x columns [col0, col0 + 32) of a row-major f32
+// matrix of row pitch ld (row_lim rows, col_lim columns) into a swz32 tile,
+// zero outside the matrix: the cp.async path for a matrix TMA cannot
+// address.  vec4: 16-byte copies (ld and col_lim multiples of 4, base
+// 16-byte aligned), else 4-byte ones.
+template <int Threads>
+__device__ __forceinline__ void f32_load_block(int tid, float* dst, const float* src, int ld,
+                                               int row0, int row_lim, int col0, int col_lim,
+                                               int vec4, int rows) {
+  if (vec4) {
+    for (int e = tid; e < rows * 8; e += Threads) {
+      const int i = e >> 3, c = (e & 7) * 4;
+      const bool ok = row0 + i < row_lim && col0 + c < col_lim;
+      ptdeco::cp_async16_zfill(dst + swz32(i, c),
+                               ok ? src + static_cast<size_t>(row0 + i) * ld + col0 + c : src, ok);
     }
   } else {
-    for (int e = threadIdx.x; e < Rows * kF32K; e += kThreads) {
-      const int i = e / kF32K, k = e % kF32K;
-      const bool ok = row0 + i < row_lim && k0 + k < ld;
-      ptdeco::cp_async4_zfill(dst + i * kF32Ld + k,
-                              ok ? src + static_cast<size_t>(row0 + i) * ld + k0 + k : src, ok);
+    for (int e = tid; e < rows * 32; e += Threads) {
+      const int i = e >> 5, c = e & 31;
+      const bool ok = row0 + i < row_lim && col0 + c < col_lim;
+      ptdeco::cp_async4_zfill(dst + swz32(i, c),
+                              ok ? src + static_cast<size_t>(row0 + i) * ld + col0 + c : src, ok);
     }
   }
 }
 
-// acc[q] += sum over the tile's kF32K columns of a[(i0 + q) * lda + k] * w[c * kF32Ld + k]
-__device__ __forceinline__ void f32_tile_fma(float acc[4], const float* a, int lda,
-                                             const float* w, int i0, int c) {
-#pragma unroll 4
-  for (int k = 0; k < kF32K; k += 4) {
-    const float4 b = *reinterpret_cast<const float4*>(w + c * kF32Ld + k);
+// f32 a -> (hi, lo) with a = hi + lo exactly: hi is a rounded to TF32 to
+// nearest, ties away from zero, as cvt.rna.tf32.f32 rounds every finite
+// value, but by two integer operations (half a TF32 ulp added to the
+// magnitude's bits, the 13 dropped bits cleared): cvt is a conversion, at
+// a quarter of the integer rate.  lo = a - hi goes to the tensor cores as
+// it is; they read a TF32 operand's top 19 bits, so lo is truncated there
+// (within 2^-10 of |lo| <= 2^-11 |a|), and a NaN in a stays a NaN in lo.
+__device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& hi, uint32_t& lo) {
+  hi = (a + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(a) - __uint_as_float(hi));
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&a)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 v = *reinterpret_cast<const float4*>(a + (i0 + q) * lda + k);
-      acc[q] = fmaf(v.x, b.x, acc[q]);
-      acc[q] = fmaf(v.y, b.y, acc[q]);
-      acc[q] = fmaf(v.z, b.z, acc[q]);
-      acc[q] = fmaf(v.w, b.w, acc[q]);
-    }
+  for (int i = 0; i < N; ++i) split_tf32(a[i], hi[i], lo[i]);
+}
+
+// c += a (16x8, row) * b (8x8, col), TF32 operands, f32 accumulators.
+// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g);
+// c0, c1 (g, 2t..2t+1), c2, c3 (g + 8, 2t..2t+1)
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b in 3xTF32 for one 16-row tile and two 8-column tiles: the
+// small products first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[2][4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[4],
+                                           const uint32_t (&bl)[4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    mma_tf32(c[j], al, bh + 2 * j);
+    mma_tf32(c[j], ah, bl + 2 * j);
+    mma_tf32(c[j], ah, bh + 2 * j);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) lowrank_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ w2,
-    const float* __restrict__ bias, float* __restrict__ out, int n, int d_in, int r, int d_out,
-    int cols_per_cta, int vec_in, int vec_r) {
-  extern __shared__ __align__(16) float f32_smem[];
-  const int rp = f32_rank_pad(r), hld = rp + 4;
-  float* ring = f32_smem;                           // kF32Stages x (x tile, W tile)
-  float* h = f32_smem + kF32Stages * kF32StageElems;  // kF32Rows x hld, zero in [r, rp)
-  const int row0 = blockIdx.x * kF32Rows;
+// tot += acc; acc = 0: the tensor cores' accumulator is drained into an
+// f32 sum rounded to nearest after every 32-wide step, so their
+// truncation as they add stays inside one step
+template <int M>
+__device__ __forceinline__ void drain(float (&tot)[M][2][4], float (&acc)[M][2][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tot[m][j][e] += acc[m][j][e];
+        acc[m][j][e] = 0.f;
+      }
+}
+
+template <int M>
+__device__ __forceinline__ void zero(float (&a)[M][2][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[m][j][e] = 0.f;
+}
+
+template <int BM, bool kTma>
+__global__ void __launch_bounds__(kThreads, 2)
+    lowrank_f32_kernel(const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap w1_map,
+                       const __grid_constant__ CUtensorMap w2_map, const float* __restrict__ x,
+                       const float* __restrict__ w1, const float* __restrict__ w2,
+                       const float* __restrict__ bias, float* __restrict__ out, int n, int d_in,
+                       int r, int d_out, int cols_per_cta, int vec_in, int vec_r, int vec_out) {
+  constexpr int MT = BM / 16;  // 16-row tiles in the row tile
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int r_pad = f32_rank_pad(r), hld = r_pad + 4;
+  const int w1_rows = f32_w1_rows(r), stage = f32_stage_rows(BM, r) * kFK;
+  float* ring = reinterpret_cast<float*>(smem);  // [kStages][stage rows][kFK]
+  float* hid = ring + kStages * stage;           // [BM][hld]
+  float* part = hid + BM * hld;                  // [WK][BM][w + 4]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(part + BM * kFPartLd);  // [kBarriers]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int crank = static_cast<int>(cluster.block_rank());
+  const int row0 = blockIdx.x * BM;
   const int col_begin = blockIdx.y * cols_per_cta;
   const int col_end = min(d_out, col_begin + cols_per_cta);
-  const int t = threadIdx.x;
-  const int c = t % kF32Cols;
-  const int i0 = t / kF32Cols * 4;
-  static_assert(kThreads == kF32Cols * kF32Rows / 4, "a thread owns 4 rows of one column");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
 
-  // phase 1: h = x @ W1^T for the tile's rows, one 64-column pass at a time
-  const int nk1 = (d_in + kF32K - 1) / kF32K;
-  for (int j0 = 0; j0 < rp; j0 += kF32Cols) {
-    for (int s = 0; s < kF32Stages - 1; ++s) {
-      if (s < nk1) {
-        float* st = ring + s * kF32StageElems;
-        f32_load_tile<kF32Rows>(st, x, d_in, row0, n, s * kF32K, vec_in);
-        f32_load_tile<kF32Cols>(st + kF32Rows * kF32Ld, w1, d_in, j0, r, s * kF32K, vec_in);
-      }
-      ptdeco::async_commit();
+  if (kTma) {
+    if (tid == 0) {
+      for (int i = 0; i < kBarriers; ++i) ptdeco::mbar_init(&bars[i]);
+      ptdeco::fence_barrier_init();
     }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int ks = 0; ks < nk1; ++ks) {
-      const int next = ks + kF32Stages - 1;
-      if (next < nk1) {
-        float* st = ring + next % kF32Stages * kF32StageElems;
-        f32_load_tile<kF32Rows>(st, x, d_in, row0, n, next * kF32K, vec_in);
-        f32_load_tile<kF32Cols>(st + kF32Rows * kF32Ld, w1, d_in, j0, r, next * kF32K, vec_in);
-      }
-      ptdeco::async_commit();
-      ptdeco::async_wait<kF32Stages - 1>();
-      __syncthreads();
-      const float* st = ring + ks % kF32Stages * kF32StageElems;
-      f32_tile_fma(acc, st, kF32Ld, st + kF32Rows * kF32Ld, i0, c);
-      __syncthreads();
-    }
-    ptdeco::async_wait<0>();
-#pragma unroll
-    for (int q = 0; q < 4; ++q) h[(i0 + q) * hld + j0 + c] = acc[q];
+    __syncthreads();
   }
-  __syncthreads();
 
-  // phase 2: y = h @ W2^T + b for the CTA's columns, 64 at a time
-  const int nk2 = (r + kF32K - 1) / kF32K;
-  for (int c0 = col_begin; c0 < col_end; c0 += kF32Cols) {
-    for (int s = 0; s < kF32Stages - 1; ++s) {
-      if (s < nk2)
-        f32_load_tile<kF32Cols>(ring + s * kF32StageElems + kF32Rows * kF32Ld, w2, r, c0, col_end,
-                                s * kF32K, vec_r);
-      ptdeco::async_commit();
+  // ---- phase 1: this CTA's partial of the hidden, a chunk at a time -----
+  // its share of the contraction: k steps [my_k0, my_k0 + my_ks)
+  const int k_steps = max(1, (d_in + kFK - 1) / kFK);
+  const int my_k0 = crank * k_steps / csize;
+  const int my_ks = (crank + 1) * k_steps / csize - my_k0;
+  const int chunks = (r_pad + kFNT - 1) / kFNT;
+  const int p1 = chunks * my_ks;
+
+  auto load_step = [&](int chunk, int kb, int st) {
+    float* a = ring + st * stage;
+    const int k = (my_k0 + kb) * kFK;
+    if (kTma) {
+      if (tid == 0) {
+        ptdeco::mbar_expect(&bars[st], (BM + w1_rows) * kFK * 4);
+        ptdeco::tma_box(a, &x_map, k, row0, &bars[st]);
+        ptdeco::tma_box(a + BM * kFK, &w1_map, k, chunk * kFNT, &bars[st]);
+      }
+    } else {
+      f32_load_block<kThreads>(tid, a, x, d_in, row0, n, k, d_in, vec_in, BM);
+      f32_load_block<kThreads>(tid, a + BM * kFK, w1, d_in, chunk * kFNT, r, k, d_in, vec_in,
+                               w1_rows);
     }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int ks = 0; ks < nk2; ++ks) {
-      const int next = ks + kF32Stages - 1;
-      if (next < nk2)
-        f32_load_tile<kF32Cols>(ring + next % kF32Stages * kF32StageElems + kF32Rows * kF32Ld, w2,
-                                r, c0, col_end, next * kF32K, vec_r);
-      ptdeco::async_commit();
-      ptdeco::async_wait<kF32Stages - 1>();
-      __syncthreads();
-      f32_tile_fma(acc, h + ks * kF32K, hld,
-                   ring + ks % kF32Stages * kF32StageElems + kF32Rows * kF32Ld, i0, c);
-      __syncthreads();
-    }
-    ptdeco::async_wait<0>();
-    const int col = c0 + c;
-    if (col < col_end) {
-      const float b = bias != nullptr ? bias[col] : 0.f;
+  };
+
+  // Warps of a chunk w columns wide: WN of 16 hidden columns, by WM of
+  // 16 * mts rows, by WK that split each step's four 8-deep k slices
+  int WN = 0, WM = 0, WK = 0, mts = 0, wn = 0, wm = 0, wk = 0;
+  auto layout = [&](int w) {
+    WN = w / 16;
+    WM = min(MT, 8 / WN);
+    WK = 8 / (WN * WM);
+    mts = MT / WM;
+    wn = warp % WN;
+    wm = (warp / WN) % WM;
+    wk = warp / (WN * WM);
+  };
+  auto chunk_width = [&](int c) { return min(kFNT, r_pad - c * kFNT); };
+
+  float acc[MT][2][4], tot[MT][2][4];
+  zero(acc);
+  zero(tot);
+
+  // the cluster's partials of hidden chunk `chunk` -> the f32 hidden in
+  // every CTA, bit-identical (each row is summed by one CTA, in rank order)
+  auto exchange = [&](int chunk) {
+    const int w = chunk_width(chunk), pld = w + 4;
+    if (wk < WK) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (row0 + i0 + q < n) out[static_cast<size_t>(row0 + i0 + q) * d_out + col] = acc[q] + b;
+      for (int mt = 0; mt < MT; ++mt) {
+        if (mt >= mts) break;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = wn * 16 + j * 8 + 2 * t4, m = (wm * mts + mt) * 16 + g8;
+          float* p = part + wk * BM * pld;
+          *reinterpret_cast<float2*>(&p[m * pld + c]) = make_float2(tot[mt][j][0], tot[mt][j][1]);
+          *reinterpret_cast<float2*>(&p[(m + 8) * pld + c]) =
+              make_float2(tot[mt][j][2], tot[mt][j][3]);
+        }
+      }
+    }
+    cluster.sync();
+    // reduce-scatter: this CTA sums its BM / C rows of all C x WK partials
+    const int own = BM / csize, w4 = w / 4;
+    for (int e = tid; e < own * w4; e += kThreads) {
+      const int m = crank * own + e / w4, c = (e % w4) * 4;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < WK; ++s) {
+        float4 v[kMaxCluster];  // all remote loads in flight before the sum
+#pragma unroll
+        for (int q = 0; q < kMaxCluster; ++q)
+          if (q < csize)
+            v[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, q) +
+                                                    (s * BM + m) * pld + c);
+#pragma unroll
+        for (int q = 0; q < kMaxCluster; ++q)
+          if (q < csize) {
+            sum.x += v[q].x;
+            sum.y += v[q].y;
+            sum.z += v[q].z;
+            sum.w += v[q].w;
+          }
+      }
+      *reinterpret_cast<float4*>(&hid[m * hld + chunk * kFNT + c]) = sum;
+    }
+    cluster.sync();  // partials read; every CTA's rows summed
+    // all-gather: the other CTAs' rows of this chunk, 16 bytes at a time
+    for (int e = tid; e < BM * w4; e += kThreads) {
+      const int m = e / w4, q = m / own;
+      if (q == crank) continue;
+      const int off = m * hld + chunk * kFNT + (e % w4) * 4;
+      *reinterpret_cast<float4*>(&hid[off]) =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(hid, q) + off);
+    }
+    zero(tot);
+  };
+
+  {
+    int l_chunk = 0, l_kb = 0, l_n = 0;  // the next step to load, counted
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (l_n < p1) {
+        load_step(l_chunk, l_kb, l_n % kStages);
+        if (++l_kb == my_ks) l_kb = 0, ++l_chunk;
+        ++l_n;
+      }
+      if (!kTma) ptdeco::async_commit();
+    }
+    int chunk = 0, kb = 0;
+    layout(chunk_width(0));
+    for (int s = 0; s < p1; ++s) {
+      if (kTma)
+        ptdeco::mbar_wait(&bars[s % kStages], (s / kStages) & 1);
+      else
+        ptdeco::async_wait<kStages - 2>();
+      __syncthreads();  // step s landed; every warp is done with the stage loaded next
+      if (l_n < p1) {
+        load_step(l_chunk, l_kb, l_n % kStages);
+        if (++l_kb == my_ks) l_kb = 0, ++l_chunk;
+        ++l_n;
+      }
+      if (!kTma) ptdeco::async_commit();
+      const float* a = ring + (s % kStages) * stage;
+      if (wk < WK) {
+        for (int kk = wk; kk < kFK / 8; kk += WK) {
+          // B: the warp's 16 hidden columns (W1 rows) x 8 of k, two 8-column tiles
+          uint32_t bq[4], bh[4], bl[4];
+          ptdeco::ldmatrix_x4(
+              bq, a + swz32(BM + wn * 16 + (lane & 7) + (lane >> 4) * 8,
+                            kk * 8 + ((lane >> 3) & 1) * 4));
+          split_tf32(bq, bh, bl);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            if (mt >= mts) break;
+            uint32_t af[4], ah[4], al[4];
+            ptdeco::ldmatrix_x4(
+                af, a + swz32((wm * mts + mt) * 16 + (lane & 15), kk * 8 + (lane >> 4) * 4));
+            split_tf32(af, ah, al);
+            mma_3xtf32(acc[mt], ah, al, bh, bl);
+          }
+        }
+      }
+      drain(tot, acc);
+      if (++kb == my_ks) {
+        exchange(chunk);
+        kb = 0;
+        if (++chunk < chunks) layout(chunk_width(chunk));
+      }
+    }
+    if (!kTma) ptdeco::async_wait<0>();
+    __syncthreads();  // the gathered hidden is visible; the ring is free
+  }
+
+  // ---- phase 2: y = hidden @ W2^T + b, warp by warp -------------------
+  // warp w takes the 16-column units w, w + 8, ... of this CTA's columns
+  // and streams their W2 rows through its own ring: no block barrier
+  float* wring = ring + warp * kStages * kFUnit * kFK;  // [kStages][16][kFK]
+  uint64_t* wbars = bars + kStages + warp * kStages;     // [kStages]
+  const int ks2 = r_pad / kFK, k8s = (r + 7) / 8;
+  const int units = (max(0, col_end - col_begin) + kFUnit - 1) / kFUnit;
+  const int wsteps = units > warp ? (units - warp + 7) / 8 * ks2 : 0;
+
+  float o[MT][2][4], ot[MT][2][4];
+  zero(o);
+  zero(ot);
+
+  auto wload = [&](int unit, int kb, int st) {
+    float* dst = wring + st * kFUnit * kFK;
+    if (kTma) {
+      if (lane == 0) {
+        ptdeco::mbar_expect(&wbars[st], kFUnit * kFK * 4);
+        ptdeco::tma_box(dst, &w2_map, kb * kFK, col_begin + unit * kFUnit, &wbars[st]);
+      }
+    } else {
+      f32_load_block<32>(lane, dst, w2, r, col_begin + unit * kFUnit, col_end, kb * kFK, r, vec_r,
+                         kFUnit);
+    }
+  };
+
+  // write unit `unit`: bias added in f32, 8-byte stores where d_out is even
+  auto store_unit = [&](int unit) {
+    const int c0 = col_begin + unit * kFUnit;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = c0 + j * 8 + 2 * t4;
+      float b0 = 0.f, b1 = 0.f;
+      if (bias != nullptr) {
+        if (c < col_end) b0 = bias[c];
+        if (c + 1 < col_end) b1 = bias[c + 1];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = row0 + mt * 16 + g8 + 8 * h;
+          if (m >= n) continue;
+          const float v0 = ot[mt][j][2 * h] + b0, v1 = ot[mt][j][2 * h + 1] + b1;
+          float* p = out + static_cast<size_t>(m) * d_out + c;
+          if (vec_out && c + 1 < col_end) {
+            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          } else {
+            if (c < col_end) p[0] = v0;
+            if (c + 1 < col_end) p[1] = v1;
+          }
+        }
+    }
+  };
+
+  int l_unit = warp, l_kb = 0, l_n = 0;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (l_n < wsteps) {
+      wload(l_unit, l_kb, l_n % kStages);
+      if (++l_kb == ks2) l_kb = 0, l_unit += 8;
+      ++l_n;
+    }
+    if (!kTma) ptdeco::async_commit();
+  }
+  int unit = warp, kb = 0;
+  for (int t = 0; t < wsteps; ++t) {
+    if (kTma)
+      ptdeco::mbar_wait(&wbars[t % kStages], (t / kStages) & 1);
+    else
+      ptdeco::async_wait<kStages - 2>();
+    __syncwarp();  // step t landed for every lane; step t - 1's stage is free
+    if (l_n < wsteps) {
+      wload(l_unit, l_kb, l_n % kStages);
+      if (++l_kb == ks2) l_kb = 0, l_unit += 8;
+      ++l_n;
+    }
+    if (!kTma) ptdeco::async_commit();
+    const float* b = wring + (t % kStages) * kFUnit * kFK;
+#pragma unroll
+    for (int kk = 0; kk < kFK / 8; ++kk) {
+      if (kb * (kFK / 8) + kk >= k8s) break;  // the hidden's zero columns past r
+      uint32_t bq[4], bh[4], bl[4];
+      ptdeco::ldmatrix_x4(bq, b + swz32((lane & 7) + (lane >> 4) * 8,
+                                        kk * 8 + ((lane >> 3) & 1) * 4));
+      split_tf32(bq, bh, bl);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t af[4], ah[4], al[4];
+        ptdeco::ldmatrix_x4(af, hid + (mt * 16 + (lane & 15)) * hld + kb * kFK + kk * 8 +
+                                    (lane >> 4) * 4);
+        split_tf32(af, ah, al);
+        mma_3xtf32(o[mt], ah, al, bh, bl);
+      }
+    }
+    drain(ot, o);
+    if (++kb == ks2) {
+      store_unit(unit);
+      zero(ot);
+      kb = 0;
+      unit += 8;
     }
   }
+  if (!kTma) ptdeco::async_wait<0>();
+  cluster.sync();  // no CTA leaves while another may read its hidden
 }
 
+template <int BM, bool kTma>
 cudaError_t f32_opt_in() {
   static unsigned opted_in = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 32 && (opted_in & (1u << dev)))) return err;
-  err = cudaFuncSetAttribute(lowrank_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(lowrank_f32_kernel<BM, kTma>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kMaxSmem));
   if (err == cudaSuccess && dev < 32) opted_in |= 1u << dev;
   return err;
 }
 
-}  // namespace
-
-extern "C" int ptdeco_lowrank_f32_smem_bytes(int r) {
-  return static_cast<int>(f32_smem_bytes(r));
-}
-
-// The f32 path: x (n, d_in), w1 (r, d_in), w2 (d_out, r), bias (d_out,) or
-// null, out (n, d_out), all contiguous f32.  Grid: (n + 15) / 16 row tiles
-// by `groups` column groups of cols_per_cta columns (a multiple of 64).
-// Launches on `stream`, allocates nothing, returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a shape it does not take).
-extern "C" int ptdeco_lowrank_matmul_f32(const void* x, const void* w1, const void* w2,
-                                         const void* bias, void* out, int n, int d_in, int r,
-                                         int d_out, int groups, int cols_per_cta, void* stream) {
-  if (n < 1 || d_in < 0 || r < 1 || d_out < 1 || groups < 1 || groups > 65535 ||
-      cols_per_cta < kF32Cols || cols_per_cta % kF32Cols != 0 ||
-      static_cast<long long>(cols_per_cta) * groups < d_out || f32_smem_bytes(r) > kMaxSmem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = f32_opt_in();
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <int BM>
+int launch_f32(const float* x, const float* w1, const float* w2, const float* bias, float* out,
+               int n, int d_in, int r, int d_out, int cluster, int groups, int cols_per_cta,
+               cudaStream_t stream) {
   const auto aligned16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const int vec_in = d_in % 4 == 0 && aligned16(x) && aligned16(w1);
   const int vec_r = r % 4 == 0 && aligned16(w2);
-  const dim3 grid((n + kF32Rows - 1) / kF32Rows, groups, 1);
-  lowrank_f32_kernel<<<grid, kThreads, f32_smem_bytes(r), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(w2),
-      static_cast<const float*>(bias), static_cast<float*>(out), n, d_in, r, d_out,
-      cols_per_cta, vec_in, vec_r);
+  const int vec_out = d_out % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  // TMA takes every matrix whose row pitch is a multiple of 16 bytes
+  const bool tma = vec_in && vec_r && d_in > 0;
+  cudaError_t err = tma ? f32_opt_in<BM, true>() : f32_opt_in<BM, false>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap x_map = {}, w1_map = {}, w2_map = {};
+  if (tma) {
+    int rc = ptdeco::encode_f32_rows(&x_map, x, n, d_in, BM);
+    if (rc == 0) rc = ptdeco::encode_f32_rows(&w1_map, w1, r, d_in, f32_w1_rows(r));
+    if (rc == 0) rc = ptdeco::encode_f32_rows(&w2_map, w2, d_out, r, kFUnit);
+    if (rc != 0) return rc;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3((n + BM - 1) / BM, cluster * groups, 1), f32_smem_bytes(BM, r), stream,
+                     dim3(1, cluster, 1), &attr);
+  err = cudaLaunchKernelEx(&cfg, tma ? lowrank_f32_kernel<BM, true> : lowrank_f32_kernel<BM, false>,
+                           x_map, w1_map, w2_map, x, w1, w2, bias, out, n, d_in, r, d_out,
+                           cols_per_cta, vec_in, vec_r, vec_out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM>
+int max_clusters_f32(int r, int cluster) {
+  cudaError_t err = f32_opt_in<BM, true>();
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(1, cluster, 1), f32_smem_bytes(BM, r),
+                                                nullptr, dim3(1, cluster, 1), &attr);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, lowrank_f32_kernel<BM, true>, &cfg);
+  return err != cudaSuccess ? -static_cast<int>(err) : count;
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory one block of the f32 path needs at rank r
+// and `bm` rows (the wrapper's smem_bytes_f32 computes the same).
+extern "C" int ptdeco_lowrank_f32_smem_bytes(int r, int bm) {
+  return static_cast<int>(f32_smem_bytes(bm, r));
+}
+
+extern "C" int ptdeco_lowrank_f32_max_clusters(int r, int bm, int cluster) {
+  switch (bm) {
+    case 16: return max_clusters_f32<16>(r, cluster);
+    case 32: return max_clusters_f32<32>(r, cluster);
+    case 64: return max_clusters_f32<64>(r, cluster);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The f32 path: x (n, d_in), w1 (r, d_in), w2 (d_out, r), bias (d_out,) or
+// null, out (n, d_out), all contiguous f32.  Launch shape from the wrapper
+// (ops/lowrank.py:launch_shape_f32): bm rows a tile (16, 32 or 64),
+// clusters of `cluster` CTAs (1, 2, 4 or 8, at most the 32-wide steps of
+// d_in), `groups` column groups and cols_per_cta output columns a CTA (a
+// multiple of 16).  Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() (or cudaErrorInvalidValue for a shape it does not
+// take).
+extern "C" int ptdeco_lowrank_matmul_f32(const void* x, const void* w1, const void* w2,
+                                         const void* bias, void* out, int n, int d_in, int r,
+                                         int d_out, int bm, int cluster, int groups,
+                                         int cols_per_cta, void* stream) {
+  const int k_steps = d_in > 0 ? (d_in + kFK - 1) / kFK : 1;
+  if (n < 1 || d_in < 0 || r < 1 || d_out < 1 || cluster < 1 || cluster > kMaxCluster ||
+      (cluster & (cluster - 1)) != 0 || cluster > k_steps || groups < 1 ||
+      static_cast<long long>(cluster) * groups > 65535 || cols_per_cta < kFUnit ||
+      cols_per_cta % kFUnit != 0 ||
+      static_cast<long long>(cols_per_cta) * cluster * groups < d_out ||
+      (bm != 16 && bm != 32 && bm != 64) || f32_smem_bytes(bm, r) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* w1f = static_cast<const float*>(w1);
+  const float* w2f = static_cast<const float*>(w2);
+  const float* bf = static_cast<const float*>(bias);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bm) {
+    case 16:
+      return launch_f32<16>(xf, w1f, w2f, bf, of, n, d_in, r, d_out, cluster, groups,
+                            cols_per_cta, s);
+    case 32:
+      return launch_f32<32>(xf, w1f, w2f, bf, of, n, d_in, r, d_out, cluster, groups,
+                            cols_per_cta, s);
+    default:
+      return launch_f32<64>(xf, w1f, w2f, bf, of, n, d_in, r, d_out, cluster, groups,
+                            cols_per_cta, s);
+  }
 }
 
 // Bytes of dynamic shared memory one block of `bm` rows needs at rank r

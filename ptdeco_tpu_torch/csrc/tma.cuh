@@ -1,6 +1,6 @@
 // Tensor Memory Accelerator (TMA) helpers shared by the port's Hopper
-// kernels: the host side encodes a 2D tensor map of a row-major bf16 or
-// int8 matrix, or a 4D one of (batch, heads, seq, head_dim) attention
+// kernels: the host side encodes a 2D tensor map of a row-major bf16, f32
+// or int8 matrix, or a 4D one of (batch, heads, seq, head_dim) attention
 // tensors with the caller's strides; the device side copies one box into
 // shared memory, swizzled, or a contiguous run of bytes (a bulk copy), and
 // counts its bytes on an mbarrier.
@@ -52,6 +52,25 @@ inline int encode_rows(CUtensorMap* map, const void* base, int rows, int cols, i
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Tensor map of a row-major (rows x cols) f32 matrix read in boxes of
+// box_rows x 32 columns (128-byte rows), 128-byte swizzled as above: chunk
+// c (4 floats) of box row r lands at chunk c ^ (r % 8).  cols must be a
+// multiple of 4.  Returns a CUDA error code.
+inline int encode_f32_rows(CUtensorMap* map, const void* base, int rows, int cols,
+                           int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -46,15 +46,15 @@ class FusedLowRankLinear(torch.nn.Module):
         self.from_conv = from_conv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        from ..ops.lowrank import lowrank_matmul
+        from ..ops.lowrank import lowrank_linear
 
-        k1 = self.weight1.reshape(self.weight1.shape[0], -1).t()
-        k2 = self.weight2.reshape(self.weight2.shape[0], -1).t()
         if not self.from_conv:
-            return lowrank_matmul(x, k1, k2, self.bias)
+            return lowrank_linear(x, self.weight1, self.weight2, self.bias)
+        w1 = self.weight1.reshape(self.weight1.shape[0], -1)
+        w2 = self.weight2.reshape(self.weight2.shape[0], -1)
         # NCHW -> NHWC, a view of a channels_last activation; the output
         # keeps that layout
-        return lowrank_matmul(x.permute(0, 2, 3, 1), k1, k2, self.bias).permute(0, 3, 1, 2)
+        return lowrank_linear(x.permute(0, 2, 3, 1), w1, w2, self.bias).permute(0, 3, 1, 2)
 
 
 def _is_plain_conv1x1(m: torch.nn.Module) -> bool:

@@ -154,7 +154,11 @@ def launch(what: str, fn: ctypes._CFuncPtr, device: "torch.device", *args) -> No
 
 def aligned(t: "torch.Tensor") -> "torch.Tensor":
     """``t`` contiguous with a 16-byte aligned start, as the kernels' vector
-    loads need (a contiguous view may start at any element)."""
+    loads need (a contiguous view may start at any element).  A tensor that
+    is so already, as a weight is, comes back without a dispatched call: a
+    small kernel runs shorter than its wrapper's host work."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -7,9 +7,9 @@ lie.  On a CUDA tensor ``lowrank_matmul`` launches the hand-written Hopper
 kernel (``csrc/lowrank_matmul.cu``) for every shape: the TPU version's
 small-shape gate (n < 256, d_out < 512, r < 128 or > 12 MB fall to XLA) was
 measured on a TPU and is not carried over.  The kernel takes bf16 (tensor
-cores, ranks up to ``MAX_RANK``) and f32 (exact f32 on the CUDA cores, ranks
-up to ``MAX_RANK_F32``), as the Pallas kernel takes either; the rank limit
-is the hidden's shared memory, the counterpart of the Pallas kernel's VMEM
+cores, ranks up to ``MAX_RANK``) and f32 (3xTF32 products on the tensor
+cores, an f32 hidden, ranks up to ``MAX_RANK_F32``), as the Pallas kernel
+takes either; the rank limit is the hidden's shared memory, the counterpart of the Pallas kernel's VMEM
 gate.  ``kernel_takes`` states the rule; ``nn/fuse.py`` fuses only the pairs
 it admits.  On a CPU tensor the plain version runs.
 """
@@ -26,9 +26,11 @@ from . import _build
 
 __all__ = [
     "lowrank_matmul",
+    "lowrank_linear",
     "lowrank_matmul_plain",
     "kernel_takes",
     "launch_shape",
+    "launch_shape_f32",
     "LaunchShape",
     "smem_bytes",
     "smem_bytes_f32",
@@ -81,19 +83,30 @@ MAX_RANK = max(r for r in range(_BK, 16384, _BK)
                if smem_bytes(ROW_TILES[0], r) <= MAX_SHARED_BYTES)
 
 
-_F32_ROWS, _F32_COLS, _F32_LD, _F32_STAGES = 16, 64, 68, 3  # the f32 path's tiles
+# the f32 path (csrc/lowrank_matmul.cu, lowrank_f32_kernel): row tiles, the
+# k-step (32 floats, one 128-byte row), the hidden chunk, a warp's output
+# unit in phase 2, and a row of the partials (k slices of a chunk, + 4 each)
+ROW_TILES_F32 = (16, 32, 64)
+_F32_BK, _F32_NT, _F32_UNIT, _F32_PART_LD = 32, 128, 16, 128 + 16
+SM_COUNT = 132  # an H100 SXM's SMs
 
 
-def smem_bytes_f32(r: int) -> int:
-    """Dynamic shared memory of one CTA of the f32 path: a 3-stage ring of
-    (16 + 64) x 68-float operand tiles, and the f32 hidden of 16 rows x
-    (r padded to 64, + 4) (``f32_smem_bytes`` in the kernel)."""
-    r_pad = -(-r // _F32_COLS) * _F32_COLS
-    return (_F32_STAGES * (_F32_ROWS + _F32_COLS) * _F32_LD + _F32_ROWS * (r_pad + 4)) * 4
+def smem_bytes_f32(bm: int, r: int) -> int:
+    """Dynamic shared memory of one CTA of the f32 path at bm rows
+    (``f32_smem_bytes`` in the kernel): a 3-stage ring whose stage holds
+    the x tile and one hidden chunk of W1 (bm + min(r padded to 32, 128)
+    rows of 32 floats), or in phase 2 the eight warps' 16-row W2 tiles
+    (128 rows), whichever is more; the f32 hidden of bm x (r padded to 32,
+    + 4); the partials, bm x 144; and 27 mbarriers."""
+    r_pad = -(-r // _F32_BK) * _F32_BK
+    stage_rows = max(bm + min(r_pad, _F32_NT), 8 * _F32_UNIT)
+    return (_STAGES * stage_rows * _F32_BK + bm * (r_pad + 4) + bm * _F32_PART_LD) * 4 \
+        + (_STAGES + 8 * _STAGES) * 8
 
 
-MAX_RANK_F32 = max(r for r in range(_F32_COLS, 16384, _F32_COLS)
-                   if smem_bytes_f32(r) <= MAX_SHARED_BYTES)
+# the largest rank that fits at the smallest row tile
+MAX_RANK_F32 = max(r for r in range(_F32_BK, 16384, _F32_BK)
+                   if smem_bytes_f32(ROW_TILES_F32[0], r) <= MAX_SHARED_BYTES)
 
 
 def _ctas_per_sm(bm: int, r: int) -> int:
@@ -101,6 +114,13 @@ def _ctas_per_sm(bm: int, r: int) -> int:
     1 KB reserved a block) and registers (8 warps at 128 registers fill
     half of an SM's) both allow at most two."""
     return min(2, SM_SHARED_BYTES // (smem_bytes(bm, r) + 1024))
+
+
+def _ctas_per_sm_f32(bm: int, r: int) -> int:
+    """CTAs of the f32 path an SM holds at once: at most two (8 warps at
+    128 registers fill half of an SM's), fewer where shared memory is
+    short."""
+    return min(2, SM_SHARED_BYTES // (smem_bytes_f32(bm, r) + 1024))
 
 
 def _max_rank(dtype: torch.dtype) -> int:
@@ -117,24 +137,13 @@ def _check_rank(r: int, dtype: torch.dtype = torch.bfloat16) -> None:
     if r < 1:
         raise ValueError(f"lowrank_matmul: rank {r} < 1")
     if r > _max_rank(dtype):
-        need = smem_bytes(ROW_TILES[0], r) if dtype == torch.bfloat16 else smem_bytes_f32(r)
+        need = (smem_bytes(ROW_TILES[0], r) if dtype == torch.bfloat16
+                else smem_bytes_f32(ROW_TILES_F32[0], r))
         raise ValueError(
             f"lowrank_matmul: rank {r} needs {need} bytes of shared memory per block, over "
             f"the {MAX_SHARED_BYTES} a block may use (the kernel takes {dtype} ranks up to "
             f"{_max_rank(dtype)})"
         )
-
-
-def launch_shape_f32(n: int, d_out: int) -> tuple[int, int]:
-    """(column groups, columns a CTA) of the f32 path for n rows: 16-row
-    tiles, and column groups of whole 64-column passes until about
-    TARGET_CTAS CTAs are in flight (each group recomputes its tile's
-    hidden)."""
-    row_tiles = -(-n // _F32_ROWS)
-    passes = -(-d_out // _F32_COLS)
-    groups = max(1, min(TARGET_CTAS // row_tiles, passes))
-    cols = -(-passes // groups) * _F32_COLS
-    return -(-d_out // cols), cols
 
 
 @functools.lru_cache(maxsize=256)
@@ -173,6 +182,45 @@ def launch_shape(n: int, d_in: int, r: int, d_out: int) -> LaunchShape:
     return LaunchShape(bm, cluster, groups, cols_per_cta, row_tiles)
 
 
+@functools.lru_cache(maxsize=256)
+def launch_shape_f32(n: int, d_in: int, r: int, d_out: int) -> LaunchShape:
+    """Grid of the f32 path for n rows.
+
+    Every CTA of a cluster holds its row tile's whole hidden, so phase 1
+    runs once a row tile; column groups recompute it, and come only where
+    SMs would otherwise be idle.  The row tile is the largest (64 rows)
+    whose row tiles, times the largest cluster d_in allows (8, and at most
+    one CTA per 32-wide step), still reach the card's SM_COUNT SMs,
+    halved while the hidden does not fit or, where n takes several tiles
+    anyway, until two CTAs fit on an SM.  The cluster then doubles while
+    the grid stays within one wave (SM_COUNT times the CTAs an SM holds),
+    and column groups (at least MIN_COLS_PER_CTA columns a CTA) fill the
+    SMs still idle; tools/lowrank_sweep.py --f32 times the alternatives."""
+    if n < 1 or d_out < 1 or d_in < 0:
+        raise ValueError(f"lowrank_matmul: no launch for n {n} d_in {d_in} d_out {d_out}")
+    _check_rank(r, torch.float32)
+    k_steps = max(1, -(-d_in // _F32_BK))
+    most = 1
+    while most * 2 <= min(MAX_CLUSTER, k_steps):
+        most *= 2
+    bm = ROW_TILES_F32[-1]
+    while bm > ROW_TILES_F32[0] and (
+        smem_bytes_f32(bm, r) > MAX_SHARED_BYTES
+        or -(-n // bm) * most < SM_COUNT
+        or (n > bm and _ctas_per_sm_f32(bm, r) < 2)
+    ):
+        bm //= 2
+    row_tiles = -(-n // bm)
+    slots = SM_COUNT * _ctas_per_sm_f32(bm, r)
+    cluster = 1
+    while cluster * 2 <= most and row_tiles * cluster * 2 <= slots:
+        cluster *= 2
+    groups = max(1, min(SM_COUNT // (cluster * row_tiles),
+                        d_out // (MIN_COLS_PER_CTA * cluster)))
+    cols_per_cta = -(-d_out // (groups * cluster * _F32_UNIT)) * _F32_UNIT
+    return LaunchShape(bm, cluster, groups, cols_per_cta, row_tiles)
+
+
 def lowrank_matmul_plain(
     x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor, bias: Optional[torch.Tensor]
 ) -> torch.Tensor:
@@ -185,7 +233,6 @@ def lowrank_matmul_plain(
 
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_ARGTYPES_F32 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def lowrank_matmul(
@@ -195,46 +242,57 @@ def lowrank_matmul(
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused ``(x @ K1) @ K2 + b`` for x of shape (..., d_in)."""
+    return lowrank_linear(x, k1.t(), k2.t(), bias)
+
+
+def lowrank_linear(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``lowrank_matmul`` with the factors as a pair's ``nn.Linear`` weights
+    hold them: w1 (r, d_in), w2 (d_out, r), the layout the kernel reads
+    (``nn.FusedLowRankLinear`` calls it).  Counted as ``lowrank_matmul``'s
+    launches."""
     lead, d_in = x.shape[:-1], x.shape[-1]
-    r, d_out = k1.shape[1], k2.shape[1]
+    r, d_out = w1.shape[0], w2.shape[0]
     x2 = x.reshape(lead.numel(), d_in)
-    if x.device.type == "cpu":
-        return lowrank_matmul_plain(x2, k1, k2, bias).reshape(*lead, d_out)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return lowrank_matmul_plain(x2, w1.t(), w2.t(), bias).reshape(*lead, d_out)
         raise ValueError(f"lowrank_matmul: unsupported device {x.device}")
-    if k1.shape[0] != d_in or k2.shape[0] != r or (bias is not None and bias.shape != (d_out,)):
+    if w1.shape[1] != d_in or w2.shape[1] != r or (bias is not None and bias.shape != (d_out,)):
         raise ValueError(
-            f"lowrank_matmul: shapes x {tuple(x.shape)} k1 {tuple(k1.shape)} "
-            f"k2 {tuple(k2.shape)} do not chain"
+            f"lowrank_matmul: shapes x {tuple(x.shape)} k1 {tuple(w1.t().shape)} "
+            f"k2 {tuple(w2.t().shape)} do not chain"
         )
-    tensors = [x2, k1, k2] + ([bias] if bias is not None else [])
-    if x.dtype not in (torch.bfloat16, torch.float32) or any(
-        t.dtype != x.dtype or t.device != x.device for t in tensors
-    ):
+    dtype, dev = x.dtype, x.device
+    if (dtype not in (torch.bfloat16, torch.float32) or w1.dtype != dtype or w2.dtype != dtype
+            or w1.device != dev or w2.device != dev
+            or (bias is not None and (bias.dtype != dtype or bias.device != dev))):
         raise ValueError("lowrank_matmul: the kernel takes bf16 or f32 tensors of one dtype "
                          "on one device")
-    _check_rank(r, x.dtype)
+    _check_rank(r, dtype)
     xk = _build.aligned(x2)
     if xk.data_ptr() != x.data_ptr():  # rows that were not a row-major view
         lowrank_matmul.input_copies += 1
-    x2 = xk
-    w1 = _build.aligned(k1.t())  # (r, d_in): a no-op for a Linear weight's view
-    w2 = _build.aligned(k2.t())  # (d_out, r)
+    x2, w1, w2 = xk, _build.aligned(w1), _build.aligned(w2)
     b = _build.aligned(bias) if bias is not None else None
     n = x2.shape[0]
-    out = torch.empty((n, d_out), dtype=x.dtype, device=x.device)
+    out = torch.empty((n, d_out), dtype=dtype, device=dev)
     if n == 0 or d_out == 0:
         return out.reshape(*lead, d_out)
-    ptrs = (x2.data_ptr(), w1.data_ptr(), w2.data_ptr(), b.data_ptr() if b is not None else None,
-            out.data_ptr(), n, d_in, r, d_out)
-    if x.dtype == torch.float32:
-        fn = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_matmul_f32", _ARGTYPES_F32)
-        _build.launch("lowrank_matmul", fn, x.device, *ptrs, *launch_shape_f32(n, d_out))
+    if dtype == torch.float32:
+        shape = launch_shape_f32(n, d_in, r, d_out)
+        symbol = "ptdeco_lowrank_matmul_f32"
     else:
         shape = launch_shape(n, d_in, r, d_out)
-        fn = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_matmul", _ARGTYPES)
-        _build.launch("lowrank_matmul", fn, x.device, *ptrs,
-                      shape.bm, shape.cluster, shape.groups, shape.cols_per_cta)
+        symbol = "ptdeco_lowrank_matmul"
+    fn = _build.kernel_function("lowrank_matmul", symbol, _ARGTYPES)
+    _build.launch("lowrank_matmul", fn, dev, x2.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                  b.data_ptr() if b is not None else None, out.data_ptr(), n, d_in, r, d_out,
+                  shape.bm, shape.cluster, shape.groups, shape.cols_per_cta)
     lowrank_matmul.launches += 1
     return out.reshape(*lead, d_out)
 

@@ -173,7 +173,14 @@ def no_tf32():
     # limit, ragged rows and columns, an empty contraction
     [(256, 2048, 32, 2048, True), (3, 70, 1, 9, False), (17, 130, 33, 257, True),
      (1000, 576, 256, 1001, False), (4, 64, lowrank.MAX_RANK_F32, 72, True),
-     (5, 0, 8, 64, True)],
+     (5, 0, 8, 64, True),
+     # a decode step split into column groups; 64-row tiles in clusters of
+     # 4; 32-row tiles in clusters of 2; hidden chunks 64 and 96 wide (k
+     # split over 2 warps, 6 warps busy) and 128 + 96; a rank whose W2 rows
+     # TMA cannot address; ConvNeXt's stage-1 pair in 64-row tiles
+     (8, 2048, 32, 5632, False), (4096, 2048, 32, 5632, True), (3136, 3072, 192, 768, True),
+     (300, 512, 36, 200, True), (77, 512, 96, 130, False), (64, 512, 200, 200, True),
+     (130, 256, 30, 96, True), (20000, 96, 24, 384, True)],
 )
 def test_lowrank_matmul_f32(dev, no_tf32, n, d_in, r, d_out, bias):
     x = torch.randn(n, d_in, device=dev)
@@ -213,9 +220,23 @@ def test_lowrank_smem_bytes_agree(dev, bm):
                                 [ctypes.c_int, ctypes.c_int])
     for r in (1, 32, 64, 65, 256, 1500, lowrank.MAX_RANK):
         assert fn(r, bm) == lowrank.smem_bytes(bm, r)
-    fn32 = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_f32_smem_bytes", [ctypes.c_int])
-    for r in (1, 32, 65, 1500, lowrank.MAX_RANK_F32):
-        assert fn32(r) == lowrank.smem_bytes_f32(r)
+    fn32 = _build.kernel_function("lowrank_matmul", "ptdeco_lowrank_f32_smem_bytes",
+                                  [ctypes.c_int, ctypes.c_int])
+    if bm in lowrank.ROW_TILES_F32:
+        for r in (1, 32, 65, 1500, lowrank.MAX_RANK_F32):
+            assert fn32(r, bm) == lowrank.smem_bytes_f32(bm, r)
+
+
+@pytest.mark.parametrize("n,d_in,r,d_out", [(256, 2048, 32, 2048), (3136, 3072, 192, 768),
+                                            (17, 130, 33, 257)])
+def test_lowrank_matmul_f32_is_deterministic(dev, n, d_in, r, d_out):
+    """The cluster sums its partials in rank order: the same bits every run."""
+    x = torch.randn(n, d_in, device=dev)
+    k1 = torch.randn(d_in, r, device=dev) / d_in ** 0.5
+    k2 = torch.randn(r, d_out, device=dev) / r ** 0.5
+    b = torch.randn(d_out, device=dev)
+    first = ops.lowrank_matmul(x, k1, k2, b)
+    assert all(torch.equal(first, ops.lowrank_matmul(x, k1, k2, b)) for _ in range(3))
 
 
 def test_fused_linear_pair_launches_the_kernel(dev):

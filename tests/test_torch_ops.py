@@ -130,9 +130,13 @@ def test_lowrank_kernel_takes(dtype, r, takes):
 
 @pytest.mark.parametrize("n,d_out", [(256, 2048), (1, 9), (5, 64), (4096, 5632), (17, 1001)])
 def test_lowrank_f32_launch_shape_covers_the_output(n, d_out):
-    groups, cols = lowrank.launch_shape_f32(n, d_out)
-    assert cols % 64 == 0 and groups * cols >= d_out > (groups - 1) * cols
-    assert groups == 1 or -(-n // 16) * groups <= lowrank.TARGET_CTAS
+    s = lowrank.launch_shape_f32(n, 2048, 32, d_out)
+    # the cluster's CTAs split d_in and d_out: every column is covered and
+    # no column group is empty
+    group_cols = s.cluster * s.cols_per_cta
+    assert s.cols_per_cta % 16 == 0
+    assert s.groups * group_cols >= d_out > (s.groups - 1) * group_cols
+    assert s.groups == 1 or s.ctas <= lowrank.SM_COUNT
 
 
 def test_fuse_leaves_pairs_the_kernel_cannot_take():

@@ -12,7 +12,8 @@ warm in L2, called from Python (``eager_ms``) and replayed from a CUDA
 graph (``ms``, device time), as ``chip_smoke.py`` times them; the device
 time of its kernels from torch.profiler (``device_ms``); for flash
 attention and the bf16 grouped matmul the one PyTorch call that computes
-the same function, replayed from a graph (``library_ms``); for the int8
+the same function, replayed from a graph (``library_ms``; for the f32
+low-rank shapes ``addmm``, cuBLAS in full f32); for the int8
 grouped matmul (at the decode steps' 8 and 16 rows, 512 rows and the
 prefill's 4096) the dequantize route beside it, by events
 (``dequant_route_ms``); for SYRK ``y.t() @ y`` as ``library_ms`` and the
@@ -34,13 +35,19 @@ import sys
 import numpy as np
 import torch
 
-# (n, d_in, r, d_out, bias): the served TinyLlama pairs at the forward's
-# 1024 rows, `generate`'s decode step (4) and prefill (512), and a wide rank
+# (n, d_in, r, d_out, bias, dtype): the served TinyLlama pairs at the
+# forward's 1024 rows, `generate`'s decode step (4) and prefill (512), and a
+# wide rank, in bf16; then the f32 path at chip_smoke.py's f32 shapes:
+# bench.py's MLP pairs (rank 32 and 256), a decode step's 8 rows, and
+# ConvNeXt-Tiny's stage-1 and stage-4 pairs
 LOWRANK_SHAPES = (
-    (1024, 2048, 32, 5632, False), (1024, 5632, 32, 2048, False),
-    (1024, 2048, 256, 5632, True), (1024, 2048, 44, 5632, True),
-    (4, 2048, 32, 5632, False), (4, 5632, 32, 2048, False),
-    (512, 2048, 32, 5632, False), (512, 5632, 32, 2048, False),
+    (1024, 2048, 32, 5632, False, "bf16"), (1024, 5632, 32, 2048, False, "bf16"),
+    (1024, 2048, 256, 5632, True, "bf16"), (1024, 2048, 44, 5632, True, "bf16"),
+    (4, 2048, 32, 5632, False, "bf16"), (4, 5632, 32, 2048, False, "bf16"),
+    (512, 2048, 32, 5632, False, "bf16"), (512, 5632, 32, 2048, False, "bf16"),
+    (256, 2048, 32, 2048, True, "f32"), (256, 2048, 256, 2048, True, "f32"),
+    (8, 2048, 32, 5632, True, "f32"), (200704, 96, 24, 384, True, "f32"),
+    (3136, 3072, 192, 768, True, "f32"),
 )
 # (N, d), bf16: TinyLlama's Grams, then ResNet-50's conv sites at batch 64
 # (layer2/3/4 conv3, layer2's downsample over its 56 x 56 input pixels) and
@@ -141,16 +148,20 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(1)
-    for n, d_in, r, d_out, with_bias in LOWRANK_SHAPES if "lowrank_matmul" in want else ():
-        x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
+    for n, d_in, r, d_out, with_bias, dt in LOWRANK_SHAPES if "lowrank_matmul" in want else ():
+        dtype = {"bf16": bf, "f32": torch.float32}[dt]
+        x = torch.randn(n, d_in, device=dev, generator=g).to(dtype)
         # the factors as a fused pair holds them: views of the Linear weights
-        k1 = (torch.randn(r, d_in, device=dev, generator=g) / d_in ** 0.5).to(bf).t()
-        k2 = (torch.randn(d_out, r, device=dev, generator=g) / r ** 0.5).to(bf).t()
-        b = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
-        t = times(lambda: ops.lowrank_matmul(x, k1, k2, b))
+        k1 = (torch.randn(r, d_in, device=dev, generator=g) / d_in ** 0.5).to(dtype).t()
+        k2 = (torch.randn(d_out, r, device=dev, generator=g) / r ** 0.5).to(dtype).t()
+        b = torch.randn(d_out, device=dev, generator=g).to(dtype) if with_bias else None
+        library = (lambda: torch.addmm(b, x @ k1, k2)) if dt == "f32" else None
+        t = times(lambda: ops.lowrank_matmul(x, k1, k2, b), library)
         print(json.dumps({"tag": args.tag, "kernel": "lowrank_matmul", "n": n, "d_in": d_in,
-                          "r": r, "d_out": d_out, "bias": with_bias, **t, "card": card}),
-              flush=True)
+                          "r": r, "d_out": d_out, "bias": with_bias, "dtype": dt, **t,
+                          "card": card}), flush=True)
+        del x, k1, k2, b
+        torch.cuda.empty_cache()
     for n, d in SYRK_SHAPES if "syrk_gram" in want else ():
         y = torch.randn(n, d, device=dev, generator=g).to(bf)
         ref = y.float().t() @ y.float()  # f32 products, no TF32
