@@ -60,6 +60,15 @@ checkpoint, and ``decompose_falor`` on ResNet-18 as shipped; each
 artifact is reloaded bit-equal and a bf16 copy served with its pairs
 fused through the low-rank kernel.
 
+Slice 13 runs slice 10's family path on four more decoders at their public
+config.json's widths, 2 layers each: Llama-3.2-1B (llama3 rope scaling),
+Gemma-2-2B (soft-capped attention and logits, sandwich norms; its
+attention is plain, as in the JAX package, so flash launches 0 times),
+Gemma-3-1B (a sliding and a full layer: a 512-token window, a local rope
+theta, q/k norms; its cached ``generate`` prompt runs past the window) and
+Phi-3-mini (32 heads of 96, the flash kernel's head dim 96; its weights
+written in phi3's fused layout and split on load).
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -78,7 +87,8 @@ f32 token checks with the tokens each compared and its near-tie stops, the
 bf16 ragged prefill gate, decode / beam / batcher step ms, speculative
 round ms, acceptance and the gate's measured ratio), phi2_cli_decompose
 (wall, ranks, launches: SYRK and no flash; the artifact reloaded, the fused
-serve against its pairs and its f32 twin), qwen2_1_5b and gemma_2b (wall,
+serve against its pairs and its f32 twin), qwen2_1_5b, gemma_2b,
+llama3_2_1b, gemma2_2b, gemma3_1b and phi3_mini (walk and phase wall, cuts,
 ranks, artifact, fused serve, ``generate``, f32 tokens, reference), dwain_mlp,
 falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
 lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
@@ -130,6 +140,7 @@ from ptdeco_tpu_torch import dwain, engine, falor, finetune, lockd, models, nn a
 from ptdeco_tpu_torch import serving_batcher  # noqa: E402
 from ptdeco_tpu_torch.dwain import decomposition  # noqa: E402
 from ptdeco_tpu_torch.falor import decomposition as falor_decomposition  # noqa: E402
+from ptdeco_tpu_torch.models import hf_loader  # noqa: E402
 from ptdeco_tpu_torch.lockd import train as lockd_train  # noqa: E402
 from ptdeco_tpu_torch.ops import _build, gmm, gmm_int8  # noqa: E402
 from ptdeco_tpu_torch.apps.trainer_llm import builder as trainer_builder  # noqa: E402
@@ -253,6 +264,54 @@ GEMMA_2B = dict(
     rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="gelu", attention_bias=False,
     max_position_embeddings=8192,
 )
+# Slice 13: rope scaling, gemma2, gemma3 and phi3, each at its public
+# config.json's widths (the keys the converter reads, written as numbers),
+# cut to 2 layers with planted-rank weights, bf16: meta-llama/Llama-3.2-1B
+# (llama3 rope scaling, tied), google/gemma-2-2b (soft-caps, sandwich norms,
+# query_pre_attn_scalar; its window is logged and not applied, as in the
+# JAX package), google/gemma-3-1b-pt (q/k norms, sandwich norms, a
+# 512-token window on 5 of each 6 layers with a local rope theta; the two
+# layers kept are the published 5th and 6th, sliding and full) and
+# microsoft/Phi-3-mini-4k-instruct (32 heads of 96, its planted weights
+# written in the fused qkv_proj / gate_up_proj layout and split on load)
+LLAMA3_2_1B = dict(
+    model_type="llama", vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8, head_dim=64,
+    rms_norm_eps=1e-5, rope_theta=500000.0, hidden_act="silu", attention_bias=False,
+    mlp_bias=False, tie_word_embeddings=True, max_position_embeddings=131072,
+    rope_scaling={"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+                  "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+)
+GEMMA2_2B = dict(
+    model_type="gemma2", vocab_size=256000, hidden_size=2304, intermediate_size=9216,
+    num_hidden_layers=26, num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+    rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="gelu_pytorch_tanh",
+    hidden_activation="gelu_pytorch_tanh", attention_bias=False, query_pre_attn_scalar=256,
+    attn_logit_softcapping=50.0, final_logit_softcapping=30.0, sliding_window=4096,
+    max_position_embeddings=8192,
+)
+GEMMA3_1B = dict(
+    model_type="gemma3_text", vocab_size=262144, hidden_size=1152, intermediate_size=6912,
+    num_hidden_layers=26, num_attention_heads=4, num_key_value_heads=1, head_dim=256,
+    rms_norm_eps=1e-6, rope_theta=1000000.0, rope_local_base_freq=10000.0, rope_scaling=None,
+    hidden_activation="gelu_pytorch_tanh", attention_bias=False, query_pre_attn_scalar=256,
+    attn_logit_softcapping=None, final_logit_softcapping=None, sliding_window=512,
+    sliding_window_pattern=6, max_position_embeddings=32768,
+)
+PHI3_MINI = dict(
+    model_type="phi3", vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32, rms_norm_eps=1e-5,
+    rope_theta=10000.0, rope_scaling=None, hidden_act="silu", attention_bias=False,
+    tie_word_embeddings=False, sliding_window=2047, max_position_embeddings=4096,
+    original_max_position_embeddings=4096,
+)
+FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b": GEMMA2_2B,
+                  "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI}
+# the families whose attention takes flash in the JAX package: Gemma-2's
+# soft-capped attention is plain there, so flash must launch 0 times
+FAMILY_NO_FLASH = ("gemma2_2b",)
+# gemma3's cached generate prompt, past its 512-token window
+GEMMA3_PROMPT = 640
 FAMILY_LAYERS = 2
 FAMILY_PROMPTS, FAMILY_PROMPT_LENS = 8, (128, 256)
 PHI_SNAPSHOT_NAME = "phi2-snapshot"  # not a known config: the generic phi branch
@@ -267,6 +326,14 @@ FAMILY_GATES = {
     "phi2": {"serve": (0.0625, 1e-2), "reference": (0.06, 1e-2)},
     "qwen2_1_5b": {"serve": (0.1, 1.25e-2), "reference": (0.08, 1.3e-2)},
     "gemma_2b": {"serve": (0.5, 1.5e-2), "reference": (0.4, 1.6e-2)},
+    # slice 13, the same at seed 0: Llama-3.2-1B 0.049 / 7.9e-3-8.5e-3 and
+    # 0.048 / 8.4e-3; Gemma-2-2B 0.125 / 6.3e-3-7.3e-3 and 0.152 / 7.7e-3;
+    # Gemma-3-1B 0.0625-0.125 / 4.6e-3-7.5e-3 and 0.090 / 9.9e-3; Phi-3-mini
+    # 0.031 / 1.9e-3-2.1e-3 and 0.024 / 4.1e-3
+    "llama3_2_1b": {"serve": (0.125, 2e-2), "reference": (0.125, 2e-2)},
+    "gemma2_2b": {"serve": (0.375, 1.8e-2), "reference": (0.4, 2e-2)},
+    "gemma3_1b": {"serve": (0.375, 1.8e-2), "reference": (0.25, 2.5e-2)},
+    "phi3_mini": {"serve": (0.0625, 5e-3), "reference": (0.06, 1e-2)},
 }
 
 # Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
@@ -535,8 +602,10 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     recs: dict[str, list[dict]] = {k: [] for k in KERNEL_INFO}
 
     # TinyLlama's MLP and model widths; then phi-2's MLP (10240) and
-    # Gemma-2B's (16384) Grams (Qwen2-1.5B's 8960 and 1536 lie between)
-    for d in (5632, 2048, 10240, 16384):
+    # Gemma-2B's (16384) Grams (Qwen2-1.5B's 8960 and 1536 lie between);
+    # Gemma-2-2B's MLP (9216; Llama-3.2-1B's and Phi-3-mini's 8192 and
+    # Gemma-3-1B's 6912 lie below)
+    for d in (5632, 2048, 10240, 16384, 9216):
         y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
         recs["syrk_gram"].append(check_kernel(
             "syrk_gram",
@@ -560,6 +629,10 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # 256, one kv head for eight) at the walk's 1 x 1024
     flash_check(dev, g, recs, 1, SEQ, h=12, h_kv=2, hd=128)
     flash_check(dev, g, recs, 1, SEQ, h=8, h_kv=1, hd=256)
+    # Phi-3-mini's heads (head dim 96 on the 128 instance, no grouping) and
+    # Gemma-3-1B's full layers (head dim 256, one kv head for four)
+    flash_check(dev, g, recs, 1, SEQ, h=32, h_kv=32, hd=96)
+    flash_check(dev, g, recs, 1, SEQ, h=4, h_kv=1, hd=256)
 
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
@@ -782,7 +855,8 @@ def _planted(rng):
 def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, np.ndarray]:
     """Random weights in HF names; every decomposable projection is planted
     at rank 256 (``_planted``).  Qwen2's q/k/v biases are 0.1-scale noise;
-    norms are the identity (zeros for gemma's (1 + w) norms); a tied
+    norms (gemma2's and gemma3's sandwich norms too) are the identity (zeros
+    for gemma's (1 + w) norms); a tied
     embedding has RMS 1 / sqrt(dim), so the tied head's logits have RMS 1
     (and gemma's sqrt(dim)-scaled embeddings RMS 1)."""
     rng = np.random.default_rng(seed)
@@ -810,6 +884,9 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, 
             sd[p + "self_attn.k_norm.weight"] = sd[p + "self_attn.q_norm.weight"]
         sd[p + "input_layernorm.weight"] = norm
         sd[p + "post_attention_layernorm.weight"] = norm
+        if cfg.sandwich_norms:
+            sd[p + "pre_feedforward_layernorm.weight"] = norm
+            sd[p + "post_feedforward_layernorm.weight"] = norm
     sd["model.norm.weight"] = norm
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=f32) / np.sqrt(
@@ -2438,22 +2515,62 @@ def f32_token_checks(model, vocab: int, seed: int, dev, what: str) -> dict:
     return {"prompt_lens": lens.tolist(), "new_tokens": PATH_NEW, **got}
 
 
-def family_2_layer(name: str) -> models.TransformerConfig:
-    full = (models.TransformerConfig.qwen2_1_5b(dtype=torch.bfloat16) if name == "qwen2_1_5b"
-            else models.TransformerConfig.from_hf_config(GEMMA_2B, dtype=torch.bfloat16))
-    return dataclasses.replace(full, n_layers=FAMILY_LAYERS)
+def family_2_layer(name: str) -> tuple[models.TransformerConfig, int]:
+    """The family's config cut to ``FAMILY_LAYERS``, and its published depth."""
+    if name == "qwen2_1_5b":
+        full = models.TransformerConfig.qwen2_1_5b(dtype=torch.bfloat16)
+    else:
+        full = models.TransformerConfig.from_hf_config(FAMILY_CONFIGS[name], dtype=torch.bfloat16)
+    # gemma3 keeps the published 5th and 6th layers' types: sliding, full
+    cut = dataclasses.replace(full, n_layers=FAMILY_LAYERS, layer_types=full.layer_types[4:6])
+    return cut, full.n_layers
+
+
+def family_weights(cfg: models.TransformerConfig, name: str, seed: int) -> dict[str, np.ndarray]:
+    """``planted_rank_weights``; phi3's are written in its fused checkpoint
+    layout (q/k/v in ``qkv_proj``, gate/up in ``gate_up_proj``) and split
+    back by the loader's translator, as a snapshot's would be."""
+    sd = planted_rank_weights(cfg, seed)
+    if name != "phi3_mini":
+        return sd
+    fused = {}
+    for k, v in sd.items():
+        stem = k.rpartition(".")[0]
+        if stem.endswith("self_attn.q_proj"):
+            base = stem[: -len("q_proj")]
+            fused[base + "qkv_proj.weight"] = np.concatenate(
+                [sd[base + f"{p}_proj.weight"] for p in "qkv"])
+        elif stem.endswith("mlp.gate_proj"):
+            base = stem[: -len("gate_proj")]
+            fused[base + "gate_up_proj.weight"] = np.concatenate(
+                [sd[base + "gate_proj.weight"], sd[base + "up_proj.weight"]])
+        elif not stem.endswith(("self_attn.k_proj", "self_attn.v_proj", "mlp.up_proj")):
+            fused[k] = v
+    split = hf_loader.translator_for(PHI3_MINI)(fused)
+    if split.keys() != sd.keys() or any(not np.array_equal(split[k], sd[k]) for k in sd):
+        raise AssertionError("phi3_mini: the split of the fused layout is not the weights")
+    return split
+
+
+def flash_as_jax(counts: dict[str, int], name: str, what: str) -> None:
+    """Flash launched where the JAX package takes it, and not at all where
+    its attention is plain (``FAMILY_NO_FLASH``)."""
+    if (counts["flash_attention"] > 0) == (name in FAMILY_NO_FLASH):
+        raise AssertionError(f"{name} {what}: flash launches against the JAX gate: {counts}")
 
 
 def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
-    """Slice 1's path on the 2-layer ``qwen2_1_5b`` or ``gemma_2b``:
-    ``dwain.decompose`` (SYRK and flash launched), the artifact round trip,
-    the fused serve against its pairs (low-rank and flash launched), greedy
-    cached ``generate`` of 8 x 128 tokens against the uncached forward,
-    ragged f32 token checks, and the served model against itself on the CPU
-    in f32 on a short input.  Returns each part's launch counts."""
-    cfg = family_2_layer(name)
+    """Slice 1's path on a 2-layer family model (``FAMILY_CONFIGS``, or
+    ``qwen2_1_5b``): ``dwain.decompose`` (SYRK, and flash where the JAX
+    package takes it, launched), the artifact round trip, the fused serve
+    against its pairs (low-rank launched), greedy cached ``generate`` of 8 x
+    128 tokens (640 past gemma3's window) against the uncached forward,
+    ragged f32 token checks, and the served model against itself on the
+    CPU in f32 on a short input.  Returns each part's launch counts."""
+    t_phase = time.perf_counter()
+    cfg, full_layers = family_2_layer(name)
     model = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev),
-                                        planted_rank_weights(cfg, seed))
+                                        family_weights(cfg, name, seed))
     n_sites = len(engine.get_decomposeable_submodule_names(model, ["lm_head"]))
     params_before = utils.get_num_params(model)
     probe = utils.to_device(next(token_batches(cfg.vocab_size, seed + 3)), dev)
@@ -2471,7 +2588,8 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     walk = ops.launch_counts()
-    require_launches(walk, ("syrk_gram", "flash_attention"), f"{name} decompose")
+    require_launches(walk, ("syrk_gram",), f"{name} decompose")
+    flash_as_jax(walk, name, "decompose")
     if not config:
         raise AssertionError(f"{name}: no site decomposed")
     artifact = artifact_round_trip(model, config, cfg, probe, dev, f"{name}_artifact")
@@ -2483,7 +2601,8 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
         y_fused = model(probe)
     torch.cuda.synchronize()
     serve_counts = ops.launch_counts()
-    require_launches(serve_counts, ("lowrank_matmul", "flash_attention"), f"{name} serve")
+    require_launches(serve_counts, ("lowrank_matmul",), f"{name} serve")
+    flash_as_jax(serve_counts, name, "serve")
     gates = FAMILY_GATES[name]
     serve = logits_agree(y_fused, y_pairs, *gates["serve"], f"{name}_serve")
     with torch.no_grad():
@@ -2491,9 +2610,13 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     del y_pairs, y_fused
 
     _, padded, _ = ragged_prompts(cfg.vocab_size, seed + 4, dev, FAMILY_PROMPTS, FAMILY_PROMPT_LENS)
-    gen = cached_generate(model, padded[:, :FAMILY_PROMPT_LENS[0]], TINY_NEW, f"{name}_generate",
-                          *gates["serve"])
-    require_launches(gen["counts"], ("flash_attention", "lowrank_matmul"), f"{name} generate")
+    prompt = padded[:, :FAMILY_PROMPT_LENS[0]]
+    if cfg.sliding_window is not None:  # past the window: the cached window mask binds
+        prompt = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+            0, cfg.vocab_size, (FAMILY_PROMPTS, GEMMA3_PROMPT))).to(dev)
+    gen = cached_generate(model, prompt, TINY_NEW, f"{name}_generate", *gates["serve"])
+    require_launches(gen["counts"], ("lowrank_matmul",), f"{name} generate")
+    flash_as_jax(gen["counts"], name, "generate")
     tokens = f32_token_checks(model, cfg.vocab_size, seed + 5, dev, f"{name}_ragged_vs_alone")
 
     short = {"input_ids": probe["input_ids"][:, :128]}
@@ -2508,10 +2631,13 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
           "param_fraction": utils.get_num_params(model) / params_before,
           "ranks": {k: v["modules"]["0"]["out_features"] for k, v in config.items()},
           "artifact": artifact, "serve": serve, "fused_ms": fused_ms,
-          "generate": {"batch": FAMILY_PROMPTS, "prompt": FAMILY_PROMPT_LENS[0],
+          "cuts": {"layers": [full_layers, cfg.n_layers], "layer_types": cfg.layer_types,
+                   "weights": f"planted rank {PLANTED_RANK}, seed {seed}", "dtype": "bf16"},
+          "generate": {"batch": FAMILY_PROMPTS, "prompt": prompt.shape[1],
                        "new_tokens": TINY_NEW, "wall_s": gen["wall_s"], **gen["gate"]},
           "f32_tokens": tokens, "reference": ref, "walk_launches": walk,
-          "serve_launches": serve_counts, "generate_launches": gen["counts"]})
+          "serve_launches": serve_counts, "generate_launches": gen["counts"],
+          "phase_wall_s": time.perf_counter() - t_phase})
     return {f"{name}_decompose": walk, f"{name}_serve": serve_counts,
             f"{name}_generate": gen["counts"]}
 
@@ -3273,8 +3399,10 @@ def main() -> None:
         # --- slice 10: phi-2 through the CLI, on the same prose ----------
         phi_counts = phi2_cli_decompose(dev, args.seed, pathlib.Path(tmp), data)
     torch.cuda.empty_cache()
-    family_counts = {**family_serve(dev, "qwen2_1_5b", args.seed),
-                     **family_serve(dev, "gemma_2b", args.seed)}
+    family_counts = {}
+    for name in ("qwen2_1_5b", "gemma_2b", "llama3_2_1b", "gemma2_2b", "gemma3_1b", "phi3_mini"):
+        family_counts.update(family_serve(dev, name, args.seed))
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     mlp_counts = dwain_mlp(dev, args.seed)
 

@@ -3,8 +3,9 @@
 Counterpart of ``apps/trainer_llm/builder.py``: a custom builder file wins
 (``make_model_and_tokenizer(config) -> (model, tokenizer)``); a known name
 builds the port's phi or llama-family architecture; otherwise a local HF
-snapshot whose ``config.json`` names a llama, mistral, qwen2, qwen3, gemma
-or phi model builds generically.  Weights come from the snapshot
+snapshot whose ``config.json`` names a llama, mistral, qwen2, qwen3, gemma,
+gemma2, gemma3_text, gemma3 (the wrapper's text path), phi3, mixtral or phi
+model builds generically (phi3's fused projections split on load).  Weights come from the snapshot
 when one is given, else from a seeded ``torch.Generator``.  The tokenizer
 comes from ``transformers`` where it is importable and resolves the name,
 else it is the byte-level ``ByteTokenizer``.

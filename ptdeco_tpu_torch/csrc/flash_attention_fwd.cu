@@ -50,6 +50,12 @@
 //     finish;
 //   * grouped-query attention: query head h reads kv head h / (h / h_kv), so
 //     no repeated copy is made;
+//   * a head dim of 96 (Phi-3) is one and a half 64-column swizzle atoms a
+//     row, so it runs the 128-wide instance with its tensor maps 96 wide:
+//     TMA zero-fills columns 96-127 of Q, K and V (as it zero-fills rows
+//     past seq), the zero columns add nothing to Q K^T and give zero
+//     columns of O, and only the 96 real columns of O are stored (DS).
+//     The tensor cores do 4/3 of the head's work;
 //   * each consumer warpgroup pipelines its own work (FlashAttention-3's
 //     intra-warpgroup overlap): S_j = Q K_j^T is issued before
 //     P_{j-1} V_{j-1}, and the softmax of S_j runs while that product is
@@ -135,7 +141,9 @@ struct TileOf {
   }
 };
 
-template <int D>
+// D: the instance's head dim (its tiles and products); DS <= D: the columns
+// of O stored, the head dim of the tensors
+template <int D, int DS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
@@ -382,7 +390,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
     bf16* ob = o + tile.b * o_sb + tile.head * o_sh;
 #pragma unroll
-    for (int q = 0; q < D / 8; ++q) {
+    for (int q = 0; q < DS / 8; ++q) {
       const int col = q * 8 + 2 * t4;
       if (row_a < s)
         *reinterpret_cast<uint32_t*>(ob + row_a * o_ss + col) =
@@ -394,7 +402,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
+template <int D, int DS = D>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int h, int h_kv, int s,
            float scale_log2, const long long* st, cudaStream_t stream) {
   static int sms[32] = {};  // each device's SM count, the persistent grid's size, once
@@ -403,22 +411,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h, i
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
   if (sms[dev] == 0) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D, DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Layout<D>::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   CUtensorMap qmap, kmap, vmap;
-  int rc = ptdeco::encode_heads(&qmap, q, b, h, s, D, st[0], st[1], st[2], kBM);
+  // the maps are DS wide: a box's columns past DS are zero-filled
+  int rc = ptdeco::encode_heads(&qmap, q, b, h, s, DS, st[0], st[1], st[2], kBM);
   constexpr int kBN = Layout<D>::kBN;
-  if (rc == 0) rc = ptdeco::encode_heads(&kmap, k, b, h_kv, s, D, st[3], st[4], st[5], kBN);
-  if (rc == 0) rc = ptdeco::encode_heads(&vmap, v, b, h_kv, s, D, st[6], st[7], st[8], kBN);
+  if (rc == 0) rc = ptdeco::encode_heads(&kmap, k, b, h_kv, s, DS, st[3], st[4], st[5], kBN);
+  if (rc == 0) rc = ptdeco::encode_heads(&vmap, v, b, h_kv, s, DS, st[6], st[7], st[8], kBN);
   if (rc != 0) return rc;
   const int n_q = (s + kBM - 1) / kBM;
   const long long n_tiles = static_cast<long long>(b) * h * n_q;
   const int grid = static_cast<int>(n_tiles < sms[dev] ? n_tiles : sms[dev]);
-  flash_fwd_kernel<D><<<grid, kThreads, Layout<D>::kSmemBytes, stream>>>(
+  flash_fwd_kernel<D, DS><<<grid, kThreads, Layout<D>::kSmemBytes, stream>>>(
       qmap, kmap, vmap, static_cast<bf16*>(o), b * h, h, h_kv, s, n_q, scale_log2, st[9], st[10],
       st[11]);
   return static_cast<int>(cudaGetLastError());
@@ -427,7 +436,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h, i
 }  // namespace
 
 // q, o: (b, h, s, d); k, v: (b, h_kv, s, d); bf16, d contiguous, h % h_kv
-// == 0, d in {64, 128, 256}, sm_scale > 0.  strides: the (batch, head, seq) element strides
+// == 0, d in {64, 96, 128, 256}, sm_scale > 0.  strides: the (batch, head, seq) element strides
 // of q, k, v and o in that order (12 values), each a multiple of 8; every
 // base 16-byte aligned.  Launches on `stream`, allocates nothing, returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported head_dim or
@@ -438,15 +447,17 @@ extern "C" int ptdeco_flash_attention_fwd(const void* q, const void* k, const vo
   const float scale_log2 = sm_scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
+  if (d == 96) return launch<128, 96>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
   if (d == 128) return launch<128>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
   if (d == 256) return launch<256>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory of one CTA at head_dim d (0 for another d)
+// dynamic shared memory of one CTA at head_dim d (0 for another d); 96
+// runs the 128 instance
 extern "C" int ptdeco_flash_smem_bytes(int d) {
-  return d == 64    ? Layout<64>::kSmemBytes
-         : d == 128 ? Layout<128>::kSmemBytes
+  return d == 64                ? Layout<64>::kSmemBytes
+         : d == 96 || d == 128 ? Layout<128>::kSmemBytes
          : d == 256 ? Layout<256>::kSmemBytes
                     : 0;
 }

@@ -4,9 +4,11 @@ Counterpart of the llama-family and phi part of
 ``ptdeco_tpu/models/hf_loader.py``: the port's parameter names are HF's
 (``model.layers.0.self_attn.q_proj.weight``, phi's
 ``model.layers.0.self_attn.dense.weight`` ...) and in torch layout, so an
-HF state dict of a llama, mistral, qwen2, qwen3, gemma or phi snapshot
-loads as it is (a tied model needs no ``lm_head.weight``; one the snapshot
-holds anyway is ignored); Mixtral's expert names are translated.  Shards
+HF state dict of a llama, mistral, qwen2, qwen3, gemma, gemma2,
+gemma3_text or phi snapshot loads as it is (a tied model needs no
+``lm_head.weight``; one the snapshot holds anyway is ignored); Mixtral's
+expert names are translated, phi3's fused projections split and the gemma3
+wrapper's text path unwrapped.  Shards
 are read from ``*.safetensors`` where that package is importable, else
 from ``pytorch_model*.bin`` with ``torch.load``.
 """
@@ -28,6 +30,8 @@ __all__ = [
     "read_hf_state_dict",
     "load_into_causal_lm",
     "translate_mixtral_state_dict",
+    "split_phi3_fused_projections",
+    "make_multimodal_text_translator",
     "translator_for",
 ]
 
@@ -94,19 +98,79 @@ def translate_mixtral_state_dict(sd: dict[str, torch.Tensor]) -> dict[str, torch
     return out
 
 
+def split_phi3_fused_projections(
+    sd: dict[str, torch.Tensor], n_heads: int, n_kv_heads: int, head_dim: int
+) -> dict[str, torch.Tensor]:
+    """phi3's fused layout into the llama one: ``self_attn.qkv_proj.weight``
+    ((q + k + v) rows) splits into q/k/v_proj and ``mlp.gate_up_proj.weight``
+    (2 * hidden rows) into gate/up_proj; every other key passes unchanged."""
+    out: dict[str, torch.Tensor] = {}
+    q_rows, kv_rows = n_heads * head_dim, n_kv_heads * head_dim
+    for k, v in sd.items():
+        if k.endswith(".self_attn.qkv_proj.weight"):
+            stem = k[: -len("qkv_proj.weight")]
+            out[stem + "q_proj.weight"] = v[:q_rows]
+            out[stem + "k_proj.weight"] = v[q_rows : q_rows + kv_rows]
+            out[stem + "v_proj.weight"] = v[q_rows + kv_rows :]
+        elif k.endswith(".mlp.gate_up_proj.weight"):
+            stem = k[: -len("gate_up_proj.weight")]
+            half = v.shape[0] // 2
+            out[stem + "gate_proj.weight"] = v[:half]
+            out[stem + "up_proj.weight"] = v[half:]
+        else:
+            out[k] = v
+    return out
+
+
+def _phi3_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """The phi3 split at the config's head counts."""
+    n_heads = int(hf_cfg["num_attention_heads"])
+    n_kv = int(hf_cfg.get("num_key_value_heads", n_heads))
+    hd = int(hf_cfg.get("head_dim") or int(hf_cfg["hidden_size"]) // n_heads)
+    return lambda sd: split_phi3_fused_projections(sd, n_heads, n_kv, hd)
+
+
+def make_multimodal_text_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """The gemma3 wrapper: strip ``model.language_model.`` to ``model.``,
+    drop the vision tower and projector the text path never runs (and a
+    tied ``lm_head.weight``), then the inner family's translator
+    (gemma3_text needs none)."""
+    inner_cfg = dict(hf_cfg.get("text_config") or {})
+    inner_cfg.setdefault("model_type", "gemma3_text")
+    inner = translator_for(inner_cfg)
+    tied = bool(inner_cfg.get("tie_word_embeddings", True))
+    drop = ("model.vision_tower.", "model.multi_modal_projector.")
+
+    def translate(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        out: dict[str, torch.Tensor] = {}
+        for k, v in sd.items():
+            if k.startswith(drop) or (k == "lm_head.weight" and tied):
+                continue
+            out[k.replace("model.language_model.", "model.")] = v
+        return inner(out) if inner is not None else out
+
+    return translate
+
+
 # model types whose HF names are the port model's own
-_SAME_NAMES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "phi")
+_SAME_NAMES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2", "gemma3_text", "phi")
 
 
 def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:
     """The checkpoint-layout translator for a config's ``model_type``: None
-    where HF's names are the model's already.  Raises for a model type the
-    port has no model for."""
+    where HF's names are the model's already.  phi3's split takes the
+    config's head counts.  Raises for a model type the port has no model
+    for."""
     mt = hf_cfg.get("model_type")
     if mt in _SAME_NAMES:
         return None
     if mt == "mixtral":
         return translate_mixtral_state_dict
+    if mt == "phi3":
+        return _phi3_translator(hf_cfg)
+    if mt == "gemma3":
+        return make_multimodal_text_translator(hf_cfg)
     raise ValueError(
-        f"model_type={mt!r}: the port has models for {list(_SAME_NAMES)} and mixtral only"
+        f"model_type={mt!r}: the port has models for {list(_SAME_NAMES)}, mixtral, phi3 "
+        "and gemma3 only"
     )

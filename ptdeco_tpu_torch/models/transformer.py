@@ -2,14 +2,18 @@
 
 Counterpart of the llama-family and Mixtral parts of
 ``ptdeco_tpu/models/transformer.py``: RMSNorm (optionally the gemma (1 + w)
-flavour), HF rotate-half rope at absolute positions, grouped-query
-attention (optionally with Qwen2's q/k/v biases and Qwen3's per-head q/k
-RMSNorm), a gated MLP (SwiGLU, or gemma's tanh-GELU), the top-k routed
-mixture of SwiGLU experts (``MoEMLP``), pre-norm blocks (optionally each
-under ``torch.utils.checkpoint``, the config's ``remat``), an embedding
-optionally scaled by sqrt(dim) (gemma), and a dict-in/logits-out
-``CausalLM``.  Every projection is an ``nn.Linear`` site and parameter
-names follow HF llama and the JAX package's MoE layout
+flavour), HF rotate-half rope at absolute positions (optionally with
+llama3, yarn, linear or phi3's short-factor longrope scaling), grouped-query
+attention (optionally with Qwen2's q/k/v biases, Qwen3's and Gemma-3's
+per-head q/k RMSNorm, Gemma-2's logit soft-cap and query scale, and
+Gemma-3's sliding-window layers with their local rope), a gated MLP
+(SwiGLU, or gemma's tanh-GELU), the top-k routed mixture of SwiGLU experts
+(``MoEMLP``), pre-norm blocks (Gemma-2's and Gemma-3's sandwich norms;
+optionally each under ``torch.utils.checkpoint``, the config's ``remat``),
+an embedding optionally scaled by sqrt(dim) (gemma), and a
+dict-in/logits-out ``CausalLM`` (optionally soft-capping its logits).
+Every projection is an ``nn.Linear`` site and parameter names follow HF
+llama and the JAX package's MoE layout
 (``model.layers.0.self_attn.q_proj.weight``,
 ``model.layers.0.mlp.experts.3.down_proj.weight``), so decompose configs
 and state dicts line up with the JAX package and with HF checkpoints.
@@ -48,8 +52,12 @@ __all__ = [
 logger = logging.getLogger(__name__)
 
 
-# the HF model types ``TransformerConfig.from_hf_config`` builds
-HF_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "mixtral")
+# the HF model types ``TransformerConfig.from_hf_config`` builds (gemma3 is
+# the multimodal wrapper, whose text path is gemma3_text)
+HF_FAMILIES = (
+    "llama", "mistral", "qwen2", "qwen3", "gemma", "mixtral", "gemma2", "gemma3_text", "gemma3",
+    "phi3",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,8 +79,30 @@ class TransformerConfig:
     mlp_act: str = "silu"  # "silu" | "gelu_tanh"
     scale_embeddings: bool = False
     norm_plus_one: bool = False
-    # Qwen3: a per-head RMSNorm on q and k before rope
+    # Qwen3 and Gemma-3: a per-head RMSNorm on q and k before rope
     qk_norm: bool = False
+    # gemma2 / gemma3: sandwich norms (the attention output normed, the MLP
+    # between a pre and a post norm), tanh soft-caps of the attention and
+    # final logits, and the query scale query_pre_attn_scalar ** -0.5
+    sandwich_norms: bool = False
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    query_scale_override: Optional[float] = None
+    # llama3.1+ rope scaling: (factor, low_freq_factor, high_freq_factor,
+    # original_max_position_embeddings)
+    rope_llama3_scaling: Optional[tuple] = None
+    # gemma3: the layers layer_types marks "sliding_attention" attend only
+    # to the last sliding_window keys; attention_bias biases all four
+    # projections
+    sliding_window: Optional[int] = None
+    layer_types: tuple = ()
+    o_proj_bias: bool = False
+    # precomputed rotary: (inverse frequencies as floats, attention factor),
+    # cos and sin scaled by the factor; yarn, linear (inv_freq / factor,
+    # factor 1) and phi3's short-factor longrope
+    rope_yarn: Optional[tuple] = None
+    # gemma3: sliding layers rotate at this unscaled local theta
+    rope_local_theta: Optional[float] = None
     dtype: torch.dtype = torch.float32
     # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
     # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
@@ -93,37 +123,58 @@ class TransformerConfig:
     def from_hf_config(
         hf: dict[str, Any], dtype: torch.dtype = torch.bfloat16, remat: bool = False
     ) -> "TransformerConfig":
-        """HF ``config.json`` of a llama, mistral, qwen2, qwen3, gemma (first
-        generation) or mixtral checkpoint -> config, as the JAX package's
-        family branch builds it.  Raises ValueError on anything these
-        families do not express here (rope scaling, other bias layouts,
-        gemma2 / gemma3 and every other model type; ROADMAP.md lists them).
-        A ``sliding_window`` (mistral, mixtral) is logged and not applied:
-        full causal attention, exact for sequences within the window."""
+        """HF ``config.json`` of a llama, mistral, qwen2, qwen3, gemma,
+        gemma2, gemma3_text (or the gemma3 wrapper's text_config), phi3 or
+        mixtral checkpoint -> config, as the JAX package's family branch
+        builds it.  Raises ValueError on anything these families do not
+        express here (rope types other than llama3 / yarn / linear, phi3's
+        partial rotary, other bias layouts and every other model type;
+        ROADMAP.md lists them).  A ``sliding_window`` is applied per layer
+        for gemma3; for mistral, mixtral, gemma2 and phi3 it is logged and
+        not applied: full causal attention, exact for sequences within the
+        window."""
         mt = hf.get("model_type", "llama")
+        if mt == "gemma3":
+            # the multimodal wrapper: the text path builds from text_config
+            # (its vision tower's weights are dropped on load)
+            hf = dict(hf["text_config"])
+            hf.setdefault("model_type", "gemma3_text")
+            mt = hf["model_type"]
         if mt not in HF_FAMILIES:
             raise ValueError(
                 f"model_type={mt!r}: the port builds {list(HF_FAMILIES)} from a config.json "
                 "(and phi through PhiConfig); the other families wait in ROADMAP.md"
             )
-        rs = hf.get("rope_scaling")
-        if rs is not None and rs.get("rope_type", rs.get("type")) not in (None, "default"):
+        if mt == "gemma3_text" and hf.get("use_bidirectional_attention"):
             raise ValueError(
-                f"rope_scaling {rs!r} is not implemented in the port (ROADMAP.md)"
+                "gemma3 use_bidirectional_attention is not implemented (this decoder is causal)"
             )
+        rs = hf.get("rope_scaling")
+        if mt == "phi3":
+            if rs is not None and rs.get("rope_type", rs.get("type")) != "longrope":
+                raise ValueError(
+                    f"phi3 rope_scaling type {rs.get('rope_type', rs.get('type'))!r} is not "
+                    "implemented"
+                )
+            if float(hf.get("partial_rotary_factor", 1.0)) != 1.0:
+                raise ValueError(
+                    "phi3 with partial_rotary_factor != 1 (Phi-4-mini) is not implemented in "
+                    "the port: the JAX package's longrope frequencies do not fit its rope "
+                    "then (ROADMAP.md)"
+                )
         # gemma configs carry hidden_activation (the authoritative field;
         # older snapshots say hidden_act "gelu" and run the tanh form)
         act = hf.get("hidden_activation") or hf.get("hidden_act", "silu")
         act_map = {"silu": "silu", "gelu": "gelu_tanh", "gelu_pytorch_tanh": "gelu_tanh"}
         if act not in act_map:
             raise ValueError(f"Unsupported hidden_act={act!r}")
-        # qwen2's layout (biases on q/k/v, none on o_proj) is the only
-        # attention bias expressed; llama / mistral with attention_bias also
-        # bias o_proj, and mlp_bias biases gate/up/down
-        if bool(hf.get("attention_bias", False)) and mt != "qwen2":
+        # qwen2's layout (biases on q/k/v, none on o_proj) and gemma3's (all
+        # four) are the attention biases expressed; llama / mistral with
+        # attention_bias bias o_proj too, and mlp_bias biases gate/up/down
+        if bool(hf.get("attention_bias", False)) and mt not in ("qwen2", "gemma3_text"):
             raise ValueError(
                 "attention_bias=True with an o_proj bias is not expressed (only "
-                "qwen2's q/k/v-bias layout is); ROADMAP.md lists the other layouts"
+                "qwen2's q/k/v-bias and gemma3's layouts are); ROADMAP.md lists the other layouts"
             )
         if bool(hf.get("mlp_bias", False)):
             raise ValueError(
@@ -135,13 +186,58 @@ class TransformerConfig:
         override = (
             int(head_dim) if head_dim is not None and int(head_dim) * n_heads != dim else None
         )
+        rot_dim = int(head_dim) if head_dim is not None else dim // n_heads
+        theta = float(hf.get("rope_theta", 10000.0))
+        rope_llama3, rope_yarn = None, None
+        if rs is not None and mt != "phi3":
+            rtype = rs.get("rope_type", rs.get("type"))
+            if rtype == "llama3":
+                rope_llama3 = (
+                    float(rs["factor"]),
+                    float(rs.get("low_freq_factor", 1.0)),
+                    float(rs.get("high_freq_factor", 4.0)),
+                    int(rs.get("original_max_position_embeddings", 8192)),
+                )
+            elif rtype == "yarn":
+                rope_yarn = yarn_parameters(
+                    rot_dim, theta, rs, int(hf.get("max_position_embeddings", 4096))
+                )
+            elif rtype == "linear":
+                # position interpolation: every inverse frequency divided by
+                # factor, cos and sin unscaled
+                factor, half = float(rs["factor"]), rot_dim // 2
+                rope_yarn = (
+                    tuple(float(1.0 / (theta ** (i / half) * factor)) for i in range(half)),
+                    1.0,
+                )
+            elif rtype not in (None, "default"):
+                raise ValueError(
+                    f"rope_scaling type {rtype!r} is not implemented (only 'llama3', 'yarn' "
+                    "and 'linear'), as in the JAX package"
+                )
+        elif rs is not None:
+            rope_yarn = _longrope_short_factor(hf, rs, rot_dim, theta)
+        # gemma3's windowed layers are applied per layer_types (derived from
+        # sliding_window_pattern where absent: every pat-th layer is full)
+        hybrid_sliding = mt == "gemma3_text"
+        layer_types = tuple(hf.get("layer_types") or ())
+        if hybrid_sliding and not layer_types:
+            pat = int(hf.get("sliding_window_pattern") or 6)
+            layer_types = tuple(
+                "full_attention" if (i + 1) % pat == 0 else "sliding_attention"
+                for i in range(int(hf["num_hidden_layers"]))
+            )
         sliding = hf.get("sliding_window")
-        if sliding is not None and hf.get("use_sliding_window", True):
+        if sliding is not None and hf.get("use_sliding_window", True) and not hybrid_sliding:
             logger.info(
                 "sliding_window=%s in config: full causal attention is used; keep "
                 "sequences within the window for exactness", sliding,
             )
-        gemma = mt == "gemma"
+        gemma_like = mt in ("gemma", "gemma2", "gemma3_text")
+
+        def opt_float(key: str) -> Optional[float]:
+            return float(hf[key]) if hf.get(key) is not None else None
+
         return TransformerConfig(
             vocab_size=int(hf["vocab_size"]),
             dim=dim,
@@ -150,14 +246,26 @@ class TransformerConfig:
             n_kv_heads=int(hf.get("num_key_value_heads", n_heads)),
             hidden_dim=int(hf["intermediate_size"]),
             norm_eps=float(hf.get("rms_norm_eps", 1e-6)),
-            rope_theta=float(hf.get("rope_theta", 10000.0)),
+            rope_theta=theta,
             qkv_bias=bool(hf.get("attention_bias", mt == "qwen2")),
-            tie_embeddings=bool(hf.get("tie_word_embeddings", gemma)),
+            tie_embeddings=bool(hf.get("tie_word_embeddings", gemma_like)),
             head_dim_override=override,
             mlp_act=act_map[act],
-            scale_embeddings=gemma,
-            norm_plus_one=gemma,
-            qk_norm=mt == "qwen3",
+            scale_embeddings=gemma_like,
+            norm_plus_one=gemma_like,
+            qk_norm=mt in ("qwen3", "gemma3_text"),
+            sandwich_norms=mt in ("gemma2", "gemma3_text"),
+            attn_logit_softcap=opt_float("attn_logit_softcapping"),
+            final_logit_softcap=opt_float("final_logit_softcapping"),
+            query_scale_override=opt_float("query_pre_attn_scalar"),
+            rope_llama3_scaling=rope_llama3,
+            sliding_window=int(sliding) if hybrid_sliding and sliding else None,
+            layer_types=layer_types if hybrid_sliding else (),
+            o_proj_bias=bool(hf.get("attention_bias", False)) if hybrid_sliding else False,
+            rope_yarn=rope_yarn,
+            rope_local_theta=(
+                float(hf.get("rope_local_base_freq", 10000.0)) if mt == "gemma3_text" else None
+            ),
             dtype=dtype,
             # HF MixtralSparseMoeBlock: softmax over all experts, top-k,
             # always renormalized; experts at intermediate_size
@@ -227,30 +335,136 @@ def _positions(b: int, s: int, start: Any, device: Any) -> torch.Tensor:
     return (start + steps).expand(b, s)
 
 
-def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def yarn_parameters(
+    head_dim: int, theta: float, scaling: dict, max_pos: int
+) -> tuple[tuple, float]:
+    """Yarn inverse frequencies and attention factor (HF
+    ``_compute_yarn_parameters``, the JAX package's ``yarn_parameters``):
+    low frequencies interpolated by ``factor``, high ones extrapolated, a
+    linear ramp between the beta_fast / beta_slow rotation boundaries; the
+    attention factor 0.1 * mscale * ln(factor) + 1 unless given.  Computed
+    in float64 and returned as plain floats."""
+    factor = float(scaling["factor"])
+    attention_factor = scaling.get("attention_factor")
+    mscale = scaling.get("mscale")
+    mscale_all_dim = scaling.get("mscale_all_dim")
+    original_max = int(scaling.get("original_max_position_embeddings") or max_pos)
+
+    def get_mscale(scale: float, m: float = 1.0) -> float:
+        return 0.1 * m * math.log(scale) + 1.0 if scale > 1 else 1.0
+
+    if attention_factor is None:
+        if mscale and mscale_all_dim:
+            attention_factor = get_mscale(factor, mscale) / get_mscale(factor, mscale_all_dim)
+        else:
+            attention_factor = get_mscale(factor)
+    beta_fast = float(scaling.get("beta_fast") or 32.0)
+    beta_slow = float(scaling.get("beta_slow") or 1.0)
+
+    def correction_dim(num_rotations: float) -> float:
+        return (head_dim * math.log(original_max / (num_rotations * 2 * math.pi))) / (
+            2 * math.log(theta)
+        )
+
+    low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+    if bool(scaling.get("truncate", True)):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0.0), min(high, head_dim - 1)
+    if low == high:
+        high += 0.001
+    inv_freq = []
+    for i in range(head_dim // 2):
+        pos_freq = theta ** (2 * i / head_dim)
+        extrap, interp = 1.0 / pos_freq, 1.0 / (factor * pos_freq)
+        extrap_factor = 1.0 - min(max((i - low) / (high - low), 0.0), 1.0)
+        inv_freq.append(float(interp * (1 - extrap_factor) + extrap * extrap_factor))
+    return tuple(inv_freq), float(attention_factor)
+
+
+def _longrope_short_factor(hf: dict, rs: dict, rot_dim: int, theta: float) -> tuple[tuple, float]:
+    """phi3's longrope in its short-factor regime: HF takes short_factor
+    while the sequence stays within original_max_position_embeddings, the
+    regime the calibration loaders keep to; the attention factor
+    sqrt(1 + ln f / ln orig) applies at every length."""
+    short = [float(v) for v in rs["short_factor"]]
+    orig = int(hf.get("original_max_position_embeddings") or hf.get("max_position_embeddings", 4096))
+    lr_factor = float(hf.get("max_position_embeddings", orig)) / orig
+    af = rs.get("attention_factor")
+    if af is None:
+        af = 1.0 if lr_factor <= 1.0 else math.sqrt(1 + math.log(lr_factor) / math.log(orig))
+    logger.info(
+        "phi3 longrope: short-factor frequencies (exact for sequences <= "
+        "original_max_position_embeddings=%d)", orig,
+    )
+    return (
+        tuple(float(1.0 / (short[i] * theta ** (2 * i / rot_dim))) for i in range(rot_dim // 2)),
+        float(af),
+    )
+
+
+def _llama3_scale_freqs(inv_freq: torch.Tensor, scaling: tuple) -> torch.Tensor:
+    """HF llama3 rope scaling (``_compute_llama3_parameters``): frequencies
+    whose wavelength exceeds the original context are divided by
+    ``factor``, high ones pass, the band between is interpolated.  It
+    applies at every position, so Llama-3.1 / 3.2 logits need it."""
+    factor, low_freq_factor, high_freq_factor, old_len = scaling
+    wavelen = 2.0 * math.pi / inv_freq
+    low_freq_wavelen = old_len / low_freq_factor
+    high_freq_wavelen = old_len / high_freq_factor
+    scaled = torch.where(wavelen > low_freq_wavelen, inv_freq / factor, inv_freq)
+    smooth = (old_len / wavelen - low_freq_factor) / (high_freq_factor - low_freq_factor)
+    smoothed = (1.0 - smooth) / factor * inv_freq + smooth * inv_freq
+    is_medium = (wavelen >= high_freq_wavelen) & (wavelen <= low_freq_wavelen)
+    return torch.where(is_medium, smoothed, scaled)
+
+
+def _rope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    theta: float,
+    llama3_scaling: Optional[tuple] = None,
+    yarn: Optional[tuple] = None,
+) -> torch.Tensor:
     """HF llama rotate-half rotary embedding at absolute ``positions``
-    (b, s); x: (b, s, heads, hd)."""
+    (b, s); x: (b, s, heads, hd).  ``yarn`` (inverse frequencies, attention
+    factor) replaces the theta frequencies and scales cos and sin;
+    ``llama3_scaling`` rescales the frequencies."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half))
+    attn_factor = 1.0
+    if yarn is not None:
+        inv_freq, attn_factor = yarn
+        freqs = torch.tensor(inv_freq, dtype=torch.float32, device=x.device)
+    else:
+        freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half))
+    if llama3_scaling is not None:
+        freqs = _llama3_scale_freqs(freqs, llama3_scaling)
     angles = positions[:, :, None].to(torch.float32) * freqs  # (b, s, half)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if yarn is not None:
+        cos, sin = cos * attn_factor, sin * attn_factor
     x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
 class Attention(torch.nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: Any) -> None:
+    """Grouped-query attention of layer ``layer_idx`` (the JAX package's
+    ``Attention.create``): a layer ``layer_types`` marks
+    "sliding_attention" sees the last ``sliding_window`` keys and, with a
+    ``rope_local_theta`` (gemma3), rotates at that theta unscaled; the
+    scale is ``query_scale_override ** -0.5`` where that is set."""
+
+    def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
         super().__init__()
         hd = cfg.head_dim
         kw = {"dtype": cfg.dtype, "device": device}
         self.q_proj = torch.nn.Linear(cfg.dim, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
         self.k_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
         self.v_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
-        self.o_proj = torch.nn.Linear(cfg.n_heads * hd, cfg.dim, bias=False, **kw)
-        if cfg.qk_norm:  # Qwen3: per head, over head_dim
+        self.o_proj = torch.nn.Linear(cfg.n_heads * hd, cfg.dim, bias=cfg.o_proj_bias, **kw)
+        if cfg.qk_norm:  # Qwen3 and Gemma-3: per head, over head_dim
             self.q_norm = RMSNorm(hd, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
             self.k_norm = RMSNorm(hd, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
         else:
@@ -258,7 +472,24 @@ class Attention(torch.nn.Module):
         self.n_heads = cfg.n_heads
         self.n_kv_heads = cfg.n_kv_heads
         self.head_dim = hd
-        self.rope_theta = cfg.rope_theta
+        sliding = (
+            layer_idx < len(cfg.layer_types)
+            and cfg.layer_types[layer_idx] == "sliding_attention"
+        )
+        local_rope = sliding and cfg.rope_local_theta is not None
+        self.rope_theta = cfg.rope_local_theta if local_rope else cfg.rope_theta
+        self.rope_yarn = None if local_rope else cfg.rope_yarn
+        self.rope_llama3_scaling = cfg.rope_llama3_scaling
+        self.sliding_window = cfg.sliding_window if sliding else None
+        self.logit_softcap = cfg.attn_logit_softcap
+        self.scale_override = cfg.query_scale_override
+
+    def scale(self, hd: int) -> float:
+        """The softmax scale at head dim ``hd``."""
+        return (self.scale_override if self.scale_override is not None else hd) ** -0.5
+
+    def rope(self, t: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return _rope(t, positions, self.rope_theta, self.rope_llama3_scaling, self.rope_yarn)
 
     def project_qkv(
         self, x: torch.Tensor, positions: Optional[torch.Tensor] = None
@@ -277,7 +508,7 @@ class Attention(torch.nn.Module):
             q, k = self.q_norm(q), self.k_norm(k)
         if positions is None:
             positions = _positions(b, s, 0, x.device)
-        return _rope(q, positions, self.rope_theta), _rope(k, positions, self.rope_theta), v
+        return self.rope(q, positions), self.rope(k, positions), v
 
     def finish(self, merged: torch.Tensor) -> torch.Tensor:
         """The output projection of the merged heads (b, s, heads * hd)."""
@@ -293,8 +524,12 @@ class Attention(torch.nn.Module):
         q, k, v = self.project_qkv(x, positions)
         hd = q.shape[-1]
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (b, heads, s, hd)
-        scale = hd ** -0.5
-        if _use_flash_kernel(q, attn_mask):
+        scale = self.scale(hd)
+        if self.logit_softcap is not None or self.sliding_window is not None:
+            out = _capped_windowed_attention(
+                q, k, v, scale, attn_mask, self.logit_softcap, self.sliding_window
+            )
+        elif _use_flash_kernel(q, attn_mask):
             out = flash_attention(q, k, v, scale)
         else:
             out = causal_attention_plain(q, k, v, scale, attn_mask)
@@ -303,15 +538,49 @@ class Attention(torch.nn.Module):
 
 def _use_flash_kernel(q: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> bool:
     """The model-level gate of transformer.py:4086-4117: bf16 on the card
-    with no padding mask and a head_dim the kernel is built for (64, 128 or
-    256) takes the flash kernel (which reads the grouped k/v heads itself);
-    everything else, an all-ones mask included, takes the einsum path."""
+    with no padding mask and a head_dim the kernel is built for (64, 96, 128
+    or 256) takes the flash kernel (which reads the grouped k/v heads
+    itself); everything else, an all-ones mask included, takes the einsum
+    path.  ``Attention.forward`` also sends a soft-capped or windowed layer
+    to the einsum path, as the JAX gate does."""
     return (
         q.is_cuda
         and q.dtype == torch.bfloat16
         and attn_mask is None
         and q.shape[-1] in KERNEL_HEAD_DIMS
     )
+
+
+def _capped_windowed_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    attn_mask: Optional[torch.Tensor],
+    softcap: Optional[float],
+    window: Optional[int],
+) -> torch.Tensor:
+    """The JAX model's einsum attention (transformer.py:4118-4162) with
+    Gemma-2's tanh soft-cap on the f32 logits, then the causal mask narrowed
+    to ``q - k < window`` (HF's convention, the query's own key included)
+    and the padding mask; q (b, h, s, d), k and v (b, h_kv, s, d)."""
+    h, s = q.shape[1], q.shape[2]
+    rep = h // k.shape[1]
+    if rep > 1:
+        k, v = (torch.repeat_interleave(t, rep, dim=1) for t in (k, v))
+    logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    idx = torch.arange(s, device=q.device)
+    mask = idx[None, :] <= idx[:, None]
+    if window is not None:
+        mask = mask & (idx[:, None] - idx[None, :] < window)
+    mask = mask[None, None]
+    if attn_mask is not None:
+        mask = mask & attn_mask[:, None, None, :].to(torch.bool)
+    logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs.to(torch.float32), v.to(torch.float32)).to(q.dtype)
 
 
 class MLP(torch.nn.Module):
@@ -479,12 +748,22 @@ class MoEMLP(torch.nn.Module):
 
 
 class Block(torch.nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: Any) -> None:
+    """Pre-norm block; with ``sandwich_norms`` (gemma2 / gemma3)
+    ``post_attention_layernorm`` norms the attention output and the MLP runs
+    between ``pre_feedforward_layernorm`` and ``post_feedforward_layernorm``
+    (HF's names, JAX transformer.py:5643-5646)."""
+
+    def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
         super().__init__()
         norm = (cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
         self.input_layernorm = RMSNorm(*norm)
-        self.self_attn = Attention(cfg, device)
+        self.self_attn = Attention(cfg, device, layer_idx)
         self.post_attention_layernorm = RMSNorm(*norm)
+        if cfg.sandwich_norms:
+            self.pre_feedforward_layernorm = RMSNorm(*norm)
+            self.post_feedforward_layernorm = RMSNorm(*norm)
+        else:
+            self.pre_feedforward_layernorm = self.post_feedforward_layernorm = None
         self.mlp = MoEMLP(cfg, device) if cfg.n_experts > 0 else MLP(cfg, device)
 
     def forward(
@@ -497,7 +776,11 @@ class Block(torch.nn.Module):
         """``self_attn`` stands in for the block's attention when given (the
         cached attention of ``serving.forward_with_cache``)."""
         attn = self.self_attn if self_attn is None else self_attn
-        h = x + attn(self.input_layernorm(x), attn_mask, positions)
+        attn_out = attn(self.input_layernorm(x), attn_mask, positions)
+        if self.pre_feedforward_layernorm is not None:
+            h = x + self.post_attention_layernorm(attn_out)
+            return h + self.post_feedforward_layernorm(self.mlp(self.pre_feedforward_layernorm(h)))
+        h = x + attn_out
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -507,7 +790,7 @@ class Decoder(torch.nn.Module):
         self.embed_tokens = torch.nn.Embedding(
             cfg.vocab_size, cfg.dim, dtype=cfg.dtype, device=device
         )
-        self.layers = torch.nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.layers = torch.nn.ModuleList(Block(cfg, device, i) for i in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
         self.remat = cfg.remat
         self.scale_embeddings = cfg.scale_embeddings
@@ -600,13 +883,20 @@ class CausalLM(torch.nn.Module):
             if cfg.tie_embeddings
             else torch.nn.Linear(cfg.dim, cfg.vocab_size, bias=False, dtype=cfg.dtype, device=device)
         )
+        self.final_logit_softcap = cfg.final_logit_softcap
         init_weights(self, generator, device)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        """Vocab logits of final-normed hidden states."""
+        """Vocab logits of final-normed hidden states, soft-capped with tanh
+        in their own dtype where the config says (gemma2)."""
         if self.lm_head is None:
-            return h @ self.model.embed_tokens.weight.t()
-        return self.lm_head(h)
+            logits = h @ self.model.embed_tokens.weight.t()
+        else:
+            logits = self.lm_head(h)
+        if self.final_logit_softcap is not None:
+            cap = torch.tensor(self.final_logit_softcap, dtype=logits.dtype, device=logits.device)
+            logits = cap * torch.tanh(logits / cap)
+        return logits
 
     def forward(self, batch: Any) -> torch.Tensor:
         if isinstance(batch, dict):

@@ -9,7 +9,10 @@ query head h reads kv head ``h // (heads // kv_heads)``.  The kernel reads
 q, k and v through TMA tensor maps with the caller's strides, so the
 model's transposed (b, s, h, d) views are read as they lie and the output
 takes q's layout; a tensor whose strides TMA cannot address is first
-copied contiguous (``_tma_layout``).
+copied contiguous (``_tma_layout``).  A head dim of 96 runs the 128-wide
+instance with its tensor maps 96 wide: TMA zero-fills columns 96-127 of
+Q, K and V, which add nothing to Q K^T, and only 96 columns of O are
+stored.
 """
 
 from __future__ import annotations
@@ -29,14 +32,22 @@ __all__ = [
     "flash_schedule",
     "block_n",
     "smem_bytes",
+    "tile_head_dim",
 ]
 
-# head_dim values the kernel is compiled for (a template parameter): 64,
-# 128 and 256
-KERNEL_HEAD_DIMS = (64, 128, 256)
+# head_dim values the kernel takes: 64, 128 and 256 are template instances
+# of their own; 96 runs the 128 instance (``tile_head_dim``)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 # query rows a CTA takes at a time, K/V ring depth
 # (csrc/flash_attention_fwd.cu: kBM, kStages)
 BLOCK_M, STAGES = 128, 2
+
+
+def tile_head_dim(head_dim: int) -> int:
+    """The head dim of the template instance that runs ``head_dim``: its
+    own, or 128 for 96 (one and a half 64-column swizzle atoms a row; the
+    tensor maps' zero fill pads it to two)."""
+    return 128 if head_dim == 96 else head_dim
 
 
 def block_n(head_dim: int) -> int:
@@ -48,7 +59,8 @@ def block_n(head_dim: int) -> int:
 def smem_bytes(head_dim: int) -> int:
     """Dynamic shared memory of one CTA: the Q tile, the K and V ring, the
     mbarriers (Q full and empty, K and V full and empty a stage), 1 KB of
-    alignment slack."""
+    alignment slack; at the instance's head dim (``tile_head_dim``)."""
+    head_dim = tile_head_dim(head_dim)
     tiles = BLOCK_M * head_dim + 2 * STAGES * block_n(head_dim) * head_dim
     return tiles * 2 + (2 + 4 * STAGES) * 8 + 1024
 

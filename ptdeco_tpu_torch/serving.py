@@ -77,17 +77,22 @@ def _valid_keys(
     cache_pos: Any,
     s: int,
     kv_mask: Optional[torch.Tensor] = None,
+    sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """(b, s, max_len) bool: keys at or before each query's absolute
     position, inside the cache's fill (``cache_pos`` an int or per-row
-    (b,)), and marked valid by the caller's left-padding ``kv_mask``."""
+    (b,)), within the layer's ``sliding_window`` (query - key < window) and
+    marked valid by the caller's left-padding ``kv_mask``."""
     key_idx = torch.arange(max_len, device=positions.device)
-    valid = key_idx[None, None, :] <= positions[:, :, None]
+    q_pos = positions[:, :, None]
+    valid = key_idx[None, None, :] <= q_pos
     if isinstance(cache_pos, torch.Tensor):
         fill = (cache_pos.to(positions.device) + s)[:, None, None]
     else:
         fill = cache_pos + s
     valid = valid & (key_idx[None, None, :] < fill)
+    if sliding_window is not None:
+        valid = valid & (q_pos - key_idx[None, None, :] < sliding_window)
     if kv_mask is not None:
         valid = valid & kv_mask.to(device=positions.device, dtype=torch.bool)[:, None, :]
     return valid
@@ -134,14 +139,18 @@ def _is_static_zero(cache_pos: Any) -> bool:
     )
 
 
-def _flash_prefill_ok(s: int, hd: int, q: torch.Tensor, kv_mask: Optional[torch.Tensor]) -> bool:
+def _flash_prefill_ok(
+    a: Attention, s: int, hd: int, q: torch.Tensor, kv_mask: Optional[torch.Tensor]
+) -> bool:
     """The gates of the flash-kernel cached prefill, with
     ``CachedAttention.prefill_causal`` (a static zero ``cache_pos``): those
-    of the uncached ``Attention.forward``, a multi-token step, and no
-    left-padding mask.  The TPU's ``s % 128`` rule is dropped: the kernel
-    masks its ragged edge."""
+    of the uncached ``Attention.forward`` (no soft-cap, no window), a
+    multi-token step, and no left-padding mask.  The TPU's ``s % 128`` rule
+    is dropped: the kernel masks its ragged edge."""
     return (
         s > 1
+        and a.logit_softcap is None
+        and a.sliding_window is None
         and kv_mask is None
         and q.is_cuda
         and q.dtype == torch.bfloat16
@@ -185,8 +194,8 @@ class CachedAttention:
         _cache_write(self.v_cache, v_new, self.cache_pos)
         g = a.n_kv_heads
         rep = a.n_heads // g
-        scale = hd ** -0.5
-        if self.prefill_causal and _flash_prefill_ok(s, hd, q, self.kv_mask):
+        scale = a.scale(hd)
+        if self.prefill_causal and _flash_prefill_ok(a, s, hd, q, self.kv_mask):
             # the cache beyond the s new tokens is empty, so attention is
             # plain causal attention over the new tokens
             out = flash_attention(
@@ -195,7 +204,9 @@ class CachedAttention:
             return a.finish(out.reshape(b, s, -1))
         qg = q.reshape(b, s, g, rep, hd).to(torch.float32)
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, self.k_cache.to(torch.float32)) * scale
-        valid = _valid_keys(positions, max_len, self.cache_pos, s, self.kv_mask)
+        if a.logit_softcap is not None:
+            logits = a.logit_softcap * torch.tanh(logits / a.logit_softcap)
+        valid = _valid_keys(positions, max_len, self.cache_pos, s, self.kv_mask, a.sliding_window)
         logits = logits.masked_fill(~valid[:, None, None], torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.einsum(

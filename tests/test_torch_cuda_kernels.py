@@ -51,7 +51,10 @@ def test_syrk_gram(dev, n, d, dtype):
     "b,h,h_kv,s,d",
     [(1, 4, 4, 128, 64), (2, 4, 2, 100, 64), (1, 2, 1, 70, 128), (1, 8, 2, 1, 64),
      # Qwen2-1.5B's heads (group 6) and Gemma-2B's (head dim 256, one kv head)
-     (1, 12, 2, 300, 128), (1, 8, 1, 300, 256), (2, 4, 2, 257, 256)],
+     (1, 12, 2, 300, 128), (1, 8, 1, 300, 256), (2, 4, 2, 257, 256),
+     # head dim 96 on the 128 instance: Phi-3-mini's ungrouped heads, grouped
+     # heads and ragged sequences
+     (1, 32, 32, 1024, 96), (2, 8, 2, 300, 96), (1, 4, 1, 77, 96), (3, 6, 3, 129, 96)],
 )
 def test_flash_attention(dev, b, h, h_kv, s, d):
     q = torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16)
@@ -65,7 +68,7 @@ def test_flash_attention(dev, b, h, h_kv, s, d):
 
 
 @pytest.mark.parametrize("rep", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("s", [1, 63, 127, 129, 1000])
 def test_flash_attention_edges(dev, s, d, rep):
     """Sequences shorter than, one past and ragged against the 128-row tile
@@ -83,7 +86,7 @@ def test_flash_attention_edges(dev, s, d, rep):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=3e-2)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_flash_attention_strided_views(dev, d):
     """The model's transposed (b, s, h, d) views are read as they lie and the
     output takes q's layout; a view whose seq stride TMA cannot address
@@ -115,7 +118,8 @@ def test_flash_smem_bytes_agree(dev):
     fn = _build.kernel_function("flash_attention_fwd", "ptdeco_flash_smem_bytes", [ctypes.c_int])
     for d in fa.KERNEL_HEAD_DIMS:
         assert fn(d) == fa.smem_bytes(d)
-    assert fn(96) == 0
+    assert fn(96) == fn(128)  # the 128 instance runs head dim 96
+    assert fn(80) == 0
 
 
 def test_flash_attention_backward_recomputes(dev):

@@ -6,8 +6,8 @@ with ``utils.state_dict`` -> ``load_numpy_state_dict``, and the f32 logits
 must agree within 1e-4 and the loss within rtol 1e-5 (as
 ``tests/test_torch_transformer.py``).  Then the configurations both
 packages refuse, the trainer's ``qwen2-1.5b``, tied snapshots without an
-``lm_head.weight``, and KV-cached ``generate`` of Qwen2 and Gemma against
-the JAX package's ``serving.generate``."""
+``lm_head.weight``, and KV-cached ``generate`` of Qwen2, Gemma, Qwen3 and
+Mistral against the JAX package's ``serving.generate``."""
 
 import functools
 import json
@@ -99,12 +99,14 @@ REFUSED_BY_BOTH = {
     "mamba": tiny_hf("mamba"),
 }
 REFUSED_BY_PORT = {
-    "gemma2": tiny_hf("gemma2", head_dim=8),
-    "gemma3_text": tiny_hf("gemma3_text", head_dim=8),
-    "llama3_rope": tiny_hf("llama", rope_scaling={
-        "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
-        "original_max_position_embeddings": 8192}),
-    "phi3": tiny_hf("phi3"),
+    "olmo2": tiny_hf("olmo2"),
+    "glm4": tiny_hf("glm4", head_dim=8),
+    "qwen3_moe": tiny_hf("qwen3_moe", head_dim=8, num_experts=4, num_experts_per_tok=2,
+                         moe_intermediate_size=16),
+    "deepseek_v3": tiny_hf("deepseek_v3", n_routed_experts=4, num_experts_per_tok=2,
+                           moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
+                           qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8,
+                           n_group=1, topk_group=1),
 }
 
 
@@ -163,7 +165,7 @@ def test_tied_snapshot_loads(family, with_head, tmp_path, monkeypatch):
                                    rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("family", ["qwen2", "gemma"])
+@pytest.mark.parametrize("family", ["qwen2", "gemma", "qwen3", "mistral"])
 def test_cached_generate_matches_jax(family):
     """Greedy ``generate`` from the KV cache gives the JAX package's tokens;
     the logits that chose the last token equal the JAX cached forward's at

@@ -572,14 +572,22 @@ def test_flash_prefill_predicate_and_static_zero():
     import types
 
     card_bf16 = types.SimpleNamespace(is_cuda=True, dtype=torch.bfloat16)
-    assert tserving._flash_prefill_ok(256, 64, card_bf16, None)
-    assert tserving._flash_prefill_ok(100, 128, card_bf16, None)  # the kernel masks its edge
-    assert not tserving._flash_prefill_ok(1, 64, card_bf16, None)  # a decode step
-    assert not tserving._flash_prefill_ok(256, 64, card_bf16, torch.ones(2, 12, dtype=torch.bool))
-    assert not tserving._flash_prefill_ok(256, 16, card_bf16, None)  # no kernel for d 16
-    assert not tserving._flash_prefill_ok(256, 64, torch.zeros(1, dtype=torch.bfloat16), None)
+    plain = types.SimpleNamespace(logit_softcap=None, sliding_window=None)
+    assert tserving._flash_prefill_ok(plain, 256, 64, card_bf16, None)
+    assert tserving._flash_prefill_ok(plain, 100, 128, card_bf16, None)  # the kernel masks its edge
+    assert tserving._flash_prefill_ok(plain, 256, 96, card_bf16, None)  # the 128 instance
+    assert not tserving._flash_prefill_ok(plain, 1, 64, card_bf16, None)  # a decode step
+    assert not tserving._flash_prefill_ok(plain, 256, 64, card_bf16,
+                                          torch.ones(2, 12, dtype=torch.bool))
+    assert not tserving._flash_prefill_ok(plain, 256, 16, card_bf16, None)  # no kernel for d 16
+    assert not tserving._flash_prefill_ok(plain, 256, 64, torch.zeros(1, dtype=torch.bfloat16), None)
     assert not tserving._flash_prefill_ok(
-        256, 64, types.SimpleNamespace(is_cuda=True, dtype=torch.float32), None)
+        plain, 256, 64, types.SimpleNamespace(is_cuda=True, dtype=torch.float32), None)
+    # Gemma-2's soft-capped and Gemma-3's windowed layers stay plain, as in JAX
+    for layer in (dict(logit_softcap=50.0, sliding_window=None),
+                  dict(logit_softcap=None, sliding_window=512)):
+        assert not tserving._flash_prefill_ok(types.SimpleNamespace(**layer), 256, 64, card_bf16,
+                                              None)
     assert tserving._is_static_zero(0) and tserving._is_static_zero(np.int32(0))
     for not_static in (3, torch.tensor(0), torch.zeros(2, dtype=torch.int64), False):
         assert not tserving._is_static_zero(not_static)
@@ -595,7 +603,7 @@ def test_flash_prefill_path_matches_einsum(llama, monkeypatch):
     want = tserving.generate(tm, t_(padded), 5, prompt_lens=t_(lens))
     fired = []
     monkeypatch.setattr(tserving, "_flash_prefill_ok",
-                        lambda s, hd, q, kv_mask: fired.append(s) or (s > 1 and kv_mask is None))
+                        lambda a, s, hd, q, kv_mask: fired.append(s) or (s > 1 and kv_mask is None))
     got, got_c = tserving.forward_with_cache(tm, t_(padded), tserving.init_cache(tm, 2, 12), 0)
     assert fired
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)

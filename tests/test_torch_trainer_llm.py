@@ -704,10 +704,19 @@ def test_builder_paths(tmp_path, monkeypatch):
         builder.make_model_and_tokenizer(model_name="x", checkpoint_path=str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
         builder.make_model_and_tokenizer(model_name="qwen2-7b", device="cpu")
-    for mt in ("llama", "mistral", "qwen2", "qwen3", "gemma", "phi"):
+    for mt in ("llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2", "gemma3_text", "phi"):
         assert hf_loader.translator_for({"model_type": mt}) is None
     assert hf_loader.translator_for({"model_type": "mixtral"}) is hf_loader.translate_mixtral_state_dict
-    with pytest.raises(ValueError, match="and mixtral only"):
+    # phi3's fused projections split at the config's head counts; the gemma3
+    # wrapper's text path is unwrapped
+    split = hf_loader.translator_for({"model_type": "phi3", "num_attention_heads": 2,
+                                      "num_key_value_heads": 1, "hidden_size": 8})
+    got = split({"m.self_attn.qkv_proj.weight": torch.arange(16.0)[:, None]})
+    assert [int(got[f"m.self_attn.{p}_proj.weight"][0]) for p in "qkv"] == [0, 8, 12]
+    unwrap = hf_loader.translator_for({"model_type": "gemma3", "text_config": {}})
+    assert set(unwrap({"model.language_model.norm.weight": 1, "model.vision_tower.x": 2,
+                       "lm_head.weight": 3})) == {"model.norm.weight"}
+    with pytest.raises(ValueError, match="mixtral, phi3 and gemma3 only"):
         hf_loader.translator_for({"model_type": "gpt2"})
     assert isinstance(builder.make_tokenizer("tinyllama-1.1b", 32000), builder.ByteTokenizer)
 
