@@ -305,8 +305,39 @@ PHI3_MINI = dict(
     tie_word_embeddings=False, sliding_window=2047, max_position_embeddings=4096,
     original_max_position_embeddings=4096,
 )
+# Slice 14: the rest of the dense llama-graph families, the same way:
+# allenai/OLMo-2-0425-1B (post-norm-only blocks, q/k RMSNorms over the
+# whole projection), THUDM/GLM-4-9B-0414 (half of each 128-dim head rotated
+# pair-interleaved, q/k/v biases, sandwich norms; its planted weights written
+# in GLM-4's checkpoint layout: fused gate_up_proj, its own norm names) and
+# HuggingFaceTB/SmolLM3-3B (every 4th layer NoPE; the two layers kept are
+# the published 3rd and 4th, rope and NoPE)
+OLMO2_1B = dict(
+    model_type="olmo2", vocab_size=100352, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=16, num_key_value_heads=16, rms_norm_eps=1e-6,
+    rope_theta=500000.0, rope_scaling=None, hidden_act="silu", attention_bias=False,
+    tie_word_embeddings=False, max_position_embeddings=4096,
+)
+GLM4_9B = dict(
+    model_type="glm4", vocab_size=151552, hidden_size=4096, intermediate_size=13696,
+    num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=2, head_dim=128,
+    partial_rotary_factor=0.5, attention_bias=True, rms_norm_eps=1e-5, rope_theta=10000.0,
+    hidden_act="silu", tie_word_embeddings=False, max_position_embeddings=32768,
+)
+SMOLLM3_3B = dict(
+    model_type="smollm3", vocab_size=128256, hidden_size=2048, intermediate_size=11008,
+    num_hidden_layers=36, num_attention_heads=16, num_key_value_heads=4, rms_norm_eps=1e-6,
+    rope_theta=5000000.0, rope_scaling=None, hidden_act="silu", attention_bias=False,
+    mlp_bias=False, tie_word_embeddings=True, max_position_embeddings=65536,
+    use_sliding_window=False, sliding_window=None, no_rope_layer_interval=4,
+    no_rope_layers=[int((i + 1) % 4 != 0) for i in range(36)],
+)
 FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b": GEMMA2_2B,
-                  "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI}
+                  "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI, "olmo2_1b": OLMO2_1B,
+                  "glm4_9b": GLM4_9B, "smollm3_3b": SMOLLM3_3B}
+# the first published layer each cut keeps (0 where not named): gemma3's
+# 5th and 6th (sliding, full), smollm3's 3rd and 4th (rope, NoPE)
+FAMILY_FIRST_LAYER = {"gemma3_1b": 4, "smollm3_3b": 2}
 # the families whose attention takes flash in the JAX package: Gemma-2's
 # soft-capped attention is plain there, so flash must launch 0 times
 FAMILY_NO_FLASH = ("gemma2_2b",)
@@ -334,6 +365,13 @@ FAMILY_GATES = {
     "gemma2_2b": {"serve": (0.375, 1.8e-2), "reference": (0.4, 2e-2)},
     "gemma3_1b": {"serve": (0.375, 1.8e-2), "reference": (0.25, 2.5e-2)},
     "phi3_mini": {"serve": (0.0625, 5e-3), "reference": (0.06, 1e-2)},
+    # slice 14, the same at seed 0: OLMo-2-1B 0.047-0.055 / 7.5e-3-8.1e-3
+    # and 0.054 / 7.6e-3; GLM-4-9B 0.031 / 4.3e-3-4.7e-3 (one bf16 ulp of
+    # logits in [4, 8)) and 0.029 / 5.0e-3; SmolLM3-3B 0.047-0.051 /
+    # 7.6e-3-8.3e-3 and 0.050 / 8.5e-3
+    "olmo2_1b": {"serve": (0.125, 2e-2), "reference": (0.125, 2e-2)},
+    "glm4_9b": {"serve": (0.09375, 1.25e-2), "reference": (0.075, 1.25e-2)},
+    "smollm3_3b": {"serve": (0.125, 2e-2), "reference": (0.125, 2e-2)},
 }
 
 # Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
@@ -604,8 +642,9 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # TinyLlama's MLP and model widths; then phi-2's MLP (10240) and
     # Gemma-2B's (16384) Grams (Qwen2-1.5B's 8960 and 1536 lie between);
     # Gemma-2-2B's MLP (9216; Llama-3.2-1B's and Phi-3-mini's 8192 and
-    # Gemma-3-1B's 6912 lie below)
-    for d in (5632, 2048, 10240, 16384, 9216):
+    # Gemma-3-1B's 6912 lie below); GLM-4-9B's MLP (13696, 107 tiles of 128
+    # a side; SmolLM3-3B's 11008 lies below)
+    for d in (5632, 2048, 10240, 16384, 9216, 13696):
         y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
         recs["syrk_gram"].append(check_kernel(
             "syrk_gram",
@@ -633,6 +672,9 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # Gemma-3-1B's full layers (head dim 256, one kv head for four)
     flash_check(dev, g, recs, 1, SEQ, h=32, h_kv=32, hd=96)
     flash_check(dev, g, recs, 1, SEQ, h=4, h_kv=1, hd=256)
+    # GLM-4-9B's heads (group 16, the largest) and OLMo-2-1B's (no grouping)
+    flash_check(dev, g, recs, 1, SEQ, h=32, h_kv=2, hd=128)
+    flash_check(dev, g, recs, 1, SEQ, h=16, h_kv=16, hd=128)
 
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
@@ -854,9 +896,9 @@ def _planted(rng):
 
 def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, np.ndarray]:
     """Random weights in HF names; every decomposable projection is planted
-    at rank 256 (``_planted``).  Qwen2's q/k/v biases are 0.1-scale noise;
-    norms (gemma2's and gemma3's sandwich norms too) are the identity (zeros
-    for gemma's (1 + w) norms); a tied
+    at rank 256 (``_planted``).  q/k/v biases (Qwen2, GLM-4) are 0.1-scale
+    noise; norms (the sandwich norms, OLMo-2's post norms and flat q/k norms
+    too) are the identity (zeros for gemma's (1 + w) norms); a tied
     embedding has RMS 1 / sqrt(dim), so the tied head's logits have RMS 1
     (and gemma's sqrt(dim)-scaled embeddings RMS 1)."""
     rng = np.random.default_rng(seed)
@@ -879,13 +921,17 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, 
         if cfg.qkv_bias:
             for proj, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)):
                 sd[p + f"self_attn.{proj}_proj.bias"] = 0.1 * rng.standard_normal(heads * hd, dtype=f32)
-        if cfg.qk_norm:
-            sd[p + "self_attn.q_norm.weight"] = (np.zeros if cfg.norm_plus_one else np.ones)(hd, f32)
-            sd[p + "self_attn.k_norm.weight"] = sd[p + "self_attn.q_norm.weight"]
-        sd[p + "input_layernorm.weight"] = norm
+        if cfg.qk_norm or cfg.qk_norm_flat:
+            widths = (cfg.n_heads * hd, cfg.n_kv_heads * hd) if cfg.qk_norm_flat else (hd, hd)
+            for proj, width in zip("qk", widths):
+                sd[p + f"self_attn.{proj}_norm.weight"] = (
+                    np.zeros if cfg.norm_plus_one else np.ones)(width, f32)
+        if not cfg.post_norm_only:
+            sd[p + "input_layernorm.weight"] = norm
         sd[p + "post_attention_layernorm.weight"] = norm
         if cfg.sandwich_norms:
             sd[p + "pre_feedforward_layernorm.weight"] = norm
+        if cfg.sandwich_norms or cfg.post_norm_only:
             sd[p + "post_feedforward_layernorm.weight"] = norm
     sd["model.norm.weight"] = norm
     if not cfg.tie_embeddings:
@@ -2521,22 +2567,22 @@ def family_2_layer(name: str) -> tuple[models.TransformerConfig, int]:
         full = models.TransformerConfig.qwen2_1_5b(dtype=torch.bfloat16)
     else:
         full = models.TransformerConfig.from_hf_config(FAMILY_CONFIGS[name], dtype=torch.bfloat16)
-    # gemma3 keeps the published 5th and 6th layers' types: sliding, full
-    cut = dataclasses.replace(full, n_layers=FAMILY_LAYERS, layer_types=full.layer_types[4:6])
+    # the kept layers' types and rope flags (FAMILY_FIRST_LAYER)
+    lo = FAMILY_FIRST_LAYER.get(name, 0)
+    kept = slice(lo, lo + FAMILY_LAYERS)
+    cut = dataclasses.replace(full, n_layers=FAMILY_LAYERS, layer_types=full.layer_types[kept],
+                              rope_layers=full.rope_layers[kept])
     return cut, full.n_layers
 
 
-def family_weights(cfg: models.TransformerConfig, name: str, seed: int) -> dict[str, np.ndarray]:
-    """``planted_rank_weights``; phi3's are written in its fused checkpoint
-    layout (q/k/v in ``qkv_proj``, gate/up in ``gate_up_proj``) and split
-    back by the loader's translator, as a snapshot's would be."""
-    sd = planted_rank_weights(cfg, seed)
-    if name != "phi3_mini":
-        return sd
+def fused_layout(sd: dict[str, np.ndarray], qkv: bool) -> dict[str, np.ndarray]:
+    """gate/up fused into ``gate_up_proj`` and, with ``qkv``, q/k/v into
+    ``qkv_proj`` (phi3's checkpoint layout; GLM-4's fuses gate/up only)."""
+    fused_away = ("mlp.up_proj", *(("self_attn.k_proj", "self_attn.v_proj") if qkv else ()))
     fused = {}
     for k, v in sd.items():
         stem = k.rpartition(".")[0]
-        if stem.endswith("self_attn.q_proj"):
+        if qkv and stem.endswith("self_attn.q_proj"):
             base = stem[: -len("q_proj")]
             fused[base + "qkv_proj.weight"] = np.concatenate(
                 [sd[base + f"{p}_proj.weight"] for p in "qkv"])
@@ -2544,12 +2590,45 @@ def family_weights(cfg: models.TransformerConfig, name: str, seed: int) -> dict[
             base = stem[: -len("gate_proj")]
             fused[base + "gate_up_proj.weight"] = np.concatenate(
                 [sd[base + "gate_proj.weight"], sd[base + "up_proj.weight"]])
-        elif not stem.endswith(("self_attn.k_proj", "self_attn.v_proj", "mlp.up_proj")):
+        elif not stem.endswith(fused_away):
             fused[k] = v
-    split = hf_loader.translator_for(PHI3_MINI)(fused)
-    if split.keys() != sd.keys() or any(not np.array_equal(split[k], sd[k]) for k in sd):
-        raise AssertionError("phi3_mini: the split of the fused layout is not the weights")
-    return split
+    return fused
+
+
+def glm4_layout(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """GLM-4's checkpoint layout: gate/up fused, and its norm names (the
+    attention output's ``post_self_attn_layernorm``, the pre-MLP
+    ``post_attention_layernorm``, the MLP output's ``post_mlp_layernorm``)."""
+    names = ((".post_attention_layernorm.", ".post_self_attn_layernorm."),
+             (".pre_feedforward_layernorm.", ".post_attention_layernorm."),
+             (".post_feedforward_layernorm.", ".post_mlp_layernorm."))
+    out = {}
+    for k, v in fused_layout(sd, qkv=False).items():
+        for ours, theirs in names:
+            if ours in k:
+                k = k.replace(ours, theirs)
+                break
+        out[k] = v
+    return out
+
+
+# the families whose planted weights are written in their checkpoint layout
+# and translated back by the loader, as a snapshot's would be
+FAMILY_LAYOUTS = {"phi3_mini": lambda sd: fused_layout(sd, qkv=True), "glm4_9b": glm4_layout}
+
+
+def family_weights(cfg: models.TransformerConfig, name: str, seed: int) -> dict[str, np.ndarray]:
+    """``planted_rank_weights``, written in the family's checkpoint layout
+    (``FAMILY_LAYOUTS``) and translated back by ``hf_loader.translator_for``,
+    which must give the weights again."""
+    sd = planted_rank_weights(cfg, seed)
+    if name not in FAMILY_LAYOUTS:
+        return sd
+    back = hf_loader.translator_for(FAMILY_CONFIGS[name])(FAMILY_LAYOUTS[name](sd))
+    if back.keys() != sd.keys() or any(
+            back[k] is not sd[k] and not np.array_equal(back[k], sd[k]) for k in sd):
+        raise AssertionError(f"{name}: the translated checkpoint layout is not the weights")
+    return back
 
 
 def flash_as_jax(counts: dict[str, int], name: str, what: str) -> None:
@@ -2632,6 +2711,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
           "ranks": {k: v["modules"]["0"]["out_features"] for k, v in config.items()},
           "artifact": artifact, "serve": serve, "fused_ms": fused_ms,
           "cuts": {"layers": [full_layers, cfg.n_layers], "layer_types": cfg.layer_types,
+                   "rope_layers": cfg.rope_layers,
                    "weights": f"planted rank {PLANTED_RANK}, seed {seed}", "dtype": "bf16"},
           "generate": {"batch": FAMILY_PROMPTS, "prompt": prompt.shape[1],
                        "new_tokens": TINY_NEW, "wall_s": gen["wall_s"], **gen["gate"]},
@@ -3400,7 +3480,8 @@ def main() -> None:
         phi_counts = phi2_cli_decompose(dev, args.seed, pathlib.Path(tmp), data)
     torch.cuda.empty_cache()
     family_counts = {}
-    for name in ("qwen2_1_5b", "gemma_2b", "llama3_2_1b", "gemma2_2b", "gemma3_1b", "phi3_mini"):
+    for name in ("qwen2_1_5b", "gemma_2b", "llama3_2_1b", "gemma2_2b", "gemma3_1b", "phi3_mini",
+                 "olmo2_1b", "glm4_9b", "smollm3_3b"):
         family_counts.update(family_serve(dev, name, args.seed))
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()

@@ -4,11 +4,12 @@ Counterpart of the llama-family and phi part of
 ``ptdeco_tpu/models/hf_loader.py``: the port's parameter names are HF's
 (``model.layers.0.self_attn.q_proj.weight``, phi's
 ``model.layers.0.self_attn.dense.weight`` ...) and in torch layout, so an
-HF state dict of a llama, mistral, qwen2, qwen3, gemma, gemma2,
-gemma3_text or phi snapshot loads as it is (a tied model needs no
-``lm_head.weight``; one the snapshot holds anyway is ignored); Mixtral's
-expert names are translated, phi3's fused projections split and the gemma3
-wrapper's text path unwrapped.  Shards
+HF state dict of a llama, code_llama, mistral, ministral, qwen2, qwen3,
+gemma, gemma2, gemma3_text, olmo2, olmo3, smollm3 or phi snapshot loads as
+it is (a tied model needs no ``lm_head.weight``; one the snapshot holds
+anyway is ignored); Mixtral's expert names are translated, phi3's, glm's
+and glm4's fused projections split, glm4's norms renamed onto the sandwich
+slots and the gemma3 and got_ocr2 wrappers' text paths unwrapped.  Shards
 are read from ``*.safetensors`` where that package is importable, else
 from ``pytorch_model*.bin`` with ``torch.load``.
 """
@@ -24,6 +25,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from .. import utils
+from .transformer import WRAPPED_TEXT_TYPES
 
 __all__ = [
     "read_hf_config",
@@ -31,6 +33,8 @@ __all__ = [
     "load_into_causal_lm",
     "translate_mixtral_state_dict",
     "split_phi3_fused_projections",
+    "translate_glm4_state_dict",
+    "translate_glm_state_dict",
     "make_multimodal_text_translator",
     "translator_for",
 ]
@@ -112,12 +116,58 @@ def split_phi3_fused_projections(
             out[stem + "q_proj.weight"] = v[:q_rows]
             out[stem + "k_proj.weight"] = v[q_rows : q_rows + kv_rows]
             out[stem + "v_proj.weight"] = v[q_rows + kv_rows :]
-        elif k.endswith(".mlp.gate_up_proj.weight"):
-            stem = k[: -len("gate_up_proj.weight")]
-            half = v.shape[0] // 2
-            out[stem + "gate_proj.weight"] = v[:half]
-            out[stem + "up_proj.weight"] = v[half:]
-        else:
+        elif not _split_gate_up(k, v, out):
+            out[k] = v
+    return out
+
+
+def _split_gate_up(k: str, v: torch.Tensor, out: dict[str, torch.Tensor]) -> bool:
+    """Split a fused ``mlp.gate_up_proj.weight`` in halves into ``out``;
+    False for any other key."""
+    if not k.endswith(".mlp.gate_up_proj.weight"):
+        return False
+    stem = k[: -len("gate_up_proj.weight")]
+    half = v.shape[0] // 2
+    out[stem + "gate_proj.weight"] = v[:half]
+    out[stem + "up_proj.weight"] = v[half:]
+    return True
+
+
+# GLM-4's norm names -> the sandwich slots (HF Glm4DecoderLayer); each key
+# matches one rule, so its post_attention_layernorm (the pre-MLP norm) never
+# meets the slot of that name
+_GLM4_NORMS = (
+    (".post_self_attn_layernorm.", ".post_attention_layernorm."),
+    (".post_attention_layernorm.", ".pre_feedforward_layernorm."),
+    (".post_mlp_layernorm.", ".post_feedforward_layernorm."),
+)
+
+
+def translate_glm4_state_dict(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """GLM-4's layout into the sandwich names: ``post_self_attn_layernorm``
+    (on the attention output) -> ``post_attention_layernorm``, its
+    ``post_attention_layernorm`` (before the MLP) ->
+    ``pre_feedforward_layernorm``, ``post_mlp_layernorm`` ->
+    ``post_feedforward_layernorm``; ``mlp.gate_up_proj`` splits in halves
+    into gate/up."""
+    out: dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if _split_gate_up(k, v, out):
+            continue
+        for old, new in _GLM4_NORMS:
+            if old in k:
+                k = k.replace(old, new)
+                break
+        out[k] = v
+    return out
+
+
+def translate_glm_state_dict(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """GLM's layout (a pre-norm llama block): only ``mlp.gate_up_proj``
+    splits in halves into gate/up."""
+    out: dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if not _split_gate_up(k, v, out):
             out[k] = v
     return out
 
@@ -131,14 +181,16 @@ def _phi3_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
 
 
 def make_multimodal_text_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
-    """The gemma3 wrapper: strip ``model.language_model.`` to ``model.``,
-    drop the vision tower and projector the text path never runs (and a
-    tied ``lm_head.weight``), then the inner family's translator
-    (gemma3_text needs none)."""
+    """The gemma3 and got_ocr2 wrappers: strip ``model.language_model.`` to
+    ``model.``, drop the vision tower and projector the text path never runs
+    (and a tied ``lm_head.weight``; gemma3 is tied unless its text_config
+    says otherwise, got_ocr2 untied), then the inner family's translator
+    (gemma3_text and qwen2 need none)."""
+    mt = hf_cfg["model_type"]
     inner_cfg = dict(hf_cfg.get("text_config") or {})
-    inner_cfg.setdefault("model_type", "gemma3_text")
+    inner_cfg.setdefault("model_type", WRAPPED_TEXT_TYPES[mt])
     inner = translator_for(inner_cfg)
-    tied = bool(inner_cfg.get("tie_word_embeddings", True))
+    tied = bool(inner_cfg.get("tie_word_embeddings", mt == "gemma3"))
     drop = ("model.vision_tower.", "model.multi_modal_projector.")
 
     def translate(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -153,14 +205,17 @@ def make_multimodal_text_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
 
 
 # model types whose HF names are the port model's own
-_SAME_NAMES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2", "gemma3_text", "phi")
+_SAME_NAMES = (
+    "llama", "code_llama", "mistral", "ministral", "qwen2", "qwen3", "gemma", "gemma2",
+    "gemma3_text", "olmo2", "olmo3", "smollm3", "phi",
+)
 
 
 def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:
     """The checkpoint-layout translator for a config's ``model_type``: None
     where HF's names are the model's already.  phi3's split takes the
     config's head counts.  Raises for a model type the port has no model
-    for."""
+    for (ROADMAP.md lists them)."""
     mt = hf_cfg.get("model_type")
     if mt in _SAME_NAMES:
         return None
@@ -168,9 +223,13 @@ def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:
         return translate_mixtral_state_dict
     if mt == "phi3":
         return _phi3_translator(hf_cfg)
-    if mt == "gemma3":
+    if mt == "glm4":
+        return translate_glm4_state_dict
+    if mt == "glm":
+        return translate_glm_state_dict
+    if mt in WRAPPED_TEXT_TYPES:
         return make_multimodal_text_translator(hf_cfg)
     raise ValueError(
-        f"model_type={mt!r}: the port has models for {list(_SAME_NAMES)}, mixtral, phi3 "
-        "and gemma3 only"
+        f"model_type={mt!r}: the port has models for {list(_SAME_NAMES)}, glm, glm4, got_ocr2, "
+        "mixtral, phi3 and gemma3 only; the other families wait in ROADMAP.md"
     )

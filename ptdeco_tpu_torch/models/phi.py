@@ -116,8 +116,7 @@ class PhiAttention(torch.nn.Module):
         self.rope_theta = cfg.rope_theta
 
     def _partial_rope(self, t: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        rd = self.rotary_dim
-        return torch.cat([_rope(t[..., :rd], positions, self.rope_theta), t[..., rd:]], dim=-1)
+        return _rope(t, positions, self.rope_theta, partial_dim=self.rotary_dim)
 
     def forward(
         self,

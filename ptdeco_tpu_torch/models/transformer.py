@@ -3,13 +3,17 @@
 Counterpart of the llama-family and Mixtral parts of
 ``ptdeco_tpu/models/transformer.py``: RMSNorm (optionally the gemma (1 + w)
 flavour), HF rotate-half rope at absolute positions (optionally with
-llama3, yarn, linear or phi3's short-factor longrope scaling), grouped-query
-attention (optionally with Qwen2's q/k/v biases, Qwen3's and Gemma-3's
-per-head q/k RMSNorm, Gemma-2's logit soft-cap and query scale, and
-Gemma-3's sliding-window layers with their local rope), a gated MLP
-(SwiGLU, or gemma's tanh-GELU), the top-k routed mixture of SwiGLU experts
-(``MoEMLP``), pre-norm blocks (Gemma-2's and Gemma-3's sandwich norms;
-optionally each under ``torch.utils.checkpoint``, the config's ``remat``),
+llama3, yarn, linear or phi3's short-factor longrope scaling, over only the
+leading dims of each head and pair-interleaved as GLM's, or left out per
+layer as SmolLM3's NoPE layers), grouped-query attention (optionally with
+Qwen2's and GLM's q/k/v biases, Qwen3's and Gemma-3's per-head q/k RMSNorm,
+OLMo-2's q/k RMSNorm over the whole projection and its ``clip_qkv`` clamp,
+Gemma-2's logit soft-cap and query scale, and the sliding-window layers of
+Gemma-3, OLMo-3 and Ministral with Gemma-3's and OLMo-3's local rope), a
+gated MLP (SwiGLU, or gemma's tanh-GELU), the top-k routed mixture of
+SwiGLU experts (``MoEMLP``), pre-norm blocks (the sandwich norms of
+Gemma-2, Gemma-3 and GLM-4, OLMo-2's post-norm-only blocks; optionally each
+under ``torch.utils.checkpoint``, the config's ``remat``),
 an embedding optionally scaled by sqrt(dim) (gemma), and a
 dict-in/logits-out ``CausalLM`` (optionally soft-capping its logits).
 Every projection is an ``nn.Linear`` site and parameter names follow HF
@@ -47,17 +51,21 @@ __all__ = [
     "CausalLM",
     "ce_loss",
     "HF_FAMILIES",
+    "WRAPPED_TEXT_TYPES",
 ]
 
 logger = logging.getLogger(__name__)
 
 
-# the HF model types ``TransformerConfig.from_hf_config`` builds (gemma3 is
-# the multimodal wrapper, whose text path is gemma3_text)
+# the HF model types ``TransformerConfig.from_hf_config`` builds (gemma3 and
+# got_ocr2 are multimodal wrappers, whose text paths are gemma3_text and
+# qwen2; code_llama is llama's graph under another name)
 HF_FAMILIES = (
     "llama", "mistral", "qwen2", "qwen3", "gemma", "mixtral", "gemma2", "gemma3_text", "gemma3",
-    "phi3",
+    "phi3", "olmo2", "olmo3", "smollm3", "glm", "glm4", "ministral", "code_llama", "got_ocr2",
 )
+# the text path's model type of each multimodal wrapper
+WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +89,12 @@ class TransformerConfig:
     norm_plus_one: bool = False
     # Qwen3 and Gemma-3: a per-head RMSNorm on q and k before rope
     qk_norm: bool = False
+    # OLMo-2 / OLMo-3: the q/k RMSNorms span the whole projection (all heads
+    # jointly, widths n_heads * head_dim and n_kv_heads * head_dim)
+    qk_norm_flat: bool = False
+    # OLMo-2 / OLMo-3: no input norm; the attention and MLP outputs are
+    # normed before each residual add
+    post_norm_only: bool = False
     # gemma2 / gemma3: sandwich norms (the attention output normed, the MLP
     # between a pre and a post norm), tanh soft-caps of the attention and
     # final logits, and the query scale query_pre_attn_scalar ** -0.5
@@ -101,8 +115,18 @@ class TransformerConfig:
     # cos and sin scaled by the factor; yarn, linear (inv_freq / factor,
     # factor 1) and phi3's short-factor longrope
     rope_yarn: Optional[tuple] = None
-    # gemma3: sliding layers rotate at this unscaled local theta
+    # gemma3: sliding layers rotate at this unscaled local theta (olmo3: at
+    # rope_theta, unscaled)
     rope_local_theta: Optional[float] = None
+    # smollm3: rope_layers[i] == 0 leaves layer i unrotated (NoPE; empty:
+    # rope everywhere)
+    rope_layers: tuple = ()
+    # glm / glm4: only the first int(head_dim * factor) dims of each head
+    # rotate, in the pair-interleaved (GPT-J) convention
+    rope_partial_factor: Optional[float] = None
+    rope_interleaved: bool = False
+    # olmo: q, k and v clamped to [-clip_qkv, clip_qkv] after the q/k norms
+    clip_qkv: Optional[float] = None
     dtype: torch.dtype = torch.float32
     # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
     # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
@@ -123,22 +147,25 @@ class TransformerConfig:
     def from_hf_config(
         hf: dict[str, Any], dtype: torch.dtype = torch.bfloat16, remat: bool = False
     ) -> "TransformerConfig":
-        """HF ``config.json`` of a llama, mistral, qwen2, qwen3, gemma,
-        gemma2, gemma3_text (or the gemma3 wrapper's text_config), phi3 or
-        mixtral checkpoint -> config, as the JAX package's family branch
-        builds it.  Raises ValueError on anything these families do not
-        express here (rope types other than llama3 / yarn / linear, phi3's
-        partial rotary, other bias layouts and every other model type;
-        ROADMAP.md lists them).  A ``sliding_window`` is applied per layer
-        for gemma3; for mistral, mixtral, gemma2 and phi3 it is logged and
-        not applied: full causal attention, exact for sequences within the
-        window."""
+        """HF ``config.json`` of a llama (or code_llama), mistral, qwen2,
+        qwen3, gemma, gemma2, gemma3_text, phi3, olmo2, olmo3, smollm3, glm,
+        glm4, ministral or mixtral checkpoint, or of the gemma3 or got_ocr2
+        wrapper (its text_config) -> config, as the JAX package's family
+        branch builds it.  Raises ValueError on anything these families do
+        not express here (rope types other than llama3 / yarn / linear,
+        phi3's partial rotary, other bias layouts and every other model
+        type; ROADMAP.md lists them).  A ``sliding_window`` is applied per
+        layer for gemma3, olmo3 and ministral; for mistral, mixtral, gemma2
+        and phi3 it is logged and not applied: full causal attention, exact
+        for sequences within the window."""
         mt = hf.get("model_type", "llama")
-        if mt == "gemma3":
-            # the multimodal wrapper: the text path builds from text_config
+        if mt == "code_llama":  # HF maps it to LlamaConfig: the llama graph
+            mt = "llama"
+        if mt in WRAPPED_TEXT_TYPES:
+            # a multimodal wrapper: the text path builds from text_config
             # (its vision tower's weights are dropped on load)
             hf = dict(hf["text_config"])
-            hf.setdefault("model_type", "gemma3_text")
+            hf.setdefault("model_type", WRAPPED_TEXT_TYPES[mt])
             mt = hf["model_type"]
         if mt not in HF_FAMILIES:
             raise ValueError(
@@ -168,13 +195,16 @@ class TransformerConfig:
         act_map = {"silu": "silu", "gelu": "gelu_tanh", "gelu_pytorch_tanh": "gelu_tanh"}
         if act not in act_map:
             raise ValueError(f"Unsupported hidden_act={act!r}")
-        # qwen2's layout (biases on q/k/v, none on o_proj) and gemma3's (all
-        # four) are the attention biases expressed; llama / mistral with
-        # attention_bias bias o_proj too, and mlp_bias biases gate/up/down
-        if bool(hf.get("attention_bias", False)) and mt not in ("qwen2", "gemma3_text"):
+        # qwen2's and glm's layout (biases on q/k/v, none on o_proj) and
+        # gemma3's (all four) are the attention biases expressed; llama /
+        # mistral with attention_bias bias o_proj too, and mlp_bias biases
+        # gate/up/down
+        qkv_bias_types = ("qwen2", "glm", "glm4")
+        if bool(hf.get("attention_bias", False)) and mt not in (*qkv_bias_types, "gemma3_text"):
             raise ValueError(
                 "attention_bias=True with an o_proj bias is not expressed (only "
-                "qwen2's q/k/v-bias and gemma3's layouts are); ROADMAP.md lists the other layouts"
+                "qwen2's and glm's q/k/v-bias and gemma3's layouts are); ROADMAP.md lists the "
+                "other layouts"
             )
         if bool(hf.get("mlp_bias", False)):
             raise ValueError(
@@ -217,11 +247,12 @@ class TransformerConfig:
                 )
         elif rs is not None:
             rope_yarn = _longrope_short_factor(hf, rs, rot_dim, theta)
-        # gemma3's windowed layers are applied per layer_types (derived from
-        # sliding_window_pattern where absent: every pat-th layer is full)
-        hybrid_sliding = mt == "gemma3_text"
+        # the windowed layers of gemma3, olmo3 and ministral are applied per
+        # layer_types (gemma3 derives it from sliding_window_pattern where
+        # absent: every pat-th layer is full)
+        hybrid_sliding = mt in ("gemma3_text", "olmo3", "ministral")
         layer_types = tuple(hf.get("layer_types") or ())
-        if hybrid_sliding and not layer_types:
+        if mt == "gemma3_text" and not layer_types:
             pat = int(hf.get("sliding_window_pattern") or 6)
             layer_types = tuple(
                 "full_attention" if (i + 1) % pat == 0 else "sliding_attention"
@@ -234,6 +265,7 @@ class TransformerConfig:
                 "sequences within the window for exactness", sliding,
             )
         gemma_like = mt in ("gemma", "gemma2", "gemma3_text")
+        olmo = mt in ("olmo2", "olmo3")
 
         def opt_float(key: str) -> Optional[float]:
             return float(hf[key]) if hf.get(key) is not None else None
@@ -247,14 +279,18 @@ class TransformerConfig:
             hidden_dim=int(hf["intermediate_size"]),
             norm_eps=float(hf.get("rms_norm_eps", 1e-6)),
             rope_theta=theta,
-            qkv_bias=bool(hf.get("attention_bias", mt == "qwen2")),
+            qkv_bias=bool(hf.get("attention_bias", mt in qkv_bias_types)),
             tie_embeddings=bool(hf.get("tie_word_embeddings", gemma_like)),
             head_dim_override=override,
             mlp_act=act_map[act],
             scale_embeddings=gemma_like,
             norm_plus_one=gemma_like,
             qk_norm=mt in ("qwen3", "gemma3_text"),
-            sandwich_norms=mt in ("gemma2", "gemma3_text"),
+            qk_norm_flat=olmo,
+            post_norm_only=olmo,
+            # glm4's block is gemma2's sandwich wiring under other checkpoint
+            # names (hf_loader.translate_glm4_state_dict)
+            sandwich_norms=mt in ("gemma2", "gemma3_text", "glm4"),
             attn_logit_softcap=opt_float("attn_logit_softcapping"),
             final_logit_softcap=opt_float("final_logit_softcapping"),
             query_scale_override=opt_float("query_pre_attn_scalar"),
@@ -263,9 +299,20 @@ class TransformerConfig:
             layer_types=layer_types if hybrid_sliding else (),
             o_proj_bias=bool(hf.get("attention_bias", False)) if hybrid_sliding else False,
             rope_yarn=rope_yarn,
+            # olmo3's sliding layers rotate at rope_theta with the scaling
+            # dropped
             rope_local_theta=(
-                float(hf.get("rope_local_base_freq", 10000.0)) if mt == "gemma3_text" else None
+                float(hf.get("rope_local_base_freq", 10000.0)) if mt == "gemma3_text"
+                else theta if mt == "olmo3" else None
             ),
+            rope_layers=(
+                tuple(int(v) for v in (hf.get("no_rope_layers") or ())) if mt == "smollm3" else ()
+            ),
+            rope_partial_factor=(
+                float(hf.get("partial_rotary_factor", 0.5)) if mt in ("glm", "glm4") else None
+            ),
+            rope_interleaved=mt in ("glm", "glm4"),
+            clip_qkv=opt_float("clip_qkv"),
             dtype=dtype,
             # HF MixtralSparseMoeBlock: softmax over all experts, top-k,
             # always renormalized; experts at intermediate_size
@@ -424,13 +471,21 @@ def _rope(
     theta: float,
     llama3_scaling: Optional[tuple] = None,
     yarn: Optional[tuple] = None,
+    partial_dim: Optional[int] = None,
+    interleaved: bool = False,
 ) -> torch.Tensor:
     """HF llama rotate-half rotary embedding at absolute ``positions``
     (b, s); x: (b, s, heads, hd).  ``yarn`` (inverse frequencies, attention
     factor) replaces the theta frequencies and scales cos and sin;
-    ``llama3_scaling`` rescales the frequencies."""
-    hd = x.shape[-1]
-    half = hd // 2
+    ``llama3_scaling`` rescales the frequencies.  ``partial_dim`` rotates
+    only the first that many dims of each head (the rest pass through, the
+    frequencies' exponent over half of them) and ``interleaved`` rotates the
+    pairs (0::2, 1::2) as GPT-J does: together GLM-4's rotary."""
+    if partial_dim is not None and partial_dim < x.shape[-1]:
+        rotated = _rope(x[..., :partial_dim], positions, theta, llama3_scaling, yarn,
+                        interleaved=interleaved)
+        return torch.cat([rotated, x[..., partial_dim:]], dim=-1)
+    half = x.shape[-1] // 2
     attn_factor = 1.0
     if yarn is not None:
         inv_freq, attn_factor = yarn
@@ -444,8 +499,12 @@ def _rope(
     sin = torch.sin(angles)[:, :, None, :]
     if yarn is not None:
         cos, sin = cos * attn_factor, sin * attn_factor
-    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if interleaved:
+        x1, x2 = x[..., 0::2].to(torch.float32), x[..., 1::2].to(torch.float32)
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).flatten(-2)
+    else:
+        x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
@@ -453,8 +512,9 @@ class Attention(torch.nn.Module):
     """Grouped-query attention of layer ``layer_idx`` (the JAX package's
     ``Attention.create``): a layer ``layer_types`` marks
     "sliding_attention" sees the last ``sliding_window`` keys and, with a
-    ``rope_local_theta`` (gemma3), rotates at that theta unscaled; the
-    scale is ``query_scale_override ** -0.5`` where that is set."""
+    ``rope_local_theta`` (gemma3, olmo3), rotates at that theta unscaled; a
+    layer ``rope_layers`` marks 0 is not rotated; the scale is
+    ``query_scale_override ** -0.5`` where that is set."""
 
     def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
         super().__init__()
@@ -464,11 +524,18 @@ class Attention(torch.nn.Module):
         self.k_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
         self.v_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
         self.o_proj = torch.nn.Linear(cfg.n_heads * hd, cfg.dim, bias=cfg.o_proj_bias, **kw)
-        if cfg.qk_norm:  # Qwen3 and Gemma-3: per head, over head_dim
-            self.q_norm = RMSNorm(hd, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
-            self.k_norm = RMSNorm(hd, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
+        if cfg.qk_norm or cfg.qk_norm_flat:
+            # Qwen3 and Gemma-3: per head, over head_dim; OLMo-2: over the
+            # whole projection
+            q_width, k_width = (
+                (cfg.n_heads * hd, cfg.n_kv_heads * hd) if cfg.qk_norm_flat else (hd, hd)
+            )
+            self.q_norm = RMSNorm(q_width, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
+            self.k_norm = RMSNorm(k_width, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
         else:
             self.q_norm = self.k_norm = None
+        self.qk_norm_flat = cfg.qk_norm_flat
+        self.clip_qkv = cfg.clip_qkv
         self.n_heads = cfg.n_heads
         self.n_kv_heads = cfg.n_kv_heads
         self.head_dim = hd
@@ -480,6 +547,11 @@ class Attention(torch.nn.Module):
         self.rope_theta = cfg.rope_local_theta if local_rope else cfg.rope_theta
         self.rope_yarn = None if local_rope else cfg.rope_yarn
         self.rope_llama3_scaling = cfg.rope_llama3_scaling
+        self.use_rope = layer_idx >= len(cfg.rope_layers) or bool(cfg.rope_layers[layer_idx])
+        self.rope_partial_dim = (
+            int(hd * cfg.rope_partial_factor) if cfg.rope_partial_factor is not None else None
+        )
+        self.rope_interleaved = cfg.rope_interleaved
         self.sliding_window = cfg.sliding_window if sliding else None
         self.logit_softcap = cfg.attn_logit_softcap
         self.scale_override = cfg.query_scale_override
@@ -489,22 +561,30 @@ class Attention(torch.nn.Module):
         return (self.scale_override if self.scale_override is not None else hd) ** -0.5
 
     def rope(self, t: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        return _rope(t, positions, self.rope_theta, self.rope_llama3_scaling, self.rope_yarn)
+        if not self.use_rope:
+            return t
+        return _rope(t, positions, self.rope_theta, self.rope_llama3_scaling, self.rope_yarn,
+                     self.rope_partial_dim, self.rope_interleaved)
 
     def project_qkv(
         self, x: torch.Tensor, positions: Optional[torch.Tensor] = None
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Projections (with their biases), the per-head q/k norms and rope
-        at absolute ``positions`` (b, s; arange when None): q (b, s, heads,
-        hd) and k, v (b, s, kv_heads, hd), before any GQA repeat.  The
-        cached attention (``serving.py``) reuses it."""
+        """Projections (with their biases), the flat q/k norms, the
+        ``clip_qkv`` clamp, the per-head q/k norms and rope at absolute
+        ``positions`` (b, s; arange when None): q (b, s, heads, hd) and k, v
+        (b, s, kv_heads, hd), before any GQA repeat.  The cached attention
+        (``serving.py``) reuses it."""
         b, s, _ = x.shape
-        q = self.q_proj(x)
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         hd = q.shape[-1] // self.n_heads  # robust to decomposed projections
+        if self.q_norm is not None and self.qk_norm_flat:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if self.clip_qkv is not None:
+            q, k, v = (torch.clamp(t, -self.clip_qkv, self.clip_qkv) for t in (q, k, v))
         q = q.reshape(b, s, self.n_heads, hd)
-        k = self.k_proj(x).reshape(b, s, self.n_kv_heads, hd)
-        v = self.v_proj(x).reshape(b, s, self.n_kv_heads, hd)
-        if self.q_norm is not None:
+        k = k.reshape(b, s, self.n_kv_heads, hd)
+        v = v.reshape(b, s, self.n_kv_heads, hd)
+        if self.q_norm is not None and not self.qk_norm_flat:
             q, k = self.q_norm(q), self.k_norm(k)
         if positions is None:
             positions = _positions(b, s, 0, x.device)
@@ -748,22 +828,24 @@ class MoEMLP(torch.nn.Module):
 
 
 class Block(torch.nn.Module):
-    """Pre-norm block; with ``sandwich_norms`` (gemma2 / gemma3)
+    """Pre-norm block; with ``sandwich_norms`` (gemma2 / gemma3 / glm4)
     ``post_attention_layernorm`` norms the attention output and the MLP runs
     between ``pre_feedforward_layernorm`` and ``post_feedforward_layernorm``
-    (HF's names, JAX transformer.py:5643-5646)."""
+    (HF's names, JAX transformer.py:5643-5646); with ``post_norm_only``
+    (olmo2 / olmo3) there is no ``input_layernorm`` and the attention and MLP
+    outputs are normed by ``post_attention_layernorm`` and
+    ``post_feedforward_layernorm`` before their residual adds (:5640-5642)."""
 
     def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
         super().__init__()
         norm = (cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
-        self.input_layernorm = RMSNorm(*norm)
+        self.input_layernorm = None if cfg.post_norm_only else RMSNorm(*norm)
         self.self_attn = Attention(cfg, device, layer_idx)
         self.post_attention_layernorm = RMSNorm(*norm)
-        if cfg.sandwich_norms:
-            self.pre_feedforward_layernorm = RMSNorm(*norm)
-            self.post_feedforward_layernorm = RMSNorm(*norm)
-        else:
-            self.pre_feedforward_layernorm = self.post_feedforward_layernorm = None
+        self.pre_feedforward_layernorm = RMSNorm(*norm) if cfg.sandwich_norms else None
+        self.post_feedforward_layernorm = (
+            RMSNorm(*norm) if cfg.sandwich_norms or cfg.post_norm_only else None
+        )
         self.mlp = MoEMLP(cfg, device) if cfg.n_experts > 0 else MLP(cfg, device)
 
     def forward(
@@ -776,6 +858,9 @@ class Block(torch.nn.Module):
         """``self_attn`` stands in for the block's attention when given (the
         cached attention of ``serving.forward_with_cache``)."""
         attn = self.self_attn if self_attn is None else self_attn
+        if self.input_layernorm is None:  # post-norm-only
+            h = x + self.post_attention_layernorm(attn(x, attn_mask, positions))
+            return h + self.post_feedforward_layernorm(self.mlp(h))
         attn_out = attn(self.input_layernorm(x), attn_mask, positions)
         if self.pre_feedforward_layernorm is not None:
             h = x + self.post_attention_layernorm(attn_out)

@@ -99,8 +99,8 @@ REFUSED_BY_BOTH = {
     "mamba": tiny_hf("mamba"),
 }
 REFUSED_BY_PORT = {
-    "olmo2": tiny_hf("olmo2"),
-    "glm4": tiny_hf("glm4", head_dim=8),
+    "olmoe": tiny_hf("olmoe", num_experts=4, num_experts_per_tok=2),
+    "gpt_oss": tiny_hf("gpt_oss", head_dim=8, num_local_experts=4, num_experts_per_tok=2),
     "qwen3_moe": tiny_hf("qwen3_moe", head_dim=8, num_experts=4, num_experts_per_tok=2,
                          moe_intermediate_size=16),
     "deepseek_v3": tiny_hf("deepseek_v3", n_routed_experts=4, num_experts_per_tok=2,
