@@ -69,6 +69,15 @@ theta, q/k norms; its cached ``generate`` prompt runs past the window) and
 Phi-3-mini (32 heads of 96, the flash kernel's head dim 96; its weights
 written in phi3's fused layout and split on load).
 
+Slice 14 runs the same path on OLMo-2-1B, GLM-4-9B and SmolLM3-3B, and
+slice 15 on the first decoders beyond the llama graph: GPT-2 XL (LayerNorm
+blocks, a non-gated gelu_new MLP, learned positions, 25 heads of 64, its
+weights written in GPT-2's Conv1D layout), Pythia-1.4B (GPT-NeoX: a quarter
+of each head rotated, two-norm parallel blocks, fused per-head
+query_key_value) and Falcon-7B (71 query heads over one kv head, one-norm
+parallel blocks, widths 4544 and 18176 off the 128 grid of the MLP Gram's
+tiles, its fused query_key_value), each at its public config.json's widths.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -88,7 +97,8 @@ bf16 ragged prefill gate, decode / beam / batcher step ms, speculative
 round ms, acceptance and the gate's measured ratio), phi2_cli_decompose
 (wall, ranks, launches: SYRK and no flash; the artifact reloaded, the fused
 serve against its pairs and its f32 twin), qwen2_1_5b, gemma_2b,
-llama3_2_1b, gemma2_2b, gemma3_1b and phi3_mini (walk and phase wall, cuts,
+llama3_2_1b, gemma2_2b, gemma3_1b, phi3_mini, olmo2_1b, glm4_9b, smollm3_3b,
+gpt2_xl, pythia_1_4b and falcon_7b (walk and phase wall and its split, cuts,
 ranks, artifact, fused serve, ``generate``, f32 tokens, reference), dwain_mlp,
 falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
 lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
@@ -332,9 +342,34 @@ SMOLLM3_3B = dict(
     use_sliding_window=False, sliding_window=None, no_rope_layer_interval=4,
     no_rope_layers=[int((i + 1) % 4 != 0) for i in range(36)],
 )
+# Slice 15: the first families beyond the llama graph, the same way:
+# openai-community/gpt2-xl (LayerNorm blocks, a non-gated biased gelu_new
+# MLP, learned positions, 25 heads of 64; its planted weights written in
+# GPT-2's Conv1D layout), EleutherAI/pythia-1.4b (GPT-NeoX: 32 of each
+# 128-dim head rotated, two-norm parallel blocks, untied; its weights in the
+# per-head fused query_key_value) and tiiuae/falcon-7b (71 heads of 64 over
+# one kv head, one-norm parallel blocks, no projection biases, tied; its
+# weights in Falcon's fused query_key_value)
+GPT2_XL = dict(
+    model_type="gpt2", vocab_size=50257, n_embd=1600, n_head=25, n_layer=48, n_positions=1024,
+    n_ctx=1024, n_inner=None, activation_function="gelu_new", layer_norm_epsilon=1e-5,
+    scale_attn_weights=True, tie_word_embeddings=True,
+)
+PYTHIA_1_4B = dict(
+    model_type="gpt_neox", vocab_size=50304, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=24, num_attention_heads=16, rotary_pct=0.25, rotary_emb_base=10000,
+    use_parallel_residual=True, hidden_act="gelu", layer_norm_eps=1e-5,
+    max_position_embeddings=2048, tie_word_embeddings=False,
+)
+FALCON_7B = dict(
+    model_type="falcon", vocab_size=65024, hidden_size=4544, num_hidden_layers=32,
+    num_attention_heads=71, multi_query=True, parallel_attn=True, new_decoder_architecture=False,
+    bias=False, alibi=False, layer_norm_epsilon=1e-5, tie_word_embeddings=True,
+)
 FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b": GEMMA2_2B,
                   "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI, "olmo2_1b": OLMO2_1B,
-                  "glm4_9b": GLM4_9B, "smollm3_3b": SMOLLM3_3B}
+                  "glm4_9b": GLM4_9B, "smollm3_3b": SMOLLM3_3B, "gpt2_xl": GPT2_XL,
+                  "pythia_1_4b": PYTHIA_1_4B, "falcon_7b": FALCON_7B}
 # the first published layer each cut keeps (0 where not named): gemma3's
 # 5th and 6th (sliding, full), smollm3's 3rd and 4th (rope, NoPE)
 FAMILY_FIRST_LAYER = {"gemma3_1b": 4, "smollm3_3b": 2}
@@ -344,7 +379,9 @@ FAMILY_NO_FLASH = ("gemma2_2b",)
 # gemma3's cached generate prompt, past its 512-token window
 GEMMA3_PROMPT = 640
 FAMILY_LAYERS = 2
-FAMILY_PROMPTS, FAMILY_PROMPT_LENS = 8, (128, 256)
+# 4 prompts each phase (8 until slice 15: the rows repeated each other's
+# checks, and the run's time went to the new phases)
+FAMILY_PROMPTS, FAMILY_PROMPT_LENS = 4, (128, 256)
 PHI_SNAPSHOT_NAME = "phi2-snapshot"  # not a known config: the generic phi branch
 # Their model-level gates (max_abs, rms_rel), about 2-3x the readings on an
 # H100 at seed 0 (PERF.md): "serve" holds the fused model against its pairs
@@ -372,6 +409,13 @@ FAMILY_GATES = {
     "olmo2_1b": {"serve": (0.125, 2e-2), "reference": (0.125, 2e-2)},
     "glm4_9b": {"serve": (0.09375, 1.25e-2), "reference": (0.075, 1.25e-2)},
     "smollm3_3b": {"serve": (0.125, 2e-2), "reference": (0.125, 2e-2)},
+    # slice 15, the same at seed 0: GPT-2 XL 0.031-0.039 / 3.3e-3-4.0e-3 and
+    # 0.031 / 4.9e-3; Pythia-1.4B 0.031 / 2.5e-3 and 0.024 / 4.2e-3
+    # (0.0625 would be two bf16 ulps of logits in [4, 8)); Falcon-7B
+    # 0.031-0.047 / 3.2e-3-5.4e-3 and 0.033 / 4.8e-3
+    "gpt2_xl": {"serve": (0.09375, 1e-2), "reference": (0.09, 1.25e-2)},
+    "pythia_1_4b": {"serve": (0.09375, 6e-3), "reference": (0.06, 1.1e-2)},
+    "falcon_7b": {"serve": (0.125, 1.25e-2), "reference": (0.09, 1.25e-2)},
 }
 
 # Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
@@ -643,8 +687,11 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # Gemma-2B's (16384) Grams (Qwen2-1.5B's 8960 and 1536 lie between);
     # Gemma-2-2B's MLP (9216; Llama-3.2-1B's and Phi-3-mini's 8192 and
     # Gemma-3-1B's 6912 lie below); GLM-4-9B's MLP (13696, 107 tiles of 128
-    # a side; SmolLM3-3B's 11008 lies below)
-    for d in (5632, 2048, 10240, 16384, 9216, 13696):
+    # a side; SmolLM3-3B's 11008 lies below); the widths of slice 15's
+    # Grams: GPT-2 XL's 1600 and Falcon-7B's 4544, off the 128-wide tiles'
+    # grid, GPT-2 XL's MLP (6400), Pythia-1.4B's (8192) and Falcon-7B's
+    # (18176, a 1.32 GB f32 Gram, the largest)
+    for d in (5632, 2048, 10240, 16384, 9216, 13696, 1600, 4544, 6400, 8192, 18176):
         y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
         recs["syrk_gram"].append(check_kernel(
             "syrk_gram",
@@ -675,6 +722,11 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # GLM-4-9B's heads (group 16, the largest) and OLMo-2-1B's (no grouping)
     flash_check(dev, g, recs, 1, SEQ, h=32, h_kv=2, hd=128)
     flash_check(dev, g, recs, 1, SEQ, h=16, h_kv=16, hd=128)
+    # GPT-2 XL's heads (25, no grouping) and Falcon-7B's (71 query heads over
+    # one kv head: 568 query tiles, the widest group); Pythia-1.4B's 16 / 16
+    # heads of 128 are OLMo-2-1B's
+    flash_check(dev, g, recs, 1, SEQ, h=25, h_kv=25, hd=64)
+    flash_check(dev, g, recs, 1, SEQ, h=71, h_kv=1, hd=64)
 
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
@@ -689,7 +741,19 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
               (8, 2048, 32, 5632, False), (8, 5632, 32, 2048, False),
               (32, 2048, 32, 5632, False), (32, 5632, 32, 2048, False),
               # phi-2's biased MLP pairs at rank 32
-              (SEQ, 2560, 32, 10240, True), (SEQ, 10240, 32, 2560, True))
+              (SEQ, 2560, 32, 10240, True), (SEQ, 10240, 32, 2560, True),
+              # slice 15's MLP pairs at rank 32: GPT-2 XL's and
+              # Pythia-1.4B's biased ones, Falcon-7B's unbiased (d 1600 and
+              # 4544 off the grid); then the ranks its walks chose at seed
+              # 0: GPT-2 XL's 25, Falcon-7B's 142 and 71 (layer 0's MLP) and
+              # 17, and its k/v pairs' 64-wide outputs at rank 32
+              (SEQ, 1600, 32, 6400, True), (SEQ, 6400, 32, 1600, True),
+              (SEQ, 2048, 32, 8192, True), (SEQ, 8192, 32, 2048, True),
+              (SEQ, 4544, 32, 18176, False), (SEQ, 18176, 32, 4544, False),
+              (SEQ, 1600, 25, 6400, True), (SEQ, 6400, 25, 1600, True),
+              (SEQ, 4544, 142, 18176, False), (SEQ, 18176, 71, 4544, False),
+              (SEQ, 4544, 17, 18176, False), (SEQ, 18176, 17, 4544, False),
+              (SEQ, 4544, 32, 64, False))
     for n, d_in, r, d_out, with_bias in shapes:
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
@@ -896,44 +960,67 @@ def _planted(rng):
 
 def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, np.ndarray]:
     """Random weights in HF names; every decomposable projection is planted
-    at rank 256 (``_planted``).  q/k/v biases (Qwen2, GLM-4) are 0.1-scale
-    noise; norms (the sandwich norms, OLMo-2's post norms and flat q/k norms
-    too) are the identity (zeros for gemma's (1 + w) norms); a tied
-    embedding has RMS 1 / sqrt(dim), so the tied head's logits have RMS 1
-    (and gemma's sqrt(dim)-scaled embeddings RMS 1)."""
+    at rank 256 (``_planted``), a non-gated MLP (GPT-2, GPT-NeoX, Falcon)
+    without ``gate_proj``.  Projection biases (Qwen2's and GLM-4's q/k/v,
+    GPT-2's and GPT-NeoX's q/k/v/o and MLP) are 0.1-scale noise; norms (the
+    sandwich norms, OLMo-2's post norms and flat q/k norms too) are the
+    identity (zeros for gemma's (1 + w) norms), a LayerNorm's offset 0.1-scale
+    noise; a tied embedding has RMS 1 / sqrt(dim), so the tied head's logits
+    have RMS 1 (and gemma's sqrt(dim)-scaled embeddings RMS 1), and GPT-2's
+    position table the same RMS as its tied embedding."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     planted = _planted(rng)
     hd = cfg.head_dim
-    norm = (np.zeros if cfg.norm_plus_one else np.ones)(cfg.dim, f32)
+    weight = (np.zeros if cfg.norm_plus_one else np.ones)(cfg.dim, f32)
+
+    def bias(n: int) -> np.ndarray:
+        return 0.1 * rng.standard_normal(n, dtype=f32)
+
+    def norm(name: str) -> None:
+        sd[name + ".weight"] = weight
+        if cfg.norm_type == "layernorm" and cfg.norm_bias:
+            sd[name + ".bias"] = bias(cfg.dim)
+
     embed = rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=f32)
     sd = {"model.embed_tokens.weight": embed / np.sqrt(cfg.dim, dtype=f32) if cfg.tie_embeddings
           else embed}
+    if cfg.learned_pos is not None:
+        sd["model.pos_embed.weight"] = rng.standard_normal(
+            (cfg.learned_pos, cfg.dim), dtype=f32) / np.sqrt(cfg.dim, dtype=f32)
     for i in range(cfg.n_layers):
         p = f"model.layers.{i}."
         sd[p + "self_attn.q_proj.weight"] = planted(cfg.n_heads * hd, cfg.dim)
         sd[p + "self_attn.k_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
         sd[p + "self_attn.v_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
         sd[p + "self_attn.o_proj.weight"] = planted(cfg.dim, cfg.n_heads * hd)
-        sd[p + "mlp.gate_proj.weight"] = planted(cfg.hidden_dim, cfg.dim)
+        if cfg.mlp_gated:
+            sd[p + "mlp.gate_proj.weight"] = planted(cfg.hidden_dim, cfg.dim)
         sd[p + "mlp.up_proj.weight"] = planted(cfg.hidden_dim, cfg.dim)
         sd[p + "mlp.down_proj.weight"] = planted(cfg.dim, cfg.hidden_dim)
         if cfg.qkv_bias:
             for proj, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)):
-                sd[p + f"self_attn.{proj}_proj.bias"] = 0.1 * rng.standard_normal(heads * hd, dtype=f32)
+                sd[p + f"self_attn.{proj}_proj.bias"] = bias(heads * hd)
+        if cfg.o_proj_bias:
+            sd[p + "self_attn.o_proj.bias"] = bias(cfg.dim)
+        if cfg.mlp_bias:
+            for proj in ("gate", "up", "down") if cfg.mlp_gated else ("up", "down"):
+                width = cfg.dim if proj == "down" else cfg.hidden_dim
+                sd[p + f"mlp.{proj}_proj.bias"] = bias(width)
         if cfg.qk_norm or cfg.qk_norm_flat:
             widths = (cfg.n_heads * hd, cfg.n_kv_heads * hd) if cfg.qk_norm_flat else (hd, hd)
             for proj, width in zip("qk", widths):
                 sd[p + f"self_attn.{proj}_norm.weight"] = (
                     np.zeros if cfg.norm_plus_one else np.ones)(width, f32)
         if not cfg.post_norm_only:
-            sd[p + "input_layernorm.weight"] = norm
-        sd[p + "post_attention_layernorm.weight"] = norm
+            norm(p + "input_layernorm")
+        if cfg.parallel_residual != "one_norm":
+            norm(p + "post_attention_layernorm")
         if cfg.sandwich_norms:
-            sd[p + "pre_feedforward_layernorm.weight"] = norm
+            norm(p + "pre_feedforward_layernorm")
         if cfg.sandwich_norms or cfg.post_norm_only:
-            sd[p + "post_feedforward_layernorm.weight"] = norm
-    sd["model.norm.weight"] = norm
+            norm(p + "post_feedforward_layernorm")
+    norm("model.norm")
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=f32) / np.sqrt(
             cfg.dim, dtype=f32
@@ -2612,9 +2699,80 @@ def glm4_layout(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return out
 
 
+def renamed(sd: dict[str, np.ndarray], names: tuple) -> dict[str, np.ndarray]:
+    """``sd`` with each (ours, theirs) of ``names`` replaced in its keys."""
+    out = {}
+    for k, v in sd.items():
+        for ours, theirs in names:
+            k = k.replace(ours, theirs)
+        out[k] = v
+    return out
+
+
+def fused_query_key_value(sd: dict[str, np.ndarray], fuse) -> dict[str, np.ndarray]:
+    """q/k/v (weights and biases) fused by ``fuse`` into
+    ``self_attn.query_key_value``."""
+    out = {}
+    for k, v in sd.items():
+        stem, _, leaf = k.rpartition(".")
+        if stem.endswith("self_attn.q_proj"):
+            base = stem[: -len("q_proj")]
+            out[base + "query_key_value." + leaf] = fuse(
+                *(sd[f"{base}{p}_proj.{leaf}"] for p in "qkv"))
+        elif not stem.endswith(("self_attn.k_proj", "self_attn.v_proj")):
+            out[k] = v
+    return out
+
+
+def gpt2_layout(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """GPT-2's checkpoint layout: q/k/v fused in ``attn.c_attn``, every
+    projection's weight in Conv1D's (in, out), HF's names, no head (tied)."""
+    conv1d = (".attn.c_attn.weight", ".attn.c_proj.weight", ".mlp.c_fc.weight",
+              ".mlp.c_proj.weight")
+    out = renamed(fused_query_key_value(sd, lambda q, k, v: np.concatenate([q, k, v])), (
+        ("model.embed_tokens.", "transformer.wte."), ("model.pos_embed.", "transformer.wpe."),
+        ("model.norm.", "transformer.ln_f."), ("model.layers.", "transformer.h."),
+        (".input_layernorm.", ".ln_1."), (".post_attention_layernorm.", ".ln_2."),
+        (".self_attn.query_key_value.", ".attn.c_attn."), (".self_attn.o_proj.", ".attn.c_proj."),
+        (".mlp.up_proj.", ".mlp.c_fc."), (".mlp.down_proj.", ".mlp.c_proj.")))
+    return {k: np.ascontiguousarray(v.T) if k.endswith(conv1d) else v for k, v in out.items()}
+
+
+def gpt_neox_layout(sd: dict[str, np.ndarray], n_heads: int) -> dict[str, np.ndarray]:
+    """GPT-NeoX's checkpoint layout: q/k/v fused a head at a time
+    ([head 0: q k v][head 1: q k v]...) in ``attention.query_key_value``,
+    HF's names, the untied head ``embed_out``."""
+    def fuse(q, k, v):
+        return np.stack([t.reshape(n_heads, -1, *t.shape[1:]) for t in (q, k, v)], axis=1).reshape(
+            3 * q.shape[0], *q.shape[1:])
+
+    return renamed(fused_query_key_value(sd, fuse), (
+        ("model.embed_tokens.", "gpt_neox.embed_in."),
+        ("model.norm.", "gpt_neox.final_layer_norm."),
+        ("model.layers.", "gpt_neox.layers."), ("lm_head.", "embed_out."),
+        (".self_attn.query_key_value.", ".attention.query_key_value."),
+        (".self_attn.o_proj.", ".attention.dense."), (".mlp.up_proj.", ".mlp.dense_h_to_4h."),
+        (".mlp.down_proj.", ".mlp.dense_4h_to_h.")))
+
+
+def falcon_layout(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Falcon-7B's checkpoint layout: the query heads, then its one key and
+    one value head, in ``self_attention.query_key_value``, HF's names."""
+    return renamed(fused_query_key_value(sd, lambda q, k, v: np.concatenate([q, k, v])), (
+        ("model.embed_tokens.", "transformer.word_embeddings."),
+        ("model.norm.", "transformer.ln_f."),
+        ("model.layers.", "transformer.h."),
+        (".self_attn.query_key_value.", ".self_attention.query_key_value."),
+        (".self_attn.o_proj.", ".self_attention.dense."), (".mlp.up_proj.", ".mlp.dense_h_to_4h."),
+        (".mlp.down_proj.", ".mlp.dense_4h_to_h.")))
+
+
 # the families whose planted weights are written in their checkpoint layout
 # and translated back by the loader, as a snapshot's would be
-FAMILY_LAYOUTS = {"phi3_mini": lambda sd: fused_layout(sd, qkv=True), "glm4_9b": glm4_layout}
+FAMILY_LAYOUTS = {"phi3_mini": lambda sd: fused_layout(sd, qkv=True), "glm4_9b": glm4_layout,
+                  "gpt2_xl": gpt2_layout,
+                  "pythia_1_4b": lambda sd: gpt_neox_layout(sd, PYTHIA_1_4B["num_attention_heads"]),
+                  "falcon_7b": falcon_layout}
 
 
 def family_weights(cfg: models.TransformerConfig, name: str, seed: int) -> dict[str, np.ndarray]:
@@ -2642,11 +2800,18 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     """Slice 1's path on a 2-layer family model (``FAMILY_CONFIGS``, or
     ``qwen2_1_5b``): ``dwain.decompose`` (SYRK, and flash where the JAX
     package takes it, launched), the artifact round trip, the fused serve
-    against its pairs (low-rank launched), greedy cached ``generate`` of 8 x
+    against its pairs (low-rank launched), greedy cached ``generate`` of 4 x
     128 tokens (640 past gemma3's window) against the uncached forward,
     ragged f32 token checks, and the served model against itself on the
-    CPU in f32 on a short input.  Returns each part's launch counts."""
+    CPU in f32 on a short input.  Returns each part's launch counts; the
+    phase's record splits its wall by part (``split_s``)."""
     t_phase = time.perf_counter()
+    split = {}
+
+    def lap(part: str) -> None:
+        torch.cuda.synchronize()
+        split[part] = time.perf_counter() - t_phase - sum(split.values())
+
     cfg, full_layers = family_2_layer(name)
     model = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev),
                                         family_weights(cfg, name, seed))
@@ -2654,7 +2819,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     params_before = utils.get_num_params(model)
     probe = utils.to_device(next(token_batches(cfg.vocab_size, seed + 3)), dev)
     ops.reset_launch_counts()
-    torch.cuda.synchronize()
+    lap("weights")
     t0 = time.perf_counter()
     model, config = dwain.decompose(
         module=model,
@@ -2666,12 +2831,14 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    lap("walk")
     walk = ops.launch_counts()
     require_launches(walk, ("syrk_gram",), f"{name} decompose")
     flash_as_jax(walk, name, "decompose")
     if not config:
         raise AssertionError(f"{name}: no site decomposed")
     artifact = artifact_round_trip(model, config, cfg, probe, dev, f"{name}_artifact")
+    lap("artifact")
 
     with torch.no_grad():
         y_pairs = model(probe)
@@ -2687,6 +2854,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     with torch.no_grad():
         fused_ms = time_ms(lambda: model(probe), reps=10)
     del y_pairs, y_fused
+    lap("serve")
 
     _, padded, _ = ragged_prompts(cfg.vocab_size, seed + 4, dev, FAMILY_PROMPTS, FAMILY_PROMPT_LENS)
     prompt = padded[:, :FAMILY_PROMPT_LENS[0]]
@@ -2696,7 +2864,9 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     gen = cached_generate(model, prompt, TINY_NEW, f"{name}_generate", *gates["serve"])
     require_launches(gen["counts"], ("lowrank_matmul",), f"{name} generate")
     flash_as_jax(gen["counts"], name, "generate")
+    lap("generate")
     tokens = f32_token_checks(model, cfg.vocab_size, seed + 5, dev, f"{name}_ragged_vs_alone")
+    lap("f32_tokens")
 
     short = {"input_ids": probe["input_ids"][:, :128]}
     with torch.no_grad():
@@ -2704,6 +2874,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
         short = utils.to_device(short, "cpu")
         y_cpu = model.to("cpu", torch.float32)(short)
     ref = logits_agree(y_card, y_cpu, *gates["reference"], f"{name}_reference")
+    lap("reference")
     emit({"phase": name, "layers": cfg.n_layers, "head_dim": cfg.head_dim,
           "heads": [cfg.n_heads, cfg.n_kv_heads], "wall_s": wall, "sites": n_sites,
           "decomposed": len(config), "params_before": params_before,
@@ -2717,7 +2888,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
                        "new_tokens": TINY_NEW, "wall_s": gen["wall_s"], **gen["gate"]},
           "f32_tokens": tokens, "reference": ref, "walk_launches": walk,
           "serve_launches": serve_counts, "generate_launches": gen["counts"],
-          "phase_wall_s": time.perf_counter() - t_phase})
+          "split_s": split, "phase_wall_s": time.perf_counter() - t_phase})
     return {f"{name}_decompose": walk, f"{name}_serve": serve_counts,
             f"{name}_generate": gen["counts"]}
 
@@ -3481,7 +3652,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     family_counts = {}
     for name in ("qwen2_1_5b", "gemma_2b", "llama3_2_1b", "gemma2_2b", "gemma3_1b", "phi3_mini",
-                 "olmo2_1b", "glm4_9b", "smollm3_3b"):
+                 "olmo2_1b", "glm4_9b", "smollm3_3b", "gpt2_xl", "pythia_1_4b", "falcon_7b"):
         family_counts.update(family_serve(dev, name, args.seed))
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()

@@ -3,9 +3,12 @@
 Counterpart of ``apps/trainer_llm/builder.py``: a custom builder file wins
 (``make_model_and_tokenizer(config) -> (model, tokenizer)``); a known name
 builds the port's phi or llama-family architecture; otherwise a local HF
-snapshot whose ``config.json`` names a llama, mistral, qwen2, qwen3, gemma,
-gemma2, gemma3_text, gemma3 (the wrapper's text path), phi3, mixtral or phi
-model builds generically (phi3's fused projections split on load).  Weights come from the snapshot
+snapshot whose ``config.json`` names a model type of
+``models.transformer.HF_FAMILIES`` (the llama-graph families, the gemma3
+and got_ocr2 wrappers' text paths, mixtral, and gpt2, gpt_neox, falcon,
+starcoder2, stablelm, granite and cohere) or phi builds generically, its
+checkpoint layout translated on load (``hf_loader.translator_for``).
+Weights come from the snapshot
 when one is given, else from a seeded ``torch.Generator``.  The tokenizer
 comes from ``transformers`` where it is importable and resolves the name,
 else it is the byte-level ``ByteTokenizer``.
@@ -140,7 +143,8 @@ def make_model_and_tokenizer(
         raise ValueError(
             f"Unknown model {model_name!r}; known: "
             f"{sorted(_KNOWN_CONFIGS) + sorted(_PHI_CONFIGS)} (or pass a checkpoint dir "
-            "with a llama-family or phi config.json, or decomposed_model_custom_builder_path)"
+            "with a config.json of a family the port builds, or "
+            "decomposed_model_custom_builder_path)"
         )
     if remat:
         logger.info("Per-block gradient checkpointing enabled")

@@ -6,12 +6,16 @@ Counterpart of the llama-family and phi part of
 ``model.layers.0.self_attn.dense.weight`` ...) and in torch layout, so an
 HF state dict of a llama, code_llama, mistral, ministral, qwen2, qwen3,
 gemma, gemma2, gemma3_text, olmo2, olmo3, smollm3 or phi snapshot loads as
-it is (a tied model needs no ``lm_head.weight``; one the snapshot holds
-anyway is ignored); Mixtral's expert names are translated, phi3's, glm's
-and glm4's fused projections split, glm4's norms renamed onto the sandwich
-slots and the gemma3 and got_ocr2 wrappers' text paths unwrapped.  Shards
-are read from ``*.safetensors`` where that package is importable, else
-from ``pytorch_model*.bin`` with ``torch.load``.
+it is, and so does one of stablelm, granite or cohere (a tied model needs
+no ``lm_head.weight``; one the snapshot holds anyway is ignored);
+Mixtral's expert names are translated, phi3's, glm's and glm4's fused
+projections split, glm4's norms renamed onto the sandwich slots and the
+gemma3 and got_ocr2 wrappers' text paths unwrapped; GPT-2's Conv1D
+projections are transposed and its ``c_attn`` split, GPT-NeoX's and
+Falcon's fused ``query_key_value`` split by their layouts, and
+StarCoder2's MLP renamed.  A translator takes numpy arrays or tensors.
+Shards are read from ``*.safetensors`` where that package is importable,
+else from ``pytorch_model*.bin`` with ``torch.load``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ __all__ = [
     "translate_glm4_state_dict",
     "translate_glm_state_dict",
     "make_multimodal_text_translator",
+    "translate_gpt2_state_dict",
+    "make_gpt_neox_translator",
+    "make_falcon_translator",
+    "translate_starcoder2_state_dict",
     "translator_for",
 ]
 
@@ -204,18 +212,146 @@ def make_multimodal_text_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
     return translate
 
 
+def translate_gpt2_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """GPT-2's layout: its Conv1D projections hold (in, out), the transpose
+    of a Linear's weight, so each weight is transposed and ``attn.c_attn``
+    split in thirds (q | k | v along the output); ``wte`` / ``wpe`` ->
+    ``embed_tokens`` / ``pos_embed``, ``ln_1`` / ``ln_2`` -> the input and
+    post-attention norms, ``attn.c_proj`` -> ``o_proj``, ``mlp.c_fc`` /
+    ``mlp.c_proj`` -> up / down, ``ln_f`` -> ``model.norm``.  The causal-mask
+    buffers and the tied ``lm_head`` are dropped."""
+    conv1d = (".self_attn.o_proj.", ".mlp.up_proj.", ".mlp.down_proj.", ".attn.c_attn.")
+    out: dict[str, Any] = {}
+    for k, v in sd.items():
+        if k.endswith((".attn.bias", ".attn.masked_bias")) or k == "lm_head.weight":
+            continue
+        for old, new in (("transformer.wte.", "model.embed_tokens."),
+                         ("transformer.wpe.", "model.pos_embed."),
+                         ("transformer.ln_f.", "model.norm."), ("transformer.h.", "model.layers."),
+                         (".ln_1.", ".input_layernorm."), (".ln_2.", ".post_attention_layernorm."),
+                         (".attn.c_proj.", ".self_attn.o_proj."), (".mlp.c_fc.", ".mlp.up_proj."),
+                         (".mlp.c_proj.", ".mlp.down_proj.")):
+            k = k.replace(old, new)
+        if k.endswith(".weight") and any(c in k for c in conv1d):
+            v = v.T
+        if ".attn.c_attn." in k:
+            stem, leaf = k.split(".attn.c_attn.")
+            third = v.shape[0] // 3
+            for i, name in enumerate(("q_proj", "k_proj", "v_proj")):
+                out[f"{stem}.self_attn.{name}.{leaf}"] = v[i * third:(i + 1) * third]
+            continue
+        out[k] = v
+    return out
+
+
+def make_gpt_neox_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """GPT-NeoX's layout: ``query_key_value`` fuses q/k/v per head, its
+    rows [head 0: q k v][head 1: q k v]..., so its split takes the head
+    count; ``embed_in`` -> ``embed_tokens``, ``attention.dense`` ->
+    ``o_proj``, ``dense_h_to_4h`` / ``dense_4h_to_h`` -> up / down,
+    ``final_layer_norm`` -> ``model.norm``, ``embed_out`` -> ``lm_head``;
+    the mask and rotary buffers are dropped."""
+    n_heads = int(hf_cfg["num_attention_heads"])
+    hd = int(hf_cfg["hidden_size"]) // n_heads
+
+    def translate(sd: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in sd.items():
+            if k.endswith((".attention.bias", ".attention.masked_bias", "rotary_emb.inv_freq")):
+                continue
+            for old, new in (("gpt_neox.embed_in.", "model.embed_tokens."),
+                             ("gpt_neox.final_layer_norm.", "model.norm."),
+                             ("gpt_neox.layers.", "model.layers."), ("embed_out.", "lm_head."),
+                             (".attention.dense.", ".self_attn.o_proj."),
+                             (".mlp.dense_h_to_4h.", ".mlp.up_proj."),
+                             (".mlp.dense_4h_to_h.", ".mlp.down_proj.")):
+                k = k.replace(old, new)
+            if ".attention.query_key_value." in k:
+                stem, leaf = k.split(".attention.query_key_value.")
+                w = v.reshape(n_heads, 3, hd, *v.shape[1:])
+                for i, name in enumerate(("q_proj", "k_proj", "v_proj")):
+                    out[f"{stem}.self_attn.{name}.{leaf}"] = w[:, i].reshape(n_heads * hd,
+                                                                            *v.shape[1:])
+                continue
+            out[k] = v
+        return out
+
+    return translate
+
+
+def make_falcon_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """Falcon's layout: the fused ``self_attention.query_key_value`` in one
+    of three row orders (HF ``FalconAttention._split_heads``): the new
+    decoder architecture's [q x heads / kv | k | v] a kv head, classic
+    ``multi_query``'s q heads then one k and one v head, falcon-rw's per
+    head [q k v] as GPT-NeoX's; ``word_embeddings`` -> ``embed_tokens``,
+    ``ln_attn`` / ``ln_mlp`` -> the input and post-attention norms,
+    ``self_attention.dense`` -> ``o_proj``, ``dense_h_to_4h`` /
+    ``dense_4h_to_h`` -> up / down, ``ln_f`` -> ``model.norm``."""
+    n_heads = int(hf_cfg["num_attention_heads"])
+    hd = int(hf_cfg["hidden_size"]) // n_heads
+    new_arch = bool(hf_cfg.get("new_decoder_architecture", False))
+    multi_query = bool(hf_cfg.get("multi_query", True))
+    n_kv = int(hf_cfg.get("num_kv_heads") or n_heads) if new_arch else 1 if multi_query else n_heads
+
+    def split_qkv(v: Any) -> tuple[Any, Any, Any]:
+        rest = v.shape[1:]
+        if new_arch:
+            g = n_heads // n_kv
+            w = v.reshape(n_kv, g + 2, hd, *rest)
+            return (w[:, :g].reshape(n_heads * hd, *rest), w[:, g].reshape(n_kv * hd, *rest),
+                    w[:, g + 1].reshape(n_kv * hd, *rest))
+        if multi_query:
+            w = v.reshape(n_heads + 2, hd, *rest)
+            return w[:n_heads].reshape(n_heads * hd, *rest), w[n_heads], w[n_heads + 1]
+        w = v.reshape(n_heads, 3, hd, *rest)
+        return tuple(w[:, i].reshape(n_heads * hd, *rest) for i in range(3))
+
+    def translate(sd: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in sd.items():
+            if k.endswith("rotary_emb.inv_freq"):
+                continue
+            for old, new in (("transformer.word_embeddings.", "model.embed_tokens."),
+                             ("transformer.ln_f.", "model.norm."),
+                             ("transformer.h.", "model.layers."),
+                             (".ln_attn.", ".input_layernorm."),
+                             (".ln_mlp.", ".post_attention_layernorm."),
+                             (".self_attention.dense.", ".self_attn.o_proj."),
+                             (".mlp.dense_h_to_4h.", ".mlp.up_proj."),
+                             (".mlp.dense_4h_to_h.", ".mlp.down_proj.")):
+                k = k.replace(old, new)
+            if ".self_attention.query_key_value." in k:
+                stem, leaf = k.split(".self_attention.query_key_value.")
+                for name, part in zip(("q_proj", "k_proj", "v_proj"), split_qkv(v)):
+                    out[f"{stem}.self_attn.{name}.{leaf}"] = part
+                continue
+            out[k] = v
+        return out
+
+    return translate
+
+
+def translate_starcoder2_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """StarCoder2's layout is llama's but for the non-gated MLP's names:
+    ``mlp.c_fc`` -> ``up_proj``, ``mlp.c_proj`` -> ``down_proj``."""
+    return {k.replace(".mlp.c_fc.", ".mlp.up_proj.").replace(".mlp.c_proj.", ".mlp.down_proj."): v
+            for k, v in sd.items()}
+
+
 # model types whose HF names are the port model's own
 _SAME_NAMES = (
     "llama", "code_llama", "mistral", "ministral", "qwen2", "qwen3", "gemma", "gemma2",
-    "gemma3_text", "olmo2", "olmo3", "smollm3", "phi",
+    "gemma3_text", "olmo2", "olmo3", "smollm3", "phi", "stablelm", "granite", "cohere",
 )
 
 
 def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:
     """The checkpoint-layout translator for a config's ``model_type``: None
-    where HF's names are the model's already.  phi3's split takes the
-    config's head counts.  Raises for a model type the port has no model
-    for (ROADMAP.md lists them)."""
+    where HF's names are the model's already.  phi3's, GPT-NeoX's and
+    Falcon's splits take the config's head counts (and Falcon's wiring).
+    Raises for a model type the port has no model for (ROADMAP.md lists
+    them)."""
     mt = hf_cfg.get("model_type")
     if mt in _SAME_NAMES:
         return None
@@ -227,9 +363,18 @@ def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:
         return translate_glm4_state_dict
     if mt == "glm":
         return translate_glm_state_dict
+    if mt == "gpt2":
+        return translate_gpt2_state_dict
+    if mt == "gpt_neox":
+        return make_gpt_neox_translator(hf_cfg)
+    if mt == "falcon":
+        return make_falcon_translator(hf_cfg)
+    if mt == "starcoder2":
+        return translate_starcoder2_state_dict
     if mt in WRAPPED_TEXT_TYPES:
         return make_multimodal_text_translator(hf_cfg)
     raise ValueError(
         f"model_type={mt!r}: the port has models for {list(_SAME_NAMES)}, glm, glm4, got_ocr2, "
-        "mixtral, phi3 and gemma3 only; the other families wait in ROADMAP.md"
+        "gpt2, gpt_neox, falcon, starcoder2, mixtral, phi3 and gemma3 only; the other families "
+        "wait in ROADMAP.md"
     )

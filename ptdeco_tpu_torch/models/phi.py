@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import causal_attention_plain
-from .transformer import _checkpointed, _positions, _rope, init_weights
+from .transformer import LayerNorm, _checkpointed, _positions, _rope, init_weights
 
 __all__ = ["PhiConfig", "PhiCausalLM"]
 
@@ -83,24 +83,6 @@ class PhiConfig:
     def tiny(vocab_size: int = 256, dtype: torch.dtype = torch.float32) -> "PhiConfig":
         return PhiConfig(vocab_size=vocab_size, dim=64, n_layers=2, n_heads=4,
                          hidden_dim=128, dtype=dtype)
-
-
-class LayerNorm(torch.nn.Module):
-    """Biased LayerNorm in f32, cast back to x's dtype (the JAX package's
-    ``nn.LayerNorm``)."""
-
-    def __init__(self, dim: int, eps: float, dtype: torch.dtype, device: Any) -> None:
-        super().__init__()
-        self.weight = torch.nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
-        self.bias = torch.nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
-        self.eps = eps
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
-        mean = torch.mean(xf, dim=-1, keepdim=True)
-        var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight.to(torch.float32) + self.bias.to(torch.float32)).to(x.dtype)
 
 
 class PhiAttention(torch.nn.Module):

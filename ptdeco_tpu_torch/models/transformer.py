@@ -1,21 +1,28 @@
-"""Decoder-only causal LM, llama family and Mixtral, in PyTorch.
+"""Decoder-only causal LM, llama family, Mixtral and the first families
+beyond the llama graph, in PyTorch.
 
-Counterpart of the llama-family and Mixtral parts of
+Counterpart of the llama-family, Mixtral and gpt2 / gpt_neox / falcon /
+starcoder2 / stablelm / granite / cohere parts of
 ``ptdeco_tpu/models/transformer.py``: RMSNorm (optionally the gemma (1 + w)
-flavour), HF rotate-half rope at absolute positions (optionally with
-llama3, yarn, linear or phi3's short-factor longrope scaling, over only the
-leading dims of each head and pair-interleaved as GLM's, or left out per
-layer as SmolLM3's NoPE layers), grouped-query attention (optionally with
+flavour) or LayerNorm (optionally without its offset), HF rotate-half rope
+at absolute positions (optionally with llama3, yarn, linear or phi3's
+short-factor longrope scaling, over only the leading dims of each head and
+pair-interleaved as GLM's, or left out per layer as SmolLM3's NoPE
+layers), grouped-query attention (optionally with
 Qwen2's and GLM's q/k/v biases, Qwen3's and Gemma-3's per-head q/k RMSNorm,
 OLMo-2's q/k RMSNorm over the whole projection and its ``clip_qkv`` clamp,
 Gemma-2's logit soft-cap and query scale, and the sliding-window layers of
-Gemma-3, OLMo-3 and Ministral with Gemma-3's and OLMo-3's local rope), a
-gated MLP (SwiGLU, or gemma's tanh-GELU), the top-k routed mixture of
-SwiGLU experts (``MoEMLP``), pre-norm blocks (the sandwich norms of
-Gemma-2, Gemma-3 and GLM-4, OLMo-2's post-norm-only blocks; optionally each
-under ``torch.utils.checkpoint``, the config's ``remat``),
-an embedding optionally scaled by sqrt(dim) (gemma), and a
-dict-in/logits-out ``CausalLM`` (optionally soft-capping its logits).
+Gemma-3, OLMo-3 and Ministral with Gemma-3's and OLMo-3's local rope, or
+no rotary at all), a gated MLP (SwiGLU, or gemma's tanh-GELU) or a
+non-gated biased one (exact or tanh GELU, relu), the top-k routed mixture
+of SwiGLU experts (``MoEMLP``), pre-norm blocks (the sandwich norms of
+Gemma-2, Gemma-3 and GLM-4, OLMo-2's post-norm-only blocks, the one-norm
+and two-norm parallel residuals of GPT-NeoX, Falcon and Cohere, Granite's
+scaled residuals; optionally each under ``torch.utils.checkpoint``, the
+config's ``remat``), an embedding optionally scaled by sqrt(dim) (gemma)
+or Granite's multiplier, with GPT-2's learned positions added, and a
+dict-in/logits-out ``CausalLM`` (optionally scaling and soft-capping its
+logits).
 Every projection is an ``nn.Linear`` site and parameter names follow HF
 llama and the JAX package's MoE layout
 (``model.layers.0.self_attn.q_proj.weight``,
@@ -43,6 +50,7 @@ from ..quant import QuantLinear
 __all__ = [
     "TransformerConfig",
     "RMSNorm",
+    "LayerNorm",
     "Attention",
     "MLP",
     "MoEMLP",
@@ -59,10 +67,13 @@ logger = logging.getLogger(__name__)
 
 # the HF model types ``TransformerConfig.from_hf_config`` builds (gemma3 and
 # got_ocr2 are multimodal wrappers, whose text paths are gemma3_text and
-# qwen2; code_llama is llama's graph under another name)
+# qwen2; code_llama is llama's graph under another name; the last seven are
+# not the llama graph and build through their own constructors,
+# ``_BEYOND_LLAMA``)
 HF_FAMILIES = (
     "llama", "mistral", "qwen2", "qwen3", "gemma", "mixtral", "gemma2", "gemma3_text", "gemma3",
     "phi3", "olmo2", "olmo3", "smollm3", "glm", "glm4", "ministral", "code_llama", "got_ocr2",
+    "gpt2", "gpt_neox", "falcon", "starcoder2", "stablelm", "granite", "cohere",
 )
 # the text path's model type of each multimodal wrapper
 WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2"}
@@ -84,7 +95,7 @@ class TransformerConfig:
     # n_heads * head_dim != dim), the tanh-GELU MLP, the embedding scaled
     # by sqrt(dim), and the (1 + w) RMSNorm
     head_dim_override: Optional[int] = None
-    mlp_act: str = "silu"  # "silu" | "gelu_tanh"
+    mlp_act: str = "silu"  # "silu" | "gelu_tanh" | "gelu_exact" | "relu" | "quick_gelu"
     scale_embeddings: bool = False
     norm_plus_one: bool = False
     # Qwen3 and Gemma-3: a per-head RMSNorm on q and k before rope
@@ -127,6 +138,25 @@ class TransformerConfig:
     rope_interleaved: bool = False
     # olmo: q, k and v clamped to [-clip_qkv, clip_qkv] after the q/k norms
     clip_qkv: Optional[float] = None
+    # the beyond-llama graphs: LayerNorm blocks (norm_bias its offset;
+    # cohere's carry none); a non-gated MLP down(act(up(x))) with no
+    # gate_proj (gpt2, gpt_neox, falcon, starcoder2) and biases on its
+    # projections; gpt2's learned table of learned_pos absolute positions
+    # added to the embedding, with no rotary; the parallel residual
+    # x + attn(ln1 x) + mlp(mlp_in), mlp_in ln2 x ("two_norm": gpt_neox,
+    # falcon's new architecture) or the shared ln1 x ("one_norm": falcon-7b,
+    # cohere); granite's embedding and residual multipliers; a scale on the
+    # logits (cohere's logit_scale, granite's 1 / logits_scaling)
+    norm_type: str = "rmsnorm"  # | "layernorm"
+    norm_bias: bool = True
+    mlp_gated: bool = True
+    mlp_bias: bool = False
+    use_rope: bool = True
+    learned_pos: Optional[int] = None
+    parallel_residual: str = "none"  # | "two_norm" | "one_norm"
+    embedding_multiplier: Optional[float] = None
+    residual_multiplier: Optional[float] = None
+    logit_scale: Optional[float] = None
     dtype: torch.dtype = torch.float32
     # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
     # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
@@ -151,10 +181,13 @@ class TransformerConfig:
         qwen3, gemma, gemma2, gemma3_text, phi3, olmo2, olmo3, smollm3, glm,
         glm4, ministral or mixtral checkpoint, or of the gemma3 or got_ocr2
         wrapper (its text_config) -> config, as the JAX package's family
-        branch builds it.  Raises ValueError on anything these families do
-        not express here (rope types other than llama3 / yarn / linear,
-        phi3's partial rotary, other bias layouts and every other model
-        type; ROADMAP.md lists them).  A ``sliding_window`` is applied per
+        branch builds it; a gpt2, gpt_neox, falcon, starcoder2, stablelm,
+        granite or cohere one through that family's own constructor, as the
+        JAX package's ``beyond_llama`` table does.  Raises ValueError on
+        anything these families do not express here (rope types other than
+        llama3 / yarn / linear, phi3's partial rotary, other bias layouts,
+        the JAX constructors' own refusals and every other model type;
+        ROADMAP.md lists them).  A ``sliding_window`` is applied per
         layer for gemma3, olmo3 and ministral; for mistral, mixtral, gemma2
         and phi3 it is logged and not applied: full causal attention, exact
         for sequences within the window."""
@@ -172,6 +205,8 @@ class TransformerConfig:
                 f"model_type={mt!r}: the port builds {list(HF_FAMILIES)} from a config.json "
                 "(and phi through PhiConfig); the other families wait in ROADMAP.md"
             )
+        if mt in _BEYOND_LLAMA:
+            return _BEYOND_LLAMA[mt](hf, dtype, remat)
         if mt == "gemma3_text" and hf.get("use_bidirectional_attention"):
             raise ValueError(
                 "gemma3 use_bidirectional_attention is not implemented (this decoder is causal)"
@@ -351,6 +386,204 @@ class TransformerConfig:
         )
 
 
+# HF activation names of the beyond-llama families (the JAX package's
+# ``_hf_act``): "gelu" is the exact GELU here, unlike the llama branch's
+# gemma table, where it names the tanh form
+_HF_ACTS = {
+    "gelu": "gelu_exact", "gelu_new": "gelu_tanh", "gelu_fast": "gelu_tanh",
+    "gelu_pytorch_tanh": "gelu_tanh", "silu": "silu", "relu": "relu", "quick_gelu": "quick_gelu",
+}
+
+
+def _hf_act(act: str) -> str:
+    if act not in _HF_ACTS:
+        raise ValueError(
+            f"Unsupported hidden_act={act!r} (the port's MLP runs "
+            f"{sorted(set(_HF_ACTS.values()))}; ROADMAP.md lists the rest)"
+        )
+    return _HF_ACTS[act]
+
+
+def _hf_gpt2(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """GPT-2: learned ``wpe`` positions and no rotary, pre-LayerNorm blocks,
+    a non-gated biased ``gelu_new`` MLP, biases on every projection,
+    always tied (its Conv1D checkpoint is split and transposed on load,
+    ``hf_loader.translate_gpt2_state_dict``).  ``scale_attn_weights=False``
+    leaves the logits unscaled."""
+    if hf.get("scale_attn_by_inverse_layer_idx") or hf.get("reorder_and_upcast_attn"):
+        raise ValueError(
+            "gpt2 scale_attn_by_inverse_layer_idx / reorder_and_upcast_attn are not "
+            "implemented, as in the JAX package"
+        )
+    dim, n_heads, inner = int(hf["n_embd"]), int(hf["n_head"]), hf.get("n_inner")
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["n_layer"]),
+        n_heads=n_heads, n_kv_heads=n_heads, hidden_dim=int(inner) if inner else 4 * dim,
+        norm_eps=float(hf.get("layer_norm_epsilon", 1e-5)), norm_type="layernorm",
+        mlp_gated=False, mlp_bias=True,
+        mlp_act=_hf_act(hf.get("activation_function", "gelu_new")),
+        qkv_bias=True, o_proj_bias=True, use_rope=False, learned_pos=int(hf["n_positions"]),
+        tie_embeddings=True,
+        query_scale_override=None if hf.get("scale_attn_weights", True) else 1.0,
+        remat=remat, dtype=dtype,
+    )
+
+
+def _hf_gpt_neox(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """GPT-NeoX (Pythia): rotate-half rotary over ``rotary_pct`` of each
+    head, LayerNorm, a non-gated exact-GELU MLP, biases, the per-head fused
+    ``query_key_value`` split on load, and ``use_parallel_residual``'s
+    two-norm wiring."""
+    pct = float(hf.get("rotary_pct", 0.25))
+    n_heads = int(hf["num_attention_heads"])
+    bias = bool(hf.get("attention_bias", True))
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=int(hf["hidden_size"]),
+        n_layers=int(hf["num_hidden_layers"]), n_heads=n_heads, n_kv_heads=n_heads,
+        hidden_dim=int(hf["intermediate_size"]), norm_eps=float(hf.get("layer_norm_eps", 1e-5)),
+        norm_type="layernorm", mlp_gated=False, mlp_bias=True,
+        mlp_act=_hf_act(hf.get("hidden_act", "gelu")), qkv_bias=bias, o_proj_bias=bias,
+        rope_theta=float(hf.get("rotary_emb_base", hf.get("rope_theta", 10000.0))),
+        rope_partial_factor=pct if pct < 1.0 else None,
+        parallel_residual="two_norm" if hf.get("use_parallel_residual", True) else "none",
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)), remat=remat, dtype=dtype,
+    )
+
+
+def _hf_falcon(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Falcon's three block wirings: ``new_decoder_architecture`` (ln_attn /
+    ln_mlp, two-norm parallel, grouped kv heads), the classic
+    ``parallel_attn`` block (one norm shared by both branches, one kv head
+    with ``multi_query``) and the sequential falcon-rw block; the fused
+    ``query_key_value`` is split per layout on load.  ALiBi is refused, as
+    in the JAX package."""
+    if hf.get("alibi"):
+        raise ValueError("falcon alibi positions are not implemented, as in the JAX package")
+    dim, n_heads = int(hf["hidden_size"]), int(hf["num_attention_heads"])
+    if hf.get("new_decoder_architecture", False):
+        n_kv, parallel = int(hf.get("num_kv_heads") or n_heads), "two_norm"
+    else:
+        n_kv = 1 if hf.get("multi_query", True) else n_heads
+        parallel = "one_norm" if hf.get("parallel_attn", True) else "none"
+    bias, ffn = bool(hf.get("bias", False)), hf.get("ffn_hidden_size")
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["num_hidden_layers"]),
+        n_heads=n_heads, n_kv_heads=n_kv, hidden_dim=int(ffn) if ffn else 4 * dim,
+        norm_eps=float(hf.get("layer_norm_epsilon", 1e-5)), norm_type="layernorm",
+        mlp_gated=False, mlp_bias=bias,
+        mlp_act=_hf_act(hf.get("activation", hf.get("hidden_act", "gelu"))),
+        qkv_bias=bias, o_proj_bias=bias, rope_theta=float(hf.get("rope_theta", 10000.0)),
+        parallel_residual=parallel, tie_embeddings=bool(hf.get("tie_word_embeddings", True)),
+        remat=remat, dtype=dtype,
+    )
+
+
+def _hf_starcoder2(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """StarCoder2: the llama graph with LayerNorm, a non-gated tanh-GELU MLP
+    (``c_fc`` / ``c_proj`` renamed to up / down on load) and ``use_bias`` on
+    every projection; full rotary, grouped kv heads.  Its window is logged
+    and not applied, as in the JAX package."""
+    bias = bool(hf.get("use_bias", True))
+    if hf.get("sliding_window"):
+        logger.info(
+            "starcoder2 sliding_window=%s: full causal attention is used; keep sequences "
+            "within the window for exactness", hf["sliding_window"],
+        )
+    n_heads = int(hf["num_attention_heads"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=int(hf["hidden_size"]),
+        n_layers=int(hf["num_hidden_layers"]), n_heads=n_heads,
+        n_kv_heads=int(hf.get("num_key_value_heads", n_heads)),
+        hidden_dim=int(hf["intermediate_size"]), norm_eps=float(hf.get("norm_epsilon", 1e-5)),
+        norm_type="layernorm", mlp_gated=False, mlp_bias=bias,
+        mlp_act=_hf_act(hf.get("hidden_act", "gelu_pytorch_tanh")), qkv_bias=bias,
+        o_proj_bias=bias, rope_theta=float(hf.get("rope_theta", 10000.0)),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)), remat=remat, dtype=dtype,
+    )
+
+
+def _hf_stablelm(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """StableLM: the llama graph with LayerNorm blocks and rotate-half
+    rotary over ``partial_rotary_factor`` of each head; a gated silu MLP;
+    q/k/v biases with ``use_qkv_bias``.  ``qk_layernorm`` and
+    ``use_parallel_residual`` are refused, as in the JAX package."""
+    if hf.get("qk_layernorm"):
+        raise ValueError("stablelm qk_layernorm is not implemented, as in the JAX package")
+    if hf.get("use_parallel_residual"):
+        raise ValueError("stablelm use_parallel_residual is not implemented, as in the JAX package")
+    pct = float(hf.get("partial_rotary_factor", 0.25))
+    n_heads = int(hf["num_attention_heads"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=int(hf["hidden_size"]),
+        n_layers=int(hf["num_hidden_layers"]), n_heads=n_heads,
+        n_kv_heads=int(hf.get("num_key_value_heads", n_heads)),
+        hidden_dim=int(hf["intermediate_size"]), norm_eps=float(hf.get("layer_norm_eps", 1e-5)),
+        norm_type="layernorm", mlp_act=_hf_act(hf.get("hidden_act", "silu")),
+        qkv_bias=bool(hf.get("use_qkv_bias", False)),
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        rope_partial_factor=pct if pct < 1.0 else None,
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)), remat=remat, dtype=dtype,
+    )
+
+
+def _hf_granite(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Granite: the llama graph with four multipliers: ``embedding_multiplier``
+    on the embeddings, ``residual_multiplier`` on both residual branches,
+    ``attention_multiplier`` as the softmax scale (kept as
+    ``query_scale_override = multiplier ** -2``, whose ``** -0.5`` gives it
+    back) and the logits divided by ``logits_scaling``."""
+    attn_mult = float(hf.get("attention_multiplier", 1.0))
+    logits_scaling = float(hf.get("logits_scaling", 1.0))
+
+    def opt_float(key: str) -> Optional[float]:
+        return float(hf[key]) if hf.get(key) is not None else None
+
+    n_heads = int(hf["num_attention_heads"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=int(hf["hidden_size"]),
+        n_layers=int(hf["num_hidden_layers"]), n_heads=n_heads,
+        n_kv_heads=int(hf.get("num_key_value_heads", n_heads)),
+        hidden_dim=int(hf["intermediate_size"]), norm_eps=float(hf.get("rms_norm_eps", 1e-6)),
+        mlp_act=_hf_act(hf.get("hidden_act", "silu")),
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        embedding_multiplier=opt_float("embedding_multiplier"),
+        residual_multiplier=opt_float("residual_multiplier"),
+        query_scale_override=attn_mult ** -2 if attn_mult != 1.0 else None,
+        logit_scale=1.0 / logits_scaling if logits_scaling != 1.0 else None,
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)), remat=remat, dtype=dtype,
+    )
+
+
+def _hf_cohere(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Cohere (Command-R): LayerNorm without an offset, one input norm
+    shared by the parallel attention and MLP branches, a gated silu MLP,
+    pair-interleaved rotary over the whole head and ``logit_scale`` on the
+    tied logits.  ``use_qk_norm`` is refused, as in the JAX package."""
+    if hf.get("use_qk_norm"):
+        raise ValueError("cohere use_qk_norm is not implemented, as in the JAX package")
+    n_heads = int(hf["num_attention_heads"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=int(hf["hidden_size"]),
+        n_layers=int(hf["num_hidden_layers"]), n_heads=n_heads,
+        n_kv_heads=int(hf.get("num_key_value_heads", n_heads)),
+        hidden_dim=int(hf["intermediate_size"]), norm_eps=float(hf.get("layer_norm_eps", 1e-5)),
+        norm_type="layernorm", norm_bias=False, mlp_act=_hf_act(hf.get("hidden_act", "silu")),
+        qkv_bias=bool(hf.get("attention_bias", False)),
+        rope_theta=float(hf.get("rope_theta", 10000.0)), rope_interleaved=True,
+        parallel_residual="one_norm", logit_scale=float(hf.get("logit_scale", 0.0625)),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)), remat=remat, dtype=dtype,
+    )
+
+
+# the beyond-llama model types' constructors (JAX transformer.py:361-443, the
+# seven of its list of supported families)
+_BEYOND_LLAMA = {
+    "gpt2": _hf_gpt2, "gpt_neox": _hf_gpt_neox, "falcon": _hf_falcon,
+    "starcoder2": _hf_starcoder2, "stablelm": _hf_stablelm, "granite": _hf_granite,
+    "cohere": _hf_cohere,
+}
+
+
 class RMSNorm(torch.nn.Module):
     """RMSNorm in f32, cast back to x's dtype.  ``plus_one`` is gemma's
     flavour: y * (1 + w), w zero-initialized; the stored weight is HF's raw
@@ -371,6 +604,48 @@ class RMSNorm(torch.nn.Module):
         y = xf * torch.rsqrt(var + self.eps)
         w = self.weight.to(torch.float32)
         return (y * (w + 1.0 if self.plus_one else w)).to(x.dtype)
+
+
+class LayerNorm(torch.nn.Module):
+    """LayerNorm in f32, cast back to x's dtype (the JAX package's
+    ``nn.LayerNorm``): weight ones, offset ``bias`` zeros, or none with
+    ``bias=False`` (Cohere's)."""
+
+    def __init__(
+        self, dim: int, eps: float, dtype: torch.dtype, device: Any, bias: bool = True
+    ) -> None:
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.register_parameter(
+            "bias",
+            torch.nn.Parameter(torch.zeros(dim, dtype=dtype, device=device)) if bias else None,
+        )
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight.to(torch.float32)
+        if self.bias is not None:
+            y = y + self.bias.to(torch.float32)
+        return y.to(x.dtype)
+
+
+def _block_norm(cfg: TransformerConfig, device: Any) -> torch.nn.Module:
+    """A block's (and the final) norm of width dim, by ``norm_type`` (the
+    JAX package's ``_make_block_norm``)."""
+    if cfg.norm_type == "layernorm":
+        return LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_bias)
+    if cfg.norm_type != "rmsnorm":
+        raise ValueError(f"norm_type={cfg.norm_type!r}")
+    return RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
+
+
+def _scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """``value`` rounded to ``dtype``, as a 0-dim host tensor (a scalar to
+    any device's tensor), as the JAX model's ``jnp.asarray(value, dtype)``."""
+    return torch.tensor(value, dtype=dtype)
 
 
 def _positions(b: int, s: int, start: Any, device: Any) -> torch.Tensor:
@@ -547,7 +822,9 @@ class Attention(torch.nn.Module):
         self.rope_theta = cfg.rope_local_theta if local_rope else cfg.rope_theta
         self.rope_yarn = None if local_rope else cfg.rope_yarn
         self.rope_llama3_scaling = cfg.rope_llama3_scaling
-        self.use_rope = layer_idx >= len(cfg.rope_layers) or bool(cfg.rope_layers[layer_idx])
+        self.use_rope = (
+            bool(cfg.rope_layers[layer_idx]) if layer_idx < len(cfg.rope_layers) else cfg.use_rope
+        )
         self.rope_partial_dim = (
             int(hd * cfg.rope_partial_factor) if cfg.rope_partial_factor is not None else None
         )
@@ -663,24 +940,40 @@ def _capped_windowed_attention(
     return torch.matmul(probs.to(torch.float32), v.to(torch.float32)).to(q.dtype)
 
 
+def _activation(name: str, h: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(h)
+    if name == "gelu_tanh":
+        return F.gelu(h, approximate="tanh")
+    if name == "gelu_exact":
+        return F.gelu(h)
+    if name == "relu":
+        return F.relu(h)
+    return h * torch.sigmoid(1.702 * h)  # quick_gelu
+
+
 class MLP(torch.nn.Module):
-    """Gated MLP: down(act(gate(x)) * up(x)), act silu (SwiGLU) or tanh-GELU
-    (gemma's GeGLU)."""
+    """Gated MLP down(act(gate(x)) * up(x)), act silu (SwiGLU) or tanh-GELU
+    (gemma's GeGLU); with ``mlp_gated`` off down(act(up(x))) and no
+    ``gate_proj`` (gpt2, gpt_neox, falcon, starcoder2: exact or tanh GELU,
+    relu, quick_gelu).  ``mlp_bias`` biases every projection."""
 
     def __init__(self, cfg: TransformerConfig, device: Any) -> None:
         super().__init__()
-        kw = {"dtype": cfg.dtype, "device": device}
-        self.gate_proj = torch.nn.Linear(cfg.dim, cfg.hidden_dim, bias=False, **kw)
-        self.up_proj = torch.nn.Linear(cfg.dim, cfg.hidden_dim, bias=False, **kw)
-        self.down_proj = torch.nn.Linear(cfg.hidden_dim, cfg.dim, bias=False, **kw)
-        if cfg.mlp_act not in ("silu", "gelu_tanh"):
+        kw = {"bias": cfg.mlp_bias, "dtype": cfg.dtype, "device": device}
+        self.gate_proj = (
+            torch.nn.Linear(cfg.dim, cfg.hidden_dim, **kw) if cfg.mlp_gated else None
+        )
+        self.up_proj = torch.nn.Linear(cfg.dim, cfg.hidden_dim, **kw)
+        self.down_proj = torch.nn.Linear(cfg.hidden_dim, cfg.dim, **kw)
+        if cfg.mlp_act not in ("silu", "gelu_tanh", "gelu_exact", "relu", "quick_gelu"):
             raise ValueError(f"mlp_act={cfg.mlp_act!r}")
         self.act = cfg.mlp_act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = self.gate_proj(x)
-        g = F.silu(g) if self.act == "silu" else F.gelu(g, approximate="tanh")
-        return self.down_proj(g * self.up_proj(x))
+        if self.gate_proj is None:
+            return self.down_proj(_activation(self.act, self.up_proj(x)))
+        return self.down_proj(_activation(self.act, self.gate_proj(x)) * self.up_proj(x))
 
 
 def _use_int8_kernel(x: torch.Tensor) -> bool:
@@ -834,19 +1127,30 @@ class Block(torch.nn.Module):
     (HF's names, JAX transformer.py:5643-5646); with ``post_norm_only``
     (olmo2 / olmo3) there is no ``input_layernorm`` and the attention and MLP
     outputs are normed by ``post_attention_layernorm`` and
-    ``post_feedforward_layernorm`` before their residual adds (:5640-5642)."""
+    ``post_feedforward_layernorm`` before their residual adds (:5640-5642).
+    A ``parallel_residual`` block returns x + attn(ln1 x) + mlp(mlp_in),
+    mlp_in ``post_attention_layernorm(x)`` ("two_norm") or the shared
+    ln1 x ("one_norm", which has no ``post_attention_layernorm``,
+    :5633-5638); ``residual_multiplier`` (granite) scales both branches in
+    x's dtype (:5647-5650).  Norms are RMSNorm or LayerNorm by
+    ``norm_type``."""
 
     def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
         super().__init__()
-        norm = (cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
-        self.input_layernorm = None if cfg.post_norm_only else RMSNorm(*norm)
+        self.input_layernorm = None if cfg.post_norm_only else _block_norm(cfg, device)
         self.self_attn = Attention(cfg, device, layer_idx)
-        self.post_attention_layernorm = RMSNorm(*norm)
-        self.pre_feedforward_layernorm = RMSNorm(*norm) if cfg.sandwich_norms else None
+        self.post_attention_layernorm = (
+            None if cfg.parallel_residual == "one_norm" else _block_norm(cfg, device)
+        )
+        self.pre_feedforward_layernorm = _block_norm(cfg, device) if cfg.sandwich_norms else None
         self.post_feedforward_layernorm = (
-            RMSNorm(*norm) if cfg.sandwich_norms or cfg.post_norm_only else None
+            _block_norm(cfg, device) if cfg.sandwich_norms or cfg.post_norm_only else None
         )
         self.mlp = MoEMLP(cfg, device) if cfg.n_experts > 0 else MLP(cfg, device)
+        if cfg.parallel_residual not in ("none", "one_norm", "two_norm"):
+            raise ValueError(f"parallel_residual={cfg.parallel_residual!r}")
+        self.parallel_residual = cfg.parallel_residual
+        self.residual_multiplier = cfg.residual_multiplier
 
     def forward(
         self,
@@ -861,10 +1165,18 @@ class Block(torch.nn.Module):
         if self.input_layernorm is None:  # post-norm-only
             h = x + self.post_attention_layernorm(attn(x, attn_mask, positions))
             return h + self.post_feedforward_layernorm(self.mlp(h))
-        attn_out = attn(self.input_layernorm(x), attn_mask, positions)
+        xin = self.input_layernorm(x)
+        attn_out = attn(xin, attn_mask, positions)
+        if self.parallel_residual != "none":
+            one_norm = self.parallel_residual == "one_norm"
+            return x + attn_out + self.mlp(xin if one_norm else self.post_attention_layernorm(x))
         if self.pre_feedforward_layernorm is not None:
             h = x + self.post_attention_layernorm(attn_out)
             return h + self.post_feedforward_layernorm(self.mlp(self.pre_feedforward_layernorm(h)))
+        if self.residual_multiplier is not None:
+            mult = _scalar(self.residual_multiplier, x.dtype)
+            h = x + mult * attn_out
+            return h + mult * self.mlp(self.post_attention_layernorm(h))
         h = x + attn_out
         return h + self.mlp(self.post_attention_layernorm(h))
 
@@ -876,18 +1188,35 @@ class Decoder(torch.nn.Module):
             cfg.vocab_size, cfg.dim, dtype=cfg.dtype, device=device
         )
         self.layers = torch.nn.ModuleList(Block(cfg, device, i) for i in range(cfg.n_layers))
-        self.norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
+        self.norm = _block_norm(cfg, device)
+        # gpt2's learned absolute positions (HF wpe)
+        self.pos_embed = (
+            torch.nn.Embedding(cfg.learned_pos, cfg.dim, dtype=cfg.dtype, device=device)
+            if cfg.learned_pos is not None else None
+        )
         self.remat = cfg.remat
         self.scale_embeddings = cfg.scale_embeddings
+        self.embedding_multiplier = cfg.embedding_multiplier
 
-    def embed_inputs(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def embed_inputs(
+        self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         """Everything before the layer stack: the token embedding, scaled by
         sqrt(dim) for gemma (the factor computed in f32, cast to the
-        activation dtype, as the JAX decoder's ``embed_inputs``).  The
-        cached forward (``serving.py``) reuses it."""
+        activation dtype) or by granite's multiplier (in the activation
+        dtype), then the learned position table at absolute ``positions``
+        (b, s; arange when None), as the JAX decoder's ``embed_inputs``.
+        The cached forward (``serving.py``) reuses it with the positions
+        offset by the cache fill."""
         x = self.embed_tokens(input_ids)
         if self.scale_embeddings:
             x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=torch.float32).to(x.dtype)
+        if self.embedding_multiplier is not None:
+            x = x * _scalar(self.embedding_multiplier, x.dtype)
+        if self.pos_embed is not None:
+            if positions is None:
+                positions = _positions(*input_ids.shape, 0, input_ids.device)
+            x = x + self.pos_embed(positions)
         return x
 
     def forward(
@@ -969,15 +1298,19 @@ class CausalLM(torch.nn.Module):
             else torch.nn.Linear(cfg.dim, cfg.vocab_size, bias=False, dtype=cfg.dtype, device=device)
         )
         self.final_logit_softcap = cfg.final_logit_softcap
+        self.logit_scale = cfg.logit_scale
         init_weights(self, generator, device)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        """Vocab logits of final-normed hidden states, soft-capped with tanh
-        in their own dtype where the config says (gemma2)."""
+        """Vocab logits of final-normed hidden states, multiplied by
+        ``logit_scale`` (cohere, granite) and then soft-capped with tanh
+        (gemma2), each in the logits' own dtype, in the JAX head's order."""
         if self.lm_head is None:
             logits = h @ self.model.embed_tokens.weight.t()
         else:
             logits = self.lm_head(h)
+        if self.logit_scale is not None:
+            logits = logits * _scalar(self.logit_scale, logits.dtype)
         if self.final_logit_softcap is not None:
             cap = torch.tensor(self.final_logit_softcap, dtype=logits.dtype, device=logits.device)
             logits = cap * torch.tanh(logits / cap)

@@ -11,8 +11,9 @@ Counterpart of the llama-family part of ``ptdeco_tpu/serving.py``:
     each row's cache slot equals its token position, so the pad tail that a
     prefill writes is causally invisible and overwritten as the row decodes.
     ``kv_mask`` (b, max_len) marks the valid key slots of left-padded rows;
-  * the embedding step, the projections (biases and q/k norms included),
-    rope and the output projection are the model's own
+  * the embedding step (learned positions at each row's absolute positions
+    included), the projections (biases and q/k norms included), rope and
+    the output projection are the model's own
     (``Decoder.embed_inputs``, ``Attention.project_qkv`` /
     ``Attention.finish``), so the cached path cannot drift from the
     uncached forward, for every family ``TransformerConfig`` builds (phi,
@@ -272,7 +273,7 @@ def forward_with_cache(
     b, s = input_ids.shape
     prefill0 = _is_static_zero(cache_pos)
     positions = _positions(b, s, cache_pos, input_ids.device)
-    x = lm.model.embed_inputs(input_ids)
+    x = lm.model.embed_inputs(input_ids, positions)
     for layer, (k_cache, v_cache) in zip(_model_layers(lm), caches):
         cached = CachedAttention(
             layer.self_attn, k_cache, v_cache, cache_pos, kv_mask=kv_mask,

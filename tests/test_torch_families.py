@@ -97,6 +97,16 @@ REFUSED_BY_BOTH = {
     "qwen2_dynamic_rope": tiny_hf("qwen2", rope_scaling={"rope_type": "dynamic", "factor": 2.0}),
     "llama_relu": tiny_hf("llama", hidden_act="relu"),
     "mamba": tiny_hf("mamba"),
+    # the beyond-llama families' own refusals
+    "falcon_alibi": tiny_hf("falcon", alibi=True),
+    "stablelm_qk_layernorm": tiny_hf("stablelm", qk_layernorm=True),
+    "stablelm_parallel_residual": tiny_hf("stablelm", use_parallel_residual=True),
+    "cohere_qk_norm": tiny_hf("cohere", use_qk_norm=True),
+    "gpt2_reorder_and_upcast_attn": dict(model_type="gpt2", vocab_size=128, n_embd=32, n_layer=2,
+                                         n_head=4, n_positions=64, reorder_and_upcast_attn=True),
+    "gpt2_scale_attn_by_inverse_layer_idx": dict(
+        model_type="gpt2", vocab_size=128, n_embd=32, n_layer=2, n_head=4, n_positions=64,
+        scale_attn_by_inverse_layer_idx=True),
 }
 REFUSED_BY_PORT = {
     "olmoe": tiny_hf("olmoe", num_experts=4, num_experts_per_tok=2),
@@ -107,6 +117,10 @@ REFUSED_BY_PORT = {
                            moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
                            qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8,
                            n_group=1, topk_group=1),
+    # beyond-llama types after the first seven
+    "gptj": dict(model_type="gptj", vocab_size=128, n_embd=32, n_layer=2, n_head=4, rotary_dim=4,
+                 n_positions=64),
+    "olmo": tiny_hf("olmo"),
 }
 
 
