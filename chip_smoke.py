@@ -78,6 +78,15 @@ query_key_value) and Falcon-7B (71 query heads over one kv head, one-norm
 parallel blocks, widths 4544 and 18176 off the 128 grid of the MLP Gram's
 tiles, its fused query_key_value), each at its public config.json's widths.
 
+Slice 16 runs it on the GPT lineage: GPT-J-6B (16 heads of 256 with no
+grouping, a quarter of each rotated pair-interleaved, one-norm parallel
+blocks, an untied head of 50400 with a bias), OPT-6.7B (32 heads of 128, a
+biased relu MLP 4096 <-> 16384, its position table stored with OPT's two
+offset rows) and StarCoderBase-1B (GPTBigCode: 16 query heads over one kv
+head of 128, learned positions, q/k/v fused in c_attn), each written in its
+checkpoint layout.  Since slice 16 the family phases draw their planted
+weights on the card.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -98,7 +107,8 @@ round ms, acceptance and the gate's measured ratio), phi2_cli_decompose
 (wall, ranks, launches: SYRK and no flash; the artifact reloaded, the fused
 serve against its pairs and its f32 twin), qwen2_1_5b, gemma_2b,
 llama3_2_1b, gemma2_2b, gemma3_1b, phi3_mini, olmo2_1b, glm4_9b, smollm3_3b,
-gpt2_xl, pythia_1_4b and falcon_7b (walk and phase wall and its split, cuts,
+gpt2_xl, pythia_1_4b, falcon_7b, gptj_6b, opt_6_7b and starcoderbase_1b
+(walk and phase wall and its split, cuts,
 ranks, artifact, fused serve, ``generate``, f32 tokens, reference), dwain_mlp,
 falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
 lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
@@ -366,10 +376,34 @@ FALCON_7B = dict(
     num_attention_heads=71, multi_query=True, parallel_attn=True, new_decoder_architecture=False,
     bias=False, alibi=False, layer_norm_epsilon=1e-5, tie_word_embeddings=True,
 )
+# Slice 16: the GPT lineage, the same way: EleutherAI/gpt-j-6b (16 heads of
+# 256, 64 of each rotated pair-interleaved, one-norm parallel blocks, an
+# untied head of 50400 with a bias; its weights in GPT-J's names),
+# facebook/opt-6.7b (32 heads of 128, a biased relu MLP, tied; its position
+# table stored with OPT's two offset rows) and bigcode/starcoderbase-1b
+# (GPTBigCode: 16 query heads over one kv head of 128, learned positions,
+# tied; its q/k/v fused in c_attn)
+GPTJ_6B = dict(
+    model_type="gptj", vocab_size=50400, n_embd=4096, n_head=16, n_layer=28, n_positions=2048,
+    rotary_dim=64, n_inner=None, activation_function="gelu_new", layer_norm_epsilon=1e-5,
+    tie_word_embeddings=False,
+)
+OPT_6_7B = dict(
+    model_type="opt", vocab_size=50272, hidden_size=4096, num_hidden_layers=32,
+    num_attention_heads=32, ffn_dim=16384, max_position_embeddings=2048, word_embed_proj_dim=4096,
+    do_layer_norm_before=True, enable_bias=True, layer_norm_elementwise_affine=True,
+    activation_function="relu", tie_word_embeddings=True,
+)
+STARCODERBASE_1B = dict(
+    model_type="gpt_bigcode", vocab_size=49152, n_embd=2048, n_head=16, n_layer=24,
+    n_positions=8192, n_inner=8192, multi_query=True, activation_function="gelu_pytorch_tanh",
+    layer_norm_epsilon=1e-5, scale_attn_weights=True, tie_word_embeddings=True,
+)
 FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b": GEMMA2_2B,
                   "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI, "olmo2_1b": OLMO2_1B,
                   "glm4_9b": GLM4_9B, "smollm3_3b": SMOLLM3_3B, "gpt2_xl": GPT2_XL,
-                  "pythia_1_4b": PYTHIA_1_4B, "falcon_7b": FALCON_7B}
+                  "pythia_1_4b": PYTHIA_1_4B, "falcon_7b": FALCON_7B, "gptj_6b": GPTJ_6B,
+                  "opt_6_7b": OPT_6_7B, "starcoderbase_1b": STARCODERBASE_1B}
 # the first published layer each cut keeps (0 where not named): gemma3's
 # 5th and 6th (sliding, full), smollm3's 3rd and 4th (rope, NoPE)
 FAMILY_FIRST_LAYER = {"gemma3_1b": 4, "smollm3_3b": 2}
@@ -386,7 +420,10 @@ PHI_SNAPSHOT_NAME = "phi2-snapshot"  # not a known config: the generic phi branc
 # Their model-level gates (max_abs, rms_rel), about 2-3x the readings on an
 # H100 at seed 0 (PERF.md): "serve" holds the fused model against its pairs
 # and cached against uncached logits, "reference" against an f32 copy (the
-# unfused twin on the card for phi, the CPU for the others).  phi-2 read
+# unfused twin on the card for phi, the CPU for the others).  Since slice 16
+# the family phases' weights are drawn on the card: every family's gates
+# were read again at seeds 0 and 1 and hold 2-3x the larger reading (GLM-4's
+# reference max raised 0.075 -> 0.09; PERF.md).  phi-2 read
 # 0.031 / 4.2e-3 and 0.029 / 4.4e-3; Qwen2-1.5B 0.033-0.035 / 4.5e-3-5.0e-3
 # and 0.032 / 5.3e-3; Gemma-2B 0.25 / 6.0e-3-6.2e-3 (one bf16 ulp of logits
 # in [32, 64)) and 0.151 / 6.6e-3
@@ -407,7 +444,7 @@ FAMILY_GATES = {
     # logits in [4, 8)) and 0.029 / 5.0e-3; SmolLM3-3B 0.047-0.051 /
     # 7.6e-3-8.3e-3 and 0.050 / 8.5e-3
     "olmo2_1b": {"serve": (0.125, 2e-2), "reference": (0.125, 2e-2)},
-    "glm4_9b": {"serve": (0.09375, 1.25e-2), "reference": (0.075, 1.25e-2)},
+    "glm4_9b": {"serve": (0.09375, 1.25e-2), "reference": (0.09, 1.25e-2)},
     "smollm3_3b": {"serve": (0.125, 2e-2), "reference": (0.125, 2e-2)},
     # slice 15, the same at seed 0: GPT-2 XL 0.031-0.039 / 3.3e-3-4.0e-3 and
     # 0.031 / 4.9e-3; Pythia-1.4B 0.031 / 2.5e-3 and 0.024 / 4.2e-3
@@ -416,6 +453,13 @@ FAMILY_GATES = {
     "gpt2_xl": {"serve": (0.09375, 1e-2), "reference": (0.09, 1.25e-2)},
     "pythia_1_4b": {"serve": (0.09375, 6e-3), "reference": (0.06, 1.1e-2)},
     "falcon_7b": {"serve": (0.125, 1.25e-2), "reference": (0.09, 1.25e-2)},
+    # slice 16, the larger reading of seeds 0 and 1 on card-drawn weights:
+    # GPT-J-6B 0.031 / 2.4e-3 and 0.025 / 4.2e-3; OPT-6.7B 0.031 / 3.8e-3
+    # and 0.026 / 4.4e-3; StarCoderBase-1B 0.031 / 4.1e-3 and 0.030 /
+    # 4.8e-3
+    "gptj_6b": {"serve": (0.09375, 6e-3), "reference": (0.06, 1.1e-2)},
+    "opt_6_7b": {"serve": (0.09375, 1e-2), "reference": (0.06, 1.1e-2)},
+    "starcoderbase_1b": {"serve": (0.09375, 1e-2), "reference": (0.075, 1.25e-2)},
 }
 
 # Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
@@ -649,14 +693,15 @@ def attention_term_rss(q, k, v, scale):
 
 
 def flash_check(dev, g, recs: dict, b: int, s: int, h: int = 32, h_kv: int = 4,
-                hd: int = 64) -> None:
+                hd: int = 64, scale: float | None = None) -> None:
     """Flash against its plain version at b x s and the given heads
-    (TinyLlama's by default)."""
+    (TinyLlama's by default), at softmax ``scale`` (1 / sqrt(hd) when
+    None)."""
     bf = torch.bfloat16
     q = torch.randn(b, h, s, hd, device=dev, generator=g).to(bf)
     k = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
     v = torch.randn(b, h_kv, s, hd, device=dev, generator=g).to(bf)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     rss = attention_term_rss(q, k, v, scale)
     recs["flash_attention"].append(check_kernel(
         "flash_attention",
@@ -673,7 +718,8 @@ def flash_check(dev, g, recs: dict, b: int, s: int, h: int = 32, h_kv: int = 4,
         # (at most one ulp, 2^-7 * |ref|); 2^-6 * |ref| + 2^-5 * rss leaves
         # room for 5-sigma tails over the 2M outputs
         tol_fn=lambda ref: 2.0 ** -6 * ref.abs() + 2.0 ** -5 * rss,
-        shape={"b": b, "h": h, "h_kv": h_kv, "s": s, "head_dim": hd, "dtype": "bf16"},
+        shape={"b": b, "h": h, "h_kv": h_kv, "s": s, "head_dim": hd, "dtype": "bf16",
+               **({"scale": scale} if scale != hd ** -0.5 else {})},
         graph=True, path="tma_wgmma",
     ))
 
@@ -690,8 +736,10 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # a side; SmolLM3-3B's 11008 lies below); the widths of slice 15's
     # Grams: GPT-2 XL's 1600 and Falcon-7B's 4544, off the 128-wide tiles'
     # grid, GPT-2 XL's MLP (6400), Pythia-1.4B's (8192) and Falcon-7B's
-    # (18176, a 1.32 GB f32 Gram, the largest)
-    for d in (5632, 2048, 10240, 16384, 9216, 13696, 1600, 4544, 6400, 8192, 18176):
+    # (18176, a 1.32 GB f32 Gram, the largest); GPT-J-6B's and OPT-6.7B's
+    # width (4096; their MLPs' 16384 is Gemma-2B's, StarCoderBase-1B's 2048
+    # and 8192 are above)
+    for d in (5632, 2048, 10240, 16384, 9216, 13696, 1600, 4544, 6400, 8192, 18176, 4096):
         y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
         recs["syrk_gram"].append(check_kernel(
             "syrk_gram",
@@ -727,6 +775,15 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # heads of 128 are OLMo-2-1B's
     flash_check(dev, g, recs, 1, SEQ, h=25, h_kv=25, hd=64)
     flash_check(dev, g, recs, 1, SEQ, h=71, h_kv=1, hd=64)
+    # GPT-J-6B's heads (head dim 256 with no grouping: each query head
+    # streams its own K/V), OPT-6.7B's (32 / 32 of 128), StarCoderBase-1B's
+    # (16 query heads over one kv head of 128), and GPT-Neo-2.7B's 20 / 20
+    # heads of 128 at its unscaled logits (scale 1: logits ~11x the usual
+    # range, which the kernel's online max and exp2 scaling must carry)
+    flash_check(dev, g, recs, 1, SEQ, h=16, h_kv=16, hd=256)
+    flash_check(dev, g, recs, 1, SEQ, h=32, h_kv=32, hd=128)
+    flash_check(dev, g, recs, 1, SEQ, h=16, h_kv=1, hd=128)
+    flash_check(dev, g, recs, 1, SEQ, h=20, h_kv=20, hd=128, scale=1.0)
 
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
@@ -753,7 +810,17 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
               (SEQ, 1600, 25, 6400, True), (SEQ, 6400, 25, 1600, True),
               (SEQ, 4544, 142, 18176, False), (SEQ, 18176, 71, 4544, False),
               (SEQ, 4544, 17, 18176, False), (SEQ, 18176, 17, 4544, False),
-              (SEQ, 4544, 32, 64, False))
+              (SEQ, 4544, 32, 64, False),
+              # slice 16's pairs at rank 32: GPT-J-6B's and OPT-6.7B's
+              # biased MLP (4096 <-> 16384) and StarCoderBase-1B's biased
+              # k/v pairs with 128-wide outputs
+              (SEQ, 4096, 32, 16384, True), (SEQ, 16384, 32, 4096, True),
+              (SEQ, 2048, 32, 128, True),
+              # and the other ranks their walks chose at seeds 0 and 1:
+              # OPT-6.7B's layer-0 o_proj at 64 and v_proj at 128,
+              # StarCoderBase-1B's o_proj at 64 and v_proj at 64 of 128
+              (SEQ, 4096, 64, 4096, True), (SEQ, 4096, 128, 4096, True),
+              (SEQ, 2048, 64, 2048, True), (SEQ, 2048, 64, 128, True))
     for n, d_in, r, d_out, with_bias in shapes:
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
@@ -946,48 +1013,73 @@ def tinyllama_2_layer() -> models.TransformerConfig:
 def _planted(rng):
     """``planted(d_out, d_in)``: ``A @ B / sqrt(r * d_in)`` plus 1% noise, r
     = 256, from ``rng``."""
-    f32 = np.float32
+    return _Draws(rng).planted
 
-    def planted(d_out: int, d_in: int) -> np.ndarray:
-        a = rng.standard_normal((d_out, PLANTED_RANK), dtype=f32)
-        b = rng.standard_normal((PLANTED_RANK, d_in), dtype=f32)
-        w = (a @ b) / np.sqrt(PLANTED_RANK * d_in, dtype=f32)
-        w += 0.01 * rng.standard_normal((d_out, d_in), dtype=f32) / np.sqrt(d_in, dtype=f32)
+
+class _Draws:
+    """The planted weights' draws: f32 standard normals from numpy's
+    generator ``rng`` on the host, or from a ``torch.Generator`` on ``dev``
+    seeded ``seed`` (the products on the card too), and constant vectors
+    of the same kind."""
+
+    def __init__(self, rng=None, seed: int = 0, dev=None) -> None:
+        self.rng, self.dev = rng, dev
+        if dev is not None:
+            self.gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(self, *shape: int):
+        if self.dev is None:
+            return self.rng.standard_normal(shape, dtype=np.float32)
+        return torch.randn(shape, device=self.dev, generator=self.gen)
+
+    def full(self, n: int, value: float):
+        if self.dev is None:
+            return np.full(n, value, np.float32)
+        return torch.full((n,), value, device=self.dev)
+
+    def sqrt(self, n: int):
+        """sqrt(n) in f32 on the host, a Python float for the card."""
+        return np.sqrt(n, dtype=np.float32) if self.dev is None else math.sqrt(n)
+
+    def planted(self, d_out: int, d_in: int):
+        """``A @ B / sqrt(r * d_in)`` plus 1% noise, r = 256."""
+        w = (self.normal(d_out, PLANTED_RANK) @ self.normal(PLANTED_RANK, d_in)) / self.sqrt(
+            PLANTED_RANK * d_in)
+        w += 0.01 * self.normal(d_out, d_in) / self.sqrt(d_in)
         return w
 
-    return planted
 
-
-def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, np.ndarray]:
+def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev=None) -> dict:
     """Random weights in HF names; every decomposable projection is planted
-    at rank 256 (``_planted``), a non-gated MLP (GPT-2, GPT-NeoX, Falcon)
-    without ``gate_proj``.  Projection biases (Qwen2's and GLM-4's q/k/v,
-    GPT-2's and GPT-NeoX's q/k/v/o and MLP) are 0.1-scale noise; norms (the
-    sandwich norms, OLMo-2's post norms and flat q/k norms too) are the
-    identity (zeros for gemma's (1 + w) norms), a LayerNorm's offset 0.1-scale
-    noise; a tied embedding has RMS 1 / sqrt(dim), so the tied head's logits
-    have RMS 1 (and gemma's sqrt(dim)-scaled embeddings RMS 1), and GPT-2's
-    position table the same RMS as its tied embedding."""
-    rng = np.random.default_rng(seed)
-    f32 = np.float32
-    planted = _planted(rng)
+    at rank 256 (``_Draws.planted``), a non-gated MLP (GPT-2, GPT-NeoX,
+    Falcon) without ``gate_proj``.  Projection biases (Qwen2's and GLM-4's
+    q/k/v, GPT-2's and GPT-NeoX's q/k/v/o and MLP, GPT-J's head) are
+    0.1-scale noise; norms (the sandwich norms, OLMo-2's post norms and flat
+    q/k norms too) are the identity (zeros for gemma's (1 + w) norms), a
+    LayerNorm's offset 0.1-scale noise; a tied embedding has RMS 1 /
+    sqrt(dim), so the tied head's logits have RMS 1 (and gemma's
+    sqrt(dim)-scaled embeddings RMS 1), and GPT-2's position table the same
+    RMS as its tied embedding.  numpy arrays drawn on the host, or with
+    ``dev`` tensors drawn there by a ``torch.Generator`` (other numbers from
+    the same recipe)."""
+    draws = _Draws(np.random.default_rng(seed)) if dev is None else _Draws(seed=seed, dev=dev)
+    planted = draws.planted
     hd = cfg.head_dim
-    weight = (np.zeros if cfg.norm_plus_one else np.ones)(cfg.dim, f32)
+    weight = draws.full(cfg.dim, 0.0 if cfg.norm_plus_one else 1.0)
 
-    def bias(n: int) -> np.ndarray:
-        return 0.1 * rng.standard_normal(n, dtype=f32)
+    def bias(n: int):
+        return 0.1 * draws.normal(n)
 
     def norm(name: str) -> None:
         sd[name + ".weight"] = weight
         if cfg.norm_type == "layernorm" and cfg.norm_bias:
             sd[name + ".bias"] = bias(cfg.dim)
 
-    embed = rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=f32)
-    sd = {"model.embed_tokens.weight": embed / np.sqrt(cfg.dim, dtype=f32) if cfg.tie_embeddings
+    embed = draws.normal(cfg.embed_vocab_size or cfg.vocab_size, cfg.dim)
+    sd = {"model.embed_tokens.weight": embed / draws.sqrt(cfg.dim) if cfg.tie_embeddings
           else embed}
     if cfg.learned_pos is not None:
-        sd["model.pos_embed.weight"] = rng.standard_normal(
-            (cfg.learned_pos, cfg.dim), dtype=f32) / np.sqrt(cfg.dim, dtype=f32)
+        sd["model.pos_embed.weight"] = draws.normal(cfg.learned_pos, cfg.dim) / draws.sqrt(cfg.dim)
     for i in range(cfg.n_layers):
         p = f"model.layers.{i}."
         sd[p + "self_attn.q_proj.weight"] = planted(cfg.n_heads * hd, cfg.dim)
@@ -1010,8 +1102,8 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, 
         if cfg.qk_norm or cfg.qk_norm_flat:
             widths = (cfg.n_heads * hd, cfg.n_kv_heads * hd) if cfg.qk_norm_flat else (hd, hd)
             for proj, width in zip("qk", widths):
-                sd[p + f"self_attn.{proj}_norm.weight"] = (
-                    np.zeros if cfg.norm_plus_one else np.ones)(width, f32)
+                sd[p + f"self_attn.{proj}_norm.weight"] = draws.full(
+                    width, 0.0 if cfg.norm_plus_one else 1.0)
         if not cfg.post_norm_only:
             norm(p + "input_layernorm")
         if cfg.parallel_residual != "one_norm":
@@ -1020,11 +1112,12 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int) -> dict[str, 
             norm(p + "pre_feedforward_layernorm")
         if cfg.sandwich_norms or cfg.post_norm_only:
             norm(p + "post_feedforward_layernorm")
-    norm("model.norm")
+    if cfg.final_norm:
+        norm("model.norm")
     if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=f32) / np.sqrt(
-            cfg.dim, dtype=f32
-        )
+        sd["lm_head.weight"] = draws.normal(cfg.vocab_size, cfg.dim) / draws.sqrt(cfg.dim)
+    if cfg.lm_head_bias:
+        sd["tied_head_bias" if cfg.tie_embeddings else "lm_head.bias"] = bias(cfg.vocab_size)
     return sd
 
 
@@ -2662,7 +2755,7 @@ def family_2_layer(name: str) -> tuple[models.TransformerConfig, int]:
     return cut, full.n_layers
 
 
-def fused_layout(sd: dict[str, np.ndarray], qkv: bool) -> dict[str, np.ndarray]:
+def fused_layout(sd: dict[str, torch.Tensor], qkv: bool) -> dict[str, torch.Tensor]:
     """gate/up fused into ``gate_up_proj`` and, with ``qkv``, q/k/v into
     ``qkv_proj`` (phi3's checkpoint layout; GLM-4's fuses gate/up only)."""
     fused_away = ("mlp.up_proj", *(("self_attn.k_proj", "self_attn.v_proj") if qkv else ()))
@@ -2671,18 +2764,18 @@ def fused_layout(sd: dict[str, np.ndarray], qkv: bool) -> dict[str, np.ndarray]:
         stem = k.rpartition(".")[0]
         if qkv and stem.endswith("self_attn.q_proj"):
             base = stem[: -len("q_proj")]
-            fused[base + "qkv_proj.weight"] = np.concatenate(
+            fused[base + "qkv_proj.weight"] = torch.cat(
                 [sd[base + f"{p}_proj.weight"] for p in "qkv"])
         elif stem.endswith("mlp.gate_proj"):
             base = stem[: -len("gate_proj")]
-            fused[base + "gate_up_proj.weight"] = np.concatenate(
+            fused[base + "gate_up_proj.weight"] = torch.cat(
                 [sd[base + "gate_proj.weight"], sd[base + "up_proj.weight"]])
         elif not stem.endswith(fused_away):
             fused[k] = v
     return fused
 
 
-def glm4_layout(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+def glm4_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """GLM-4's checkpoint layout: gate/up fused, and its norm names (the
     attention output's ``post_self_attn_layernorm``, the pre-MLP
     ``post_attention_layernorm``, the MLP output's ``post_mlp_layernorm``)."""
@@ -2699,7 +2792,7 @@ def glm4_layout(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return out
 
 
-def renamed(sd: dict[str, np.ndarray], names: tuple) -> dict[str, np.ndarray]:
+def renamed(sd: dict[str, torch.Tensor], names: tuple) -> dict[str, torch.Tensor]:
     """``sd`` with each (ours, theirs) of ``names`` replaced in its keys."""
     out = {}
     for k, v in sd.items():
@@ -2709,7 +2802,7 @@ def renamed(sd: dict[str, np.ndarray], names: tuple) -> dict[str, np.ndarray]:
     return out
 
 
-def fused_query_key_value(sd: dict[str, np.ndarray], fuse) -> dict[str, np.ndarray]:
+def fused_query_key_value(sd: dict[str, torch.Tensor], fuse) -> dict[str, torch.Tensor]:
     """q/k/v (weights and biases) fused by ``fuse`` into
     ``self_attn.query_key_value``."""
     out = {}
@@ -2724,27 +2817,35 @@ def fused_query_key_value(sd: dict[str, np.ndarray], fuse) -> dict[str, np.ndarr
     return out
 
 
-def gpt2_layout(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+def concatenated(q, k, v):
+    return torch.cat([q, k, v])
+
+
+# GPT-2's names, which GPTBigCode shares on plain Linear weights
+GPT2_NAMES = (
+    ("model.embed_tokens.", "transformer.wte."), ("model.pos_embed.", "transformer.wpe."),
+    ("model.norm.", "transformer.ln_f."), ("model.layers.", "transformer.h."),
+    (".input_layernorm.", ".ln_1."), (".post_attention_layernorm.", ".ln_2."),
+    (".self_attn.query_key_value.", ".attn.c_attn."), (".self_attn.o_proj.", ".attn.c_proj."),
+    (".mlp.up_proj.", ".mlp.c_fc."), (".mlp.down_proj.", ".mlp.c_proj."))
+
+
+def gpt2_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """GPT-2's checkpoint layout: q/k/v fused in ``attn.c_attn``, every
     projection's weight in Conv1D's (in, out), HF's names, no head (tied)."""
     conv1d = (".attn.c_attn.weight", ".attn.c_proj.weight", ".mlp.c_fc.weight",
               ".mlp.c_proj.weight")
-    out = renamed(fused_query_key_value(sd, lambda q, k, v: np.concatenate([q, k, v])), (
-        ("model.embed_tokens.", "transformer.wte."), ("model.pos_embed.", "transformer.wpe."),
-        ("model.norm.", "transformer.ln_f."), ("model.layers.", "transformer.h."),
-        (".input_layernorm.", ".ln_1."), (".post_attention_layernorm.", ".ln_2."),
-        (".self_attn.query_key_value.", ".attn.c_attn."), (".self_attn.o_proj.", ".attn.c_proj."),
-        (".mlp.up_proj.", ".mlp.c_fc."), (".mlp.down_proj.", ".mlp.c_proj.")))
-    return {k: np.ascontiguousarray(v.T) if k.endswith(conv1d) else v for k, v in out.items()}
+    out = renamed(fused_query_key_value(sd, concatenated), GPT2_NAMES)
+    return {k: v.T.contiguous() if k.endswith(conv1d) else v for k, v in out.items()}
 
 
-def gpt_neox_layout(sd: dict[str, np.ndarray], n_heads: int) -> dict[str, np.ndarray]:
+def gpt_neox_layout(sd: dict[str, torch.Tensor], n_heads: int) -> dict[str, torch.Tensor]:
     """GPT-NeoX's checkpoint layout: q/k/v fused a head at a time
     ([head 0: q k v][head 1: q k v]...) in ``attention.query_key_value``,
     HF's names, the untied head ``embed_out``."""
     def fuse(q, k, v):
-        return np.stack([t.reshape(n_heads, -1, *t.shape[1:]) for t in (q, k, v)], axis=1).reshape(
-            3 * q.shape[0], *q.shape[1:])
+        return torch.stack([t.reshape(n_heads, -1, *t.shape[1:]) for t in (q, k, v)],
+                           dim=1).reshape(3 * q.shape[0], *q.shape[1:])
 
     return renamed(fused_query_key_value(sd, fuse), (
         ("model.embed_tokens.", "gpt_neox.embed_in."),
@@ -2755,10 +2856,10 @@ def gpt_neox_layout(sd: dict[str, np.ndarray], n_heads: int) -> dict[str, np.nda
         (".mlp.down_proj.", ".mlp.dense_4h_to_h.")))
 
 
-def falcon_layout(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+def falcon_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """Falcon-7B's checkpoint layout: the query heads, then its one key and
     one value head, in ``self_attention.query_key_value``, HF's names."""
-    return renamed(fused_query_key_value(sd, lambda q, k, v: np.concatenate([q, k, v])), (
+    return renamed(fused_query_key_value(sd, concatenated), (
         ("model.embed_tokens.", "transformer.word_embeddings."),
         ("model.norm.", "transformer.ln_f."),
         ("model.layers.", "transformer.h."),
@@ -2767,24 +2868,60 @@ def falcon_layout(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         (".mlp.down_proj.", ".mlp.dense_4h_to_h.")))
 
 
+def gptj_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """GPT-J's checkpoint layout: its names, the biased head as it is."""
+    return renamed(sd, (
+        ("model.embed_tokens.", "transformer.wte."), ("model.norm.", "transformer.ln_f."),
+        ("model.layers.", "transformer.h."), (".input_layernorm.", ".ln_1."),
+        (".self_attn.o_proj.", ".attn.out_proj."), (".self_attn.", ".attn."),
+        (".mlp.up_proj.", ".mlp.fc_in."), (".mlp.down_proj.", ".mlp.fc_out.")))
+
+
+def opt_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """OPT's checkpoint layout: its names, the position table after two
+    offset rows (HF adds 2 to every position), the tied head stored too."""
+    out = renamed(sd, (
+        ("model.embed_tokens.", "model.decoder.embed_tokens."),
+        ("model.pos_embed.", "model.decoder.embed_positions."),
+        ("model.norm.", "model.decoder.final_layer_norm."),
+        ("model.layers.", "model.decoder.layers."), (".self_attn.o_proj.", ".self_attn.out_proj."),
+        (".input_layernorm.", ".self_attn_layer_norm."),
+        (".post_attention_layernorm.", ".final_layer_norm."), (".mlp.up_proj.", ".fc1."),
+        (".mlp.down_proj.", ".fc2.")))
+    table = out["model.decoder.embed_positions.weight"]
+    out["model.decoder.embed_positions.weight"] = torch.cat([torch.full_like(table[:2], 7.0), table])
+    return {**out, "lm_head.weight": sd["model.embed_tokens.weight"]}
+
+
+def gpt_bigcode_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """StarCoder's checkpoint layout: [q | k | v] rows in ``attn.c_attn``
+    (one k and one v head), GPT-2's names on plain Linear weights, the tied
+    head stored too."""
+    out = renamed(fused_query_key_value(sd, concatenated), GPT2_NAMES)
+    return {**out, "lm_head.weight": sd["model.embed_tokens.weight"]}
+
+
 # the families whose planted weights are written in their checkpoint layout
 # and translated back by the loader, as a snapshot's would be
 FAMILY_LAYOUTS = {"phi3_mini": lambda sd: fused_layout(sd, qkv=True), "glm4_9b": glm4_layout,
                   "gpt2_xl": gpt2_layout,
                   "pythia_1_4b": lambda sd: gpt_neox_layout(sd, PYTHIA_1_4B["num_attention_heads"]),
-                  "falcon_7b": falcon_layout}
+                  "falcon_7b": falcon_layout, "gptj_6b": gptj_layout, "opt_6_7b": opt_layout,
+                  "starcoderbase_1b": gpt_bigcode_layout}
 
 
-def family_weights(cfg: models.TransformerConfig, name: str, seed: int) -> dict[str, np.ndarray]:
-    """``planted_rank_weights``, written in the family's checkpoint layout
-    (``FAMILY_LAYOUTS``) and translated back by ``hf_loader.translator_for``,
-    which must give the weights again."""
-    sd = planted_rank_weights(cfg, seed)
+def family_weights(cfg: models.TransformerConfig, name: str, seed: int,
+                   dev) -> dict[str, torch.Tensor]:
+    """``planted_rank_weights`` drawn on the card, written in the family's
+    checkpoint layout (``FAMILY_LAYOUTS``) and translated back by
+    ``hf_loader.translator_for``, which must give the weights again, array
+    by array."""
+    sd = planted_rank_weights(cfg, seed, dev)
     if name not in FAMILY_LAYOUTS:
         return sd
     back = hf_loader.translator_for(FAMILY_CONFIGS[name])(FAMILY_LAYOUTS[name](sd))
     if back.keys() != sd.keys() or any(
-            back[k] is not sd[k] and not np.array_equal(back[k], sd[k]) for k in sd):
+            back[k] is not sd[k] and not torch.equal(back[k], sd[k]) for k in sd):
         raise AssertionError(f"{name}: the translated checkpoint layout is not the weights")
     return back
 
@@ -2813,8 +2950,10 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
         split[part] = time.perf_counter() - t_phase - sum(split.values())
 
     cfg, full_layers = family_2_layer(name)
-    model = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev),
-                                        family_weights(cfg, name, seed))
+    weights = family_weights(cfg, name, seed, dev)
+    lap("planted")
+    model = utils.load_state_dict(models.CausalLM(cfg, device=dev), weights)
+    del weights
     n_sites = len(engine.get_decomposeable_submodule_names(model, ["lm_head"]))
     params_before = utils.get_num_params(model)
     probe = utils.to_device(next(token_batches(cfg.vocab_size, seed + 3)), dev)
@@ -3652,7 +3791,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     family_counts = {}
     for name in ("qwen2_1_5b", "gemma_2b", "llama3_2_1b", "gemma2_2b", "gemma3_1b", "phi3_mini",
-                 "olmo2_1b", "glm4_9b", "smollm3_3b", "gpt2_xl", "pythia_1_4b", "falcon_7b"):
+                 "olmo2_1b", "glm4_9b", "smollm3_3b", "gpt2_xl", "pythia_1_4b", "falcon_7b",
+                 "gptj_6b", "opt_6_7b", "starcoderbase_1b"):
         family_counts.update(family_serve(dev, name, args.seed))
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()

@@ -13,7 +13,12 @@ projections split, glm4's norms renamed onto the sandwich slots and the
 gemma3 and got_ocr2 wrappers' text paths unwrapped; GPT-2's Conv1D
 projections are transposed and its ``c_attn`` split, GPT-NeoX's and
 Falcon's fused ``query_key_value`` split by their layouts, and
-StarCoder2's MLP renamed.  A translator takes numpy arrays or tensors.
+StarCoder2's MLP renamed; GPT-1's, gpt-sw3's and ImageGPT's Conv1D
+layouts go through GPT-2's translator (ImageGPT's untied head kept),
+GPT-J's, GPT-Neo's and OPT's names are renamed (OPT's two legacy position
+rows dropped), CodeGen's sharded (q, v, k) ``qkv_proj`` and StarCoder's
+multi-query ``c_attn`` split; emu3's text path keeps llama's names.  A
+translator takes numpy arrays or tensors.
 Shards are read from ``*.safetensors`` where that package is importable,
 else from ``pytorch_model*.bin`` with ``torch.load``.
 """
@@ -44,6 +49,12 @@ __all__ = [
     "make_gpt_neox_translator",
     "make_falcon_translator",
     "translate_starcoder2_state_dict",
+    "translate_imagegpt_state_dict",
+    "translate_gptj_state_dict",
+    "make_codegen_translator",
+    "translate_gpt_neo_state_dict",
+    "make_gpt_bigcode_translator",
+    "translate_opt_state_dict",
     "translator_for",
 ]
 
@@ -213,13 +224,15 @@ def make_multimodal_text_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
 
 
 def translate_gpt2_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
-    """GPT-2's layout: its Conv1D projections hold (in, out), the transpose
-    of a Linear's weight, so each weight is transposed and ``attn.c_attn``
-    split in thirds (q | k | v along the output); ``wte`` / ``wpe`` ->
-    ``embed_tokens`` / ``pos_embed``, ``ln_1`` / ``ln_2`` -> the input and
-    post-attention norms, ``attn.c_proj`` -> ``o_proj``, ``mlp.c_fc`` /
-    ``mlp.c_proj`` -> up / down, ``ln_f`` -> ``model.norm``.  The causal-mask
-    buffers and the tied ``lm_head`` are dropped."""
+    """GPT-2's layout (and GPT-1's and gpt-sw3's): its Conv1D projections
+    hold (in, out), the transpose of a Linear's weight, so each weight is
+    transposed and ``attn.c_attn`` split in thirds (q | k | v along the
+    output); ``wte`` / ``wpe`` (GPT-1: ``tokens_embed`` /
+    ``positions_embed``) -> ``embed_tokens`` / ``pos_embed``, ``ln_1`` /
+    ``ln_2`` -> the input and post-attention norms (GPT-1 applies them
+    after each residual add), ``attn.c_proj`` -> ``o_proj``, ``mlp.c_fc`` /
+    ``mlp.c_proj`` -> up / down, ``ln_f`` -> ``model.norm``.  The
+    causal-mask buffers and the tied ``lm_head`` are dropped."""
     conv1d = (".self_attn.o_proj.", ".mlp.up_proj.", ".mlp.down_proj.", ".attn.c_attn.")
     out: dict[str, Any] = {}
     for k, v in sd.items():
@@ -227,6 +240,8 @@ def translate_gpt2_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
             continue
         for old, new in (("transformer.wte.", "model.embed_tokens."),
                          ("transformer.wpe.", "model.pos_embed."),
+                         ("transformer.tokens_embed.", "model.embed_tokens."),
+                         ("transformer.positions_embed.", "model.pos_embed."),
                          ("transformer.ln_f.", "model.norm."), ("transformer.h.", "model.layers."),
                          (".ln_1.", ".input_layernorm."), (".ln_2.", ".post_attention_layernorm."),
                          (".attn.c_proj.", ".self_attn.o_proj."), (".mlp.c_fc.", ".mlp.up_proj."),
@@ -339,42 +354,172 @@ def translate_starcoder2_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
             for k, v in sd.items()}
 
 
+def translate_imagegpt_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """ImageGPT's layout is GPT-2's, but its head is untied (``vocab_size -
+    1`` outputs): ``lm_head`` is kept where GPT-2's translator drops it."""
+    out = translate_gpt2_state_dict({k: v for k, v in sd.items() if not k.startswith("lm_head.")})
+    out.update({k: v for k, v in sd.items() if k.startswith("lm_head.")})
+    return out
+
+
+def _renamed(sd: dict[str, Any], names: tuple, drop: tuple = ()) -> dict[str, Any]:
+    """``sd`` with each (theirs, ours) of ``names`` replaced in its keys, in
+    order, and the keys ending in one of ``drop`` left out."""
+    out: dict[str, Any] = {}
+    for k, v in sd.items():
+        if k.endswith(drop):
+            continue
+        for old, new in names:
+            k = k.replace(old, new)
+        out[k] = v
+    return out
+
+
+# GPT-J's and CodeGen's names: ``ln_1``, the one norm of the parallel block,
+# ``attn.out_proj``, ``mlp.fc_in`` / ``mlp.fc_out``; the biased lm_head
+# keeps its name
+_GPTJ_NAMES = (("transformer.wte.", "model.embed_tokens."), ("transformer.ln_f.", "model.norm."),
+               ("transformer.h.", "model.layers."), (".ln_1.", ".input_layernorm."),
+               (".attn.q_proj.", ".self_attn.q_proj."), (".attn.k_proj.", ".self_attn.k_proj."),
+               (".attn.v_proj.", ".self_attn.v_proj."), (".attn.out_proj.", ".self_attn.o_proj."),
+               (".mlp.fc_in.", ".mlp.up_proj."), (".mlp.fc_out.", ".mlp.down_proj."))
+
+
+def translate_gptj_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """GPT-J's layout: separate projections renamed (``_GPTJ_NAMES``), the
+    causal-mask buffers dropped, the biased ``lm_head`` passed through."""
+    return _renamed(sd, _GPTJ_NAMES, drop=(".attn.bias", ".attn.masked_bias"))
+
+
+def make_codegen_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """CodeGen's layout: ``attn.qkv_proj`` fuses q/k/v over ``mp_num`` = 4
+    model-parallel shards, rows [shard 0: q v k][shard 1: q v k]..., each
+    part ``n_embd / 4`` rows (note the value before the key); each
+    projection's shard slices, concatenated, give its rows in head order.
+    The rest is GPT-J's names; the causal-mask buffer is dropped."""
+    dim, mp_num = int(hf_cfg["n_embd"]), 4
+    local = dim // mp_num
+
+    def translate(sd: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in _renamed(sd, _GPTJ_NAMES, drop=(".attn.causal_mask",)).items():
+            if ".attn.qkv_proj." not in k:
+                out[k] = v
+                continue
+            stem, leaf = k.split(".attn.qkv_proj.")
+            w = v.reshape(mp_num, 3 * local, *v.shape[1:])
+            for i, name in enumerate(("q_proj", "v_proj", "k_proj")):
+                out[f"{stem}.self_attn.{name}.{leaf}"] = w[:, i * local:(i + 1) * local].reshape(
+                    dim, *v.shape[1:])
+        return out
+
+    return translate
+
+
+def translate_gpt_neo_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """GPT-Neo's layout: plain Linears (no Conv1D transpose) under
+    ``attn.attention.{q,k,v,out}_proj`` -> ``self_attn``, ``ln_1`` / ``ln_2``,
+    ``mlp.c_fc`` / ``mlp.c_proj`` -> up / down, ``wte`` / ``wpe``, ``ln_f``;
+    the mask buffers are dropped."""
+    return _renamed(sd, (
+        ("transformer.wte.", "model.embed_tokens."), ("transformer.wpe.", "model.pos_embed."),
+        ("transformer.ln_f.", "model.norm."), ("transformer.h.", "model.layers."),
+        (".ln_1.", ".input_layernorm."), (".ln_2.", ".post_attention_layernorm."),
+        (".attn.attention.out_proj.", ".self_attn.o_proj."), (".attn.attention.", ".self_attn."),
+        (".mlp.c_fc.", ".mlp.up_proj."), (".mlp.c_proj.", ".mlp.down_proj.")),
+        drop=(".attn.bias", ".attn.masked_bias"))
+
+
+def make_gpt_bigcode_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """GPTBigCode's (StarCoder's) layout: GPT-2's names on plain Linears
+    (no transpose), the multi-query ``attn.c_attn`` packing [q (n_embd) |
+    k (head_dim) | v (head_dim)] rows, split onto q/k/v; the mask buffers
+    and the tied ``lm_head`` are dropped."""
+    dim = int(hf_cfg["n_embd"])
+    hd = dim // int(hf_cfg["n_head"])
+
+    def translate(sd: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in _renamed(sd, (
+                ("transformer.wte.", "model.embed_tokens."), ("transformer.wpe.", "model.pos_embed."),
+                ("transformer.ln_f.", "model.norm."), ("transformer.h.", "model.layers."),
+                (".ln_1.", ".input_layernorm."), (".ln_2.", ".post_attention_layernorm."),
+                (".attn.c_proj.", ".self_attn.o_proj."), (".mlp.c_fc.", ".mlp.up_proj."),
+                (".mlp.c_proj.", ".mlp.down_proj.")),
+                drop=(".attn.bias", ".attn.masked_bias")).items():
+            if k == "lm_head.weight":
+                continue
+            if ".attn.c_attn." not in k:
+                out[k] = v
+                continue
+            stem, leaf = k.split(".attn.c_attn.")
+            for name, part in zip(("q_proj", "k_proj", "v_proj"),
+                                  (v[:dim], v[dim:dim + hd], v[dim + hd:])):
+                out[f"{stem}.self_attn.{name}.{leaf}"] = part
+        return out
+
+    return translate
+
+
+def translate_opt_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """OPT's layout: ``embed_positions`` holds two leading rows for torch's
+    legacy +2 offset (HF adds 2 to every position), dropped so that the
+    model's absolute positions index the same rows; the per-layer
+    ``self_attn_layer_norm`` / ``final_layer_norm`` (before the MLP) ->
+    the input / post-attention norms, the decoder's ``final_layer_norm`` ->
+    ``model.norm``, ``fc1`` / ``fc2`` -> up / down; the tied ``lm_head`` is
+    dropped."""
+    out: dict[str, Any] = {}
+    for k, v in _renamed(sd, (
+            ("model.decoder.embed_tokens.", "model.embed_tokens."),
+            ("model.decoder.embed_positions.", "model.pos_embed."),
+            ("model.decoder.final_layer_norm.", "model.norm."),
+            ("model.decoder.layers.", "model.layers."), (".self_attn.out_proj.", ".self_attn.o_proj."),
+            (".self_attn_layer_norm.", ".input_layernorm."),
+            (".final_layer_norm.", ".post_attention_layernorm."), (".fc1.", ".mlp.up_proj."),
+            (".fc2.", ".mlp.down_proj."))).items():
+        if k != "lm_head.weight":
+            out[k] = v[2:] if k.startswith("model.pos_embed.") else v
+    return out
+
+
 # model types whose HF names are the port model's own
 _SAME_NAMES = (
     "llama", "code_llama", "mistral", "ministral", "qwen2", "qwen3", "gemma", "gemma2",
-    "gemma3_text", "olmo2", "olmo3", "smollm3", "phi", "stablelm", "granite", "cohere",
+    "gemma3_text", "olmo2", "olmo3", "smollm3", "phi", "stablelm", "granite", "cohere", "emu3",
+    "emu3_text_model",
 )
+
+
+# the translator of every other layout; each of ``_MADE_FROM_CONFIG`` makes
+# it from the config (phi3's, GPT-NeoX's, Falcon's, CodeGen's and
+# GPTBigCode's splits take its widths, the wrappers' text path its type)
+_TRANSLATORS = {
+    "glm": translate_glm_state_dict, "glm4": translate_glm4_state_dict,
+    "gpt2": translate_gpt2_state_dict, "openai-gpt": translate_gpt2_state_dict,
+    "gpt-sw3": translate_gpt2_state_dict, "starcoder2": translate_starcoder2_state_dict,
+    "imagegpt": translate_imagegpt_state_dict, "gptj": translate_gptj_state_dict,
+    "gpt_neo": translate_gpt_neo_state_dict, "opt": translate_opt_state_dict,
+    "gpt_neox": make_gpt_neox_translator, "falcon": make_falcon_translator,
+    "codegen": make_codegen_translator, "gpt_bigcode": make_gpt_bigcode_translator,
+    "got_ocr2": make_multimodal_text_translator, "mixtral": translate_mixtral_state_dict,
+    "phi3": _phi3_translator, "gemma3": make_multimodal_text_translator,
+}
+_MADE_FROM_CONFIG = (_phi3_translator, make_gpt_neox_translator, make_falcon_translator,
+                     make_codegen_translator, make_gpt_bigcode_translator,
+                     make_multimodal_text_translator)
 
 
 def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:
     """The checkpoint-layout translator for a config's ``model_type``: None
-    where HF's names are the model's already.  phi3's, GPT-NeoX's and
-    Falcon's splits take the config's head counts (and Falcon's wiring).
-    Raises for a model type the port has no model for (ROADMAP.md lists
-    them)."""
+    where HF's names are the model's already.  Raises for a model type the
+    port has no model for (ROADMAP.md lists them)."""
     mt = hf_cfg.get("model_type")
     if mt in _SAME_NAMES:
         return None
-    if mt == "mixtral":
-        return translate_mixtral_state_dict
-    if mt == "phi3":
-        return _phi3_translator(hf_cfg)
-    if mt == "glm4":
-        return translate_glm4_state_dict
-    if mt == "glm":
-        return translate_glm_state_dict
-    if mt == "gpt2":
-        return translate_gpt2_state_dict
-    if mt == "gpt_neox":
-        return make_gpt_neox_translator(hf_cfg)
-    if mt == "falcon":
-        return make_falcon_translator(hf_cfg)
-    if mt == "starcoder2":
-        return translate_starcoder2_state_dict
-    if mt in WRAPPED_TEXT_TYPES:
-        return make_multimodal_text_translator(hf_cfg)
-    raise ValueError(
-        f"model_type={mt!r}: the port has models for {list(_SAME_NAMES)}, glm, glm4, got_ocr2, "
-        "gpt2, gpt_neox, falcon, starcoder2, mixtral, phi3 and gemma3 only; the other families "
-        "wait in ROADMAP.md"
-    )
+    if mt not in _TRANSLATORS:
+        *names, last = (*_SAME_NAMES, *_TRANSLATORS)
+        raise ValueError(f"model_type={mt!r}: the port has models for {', '.join(names)} and "
+                         f"{last} only; the other families wait in ROADMAP.md")
+    translate = _TRANSLATORS[mt]
+    return translate(hf_cfg) if translate in _MADE_FROM_CONFIG else translate

@@ -1,8 +1,9 @@
-"""Decoder-only causal LM, llama family, Mixtral and the first families
-beyond the llama graph, in PyTorch.
+"""Decoder-only causal LM, llama family, Mixtral and the families beyond
+the llama graph that the port has, in PyTorch.
 
 Counterpart of the llama-family, Mixtral and gpt2 / gpt_neox / falcon /
-starcoder2 / stablelm / granite / cohere parts of
+starcoder2 / stablelm / granite / cohere / gptj / codegen / gpt_neo /
+gpt_bigcode / opt / openai-gpt / imagegpt parts of
 ``ptdeco_tpu/models/transformer.py``: RMSNorm (optionally the gemma (1 + w)
 flavour) or LayerNorm (optionally without its offset), HF rotate-half rope
 at absolute positions (optionally with llama3, yarn, linear or phi3's
@@ -17,12 +18,14 @@ no rotary at all), a gated MLP (SwiGLU, or gemma's tanh-GELU) or a
 non-gated biased one (exact or tanh GELU, relu), the top-k routed mixture
 of SwiGLU experts (``MoEMLP``), pre-norm blocks (the sandwich norms of
 Gemma-2, Gemma-3 and GLM-4, OLMo-2's post-norm-only blocks, the one-norm
-and two-norm parallel residuals of GPT-NeoX, Falcon and Cohere, Granite's
-scaled residuals; optionally each under ``torch.utils.checkpoint``, the
-config's ``remat``), an embedding optionally scaled by sqrt(dim) (gemma)
-or Granite's multiplier, with GPT-2's learned positions added, and a
-dict-in/logits-out ``CausalLM`` (optionally scaling and soft-capping its
-logits).
+and two-norm parallel residuals of GPT-NeoX, Falcon, Cohere and GPT-J,
+Granite's scaled residuals, GPT-1's post-LN blocks; optionally each under
+``torch.utils.checkpoint``, the config's ``remat``), an embedding
+optionally scaled by sqrt(dim) (gemma) or Granite's multiplier, with
+GPT-2's learned positions added (ImageGPT's with one more row than the
+head has outputs), no final norm for GPT-1, and a dict-in/logits-out
+``CausalLM`` (optionally scaling and soft-capping its logits, with GPT-J's
+biased head).
 Every projection is an ``nn.Linear`` site and parameter names follow HF
 llama and the JAX package's MoE layout
 (``model.layers.0.self_attn.q_proj.weight``,
@@ -65,18 +68,23 @@ __all__ = [
 logger = logging.getLogger(__name__)
 
 
-# the HF model types ``TransformerConfig.from_hf_config`` builds (gemma3 and
-# got_ocr2 are multimodal wrappers, whose text paths are gemma3_text and
-# qwen2; code_llama is llama's graph under another name; the last seven are
-# not the llama graph and build through their own constructors,
-# ``_BEYOND_LLAMA``)
+# the HF model types ``TransformerConfig.from_hf_config`` builds (gemma3,
+# got_ocr2 and emu3 are multimodal wrappers, whose text paths are
+# gemma3_text, qwen2 and emu3_text_model, the llama graph over multimodal
+# tokens; code_llama and gpt-sw3 are llama's and gpt2's graphs under other
+# names, ``_ALIASES``; the types from gpt2 on are not the llama graph and
+# build through their own constructors, ``_BEYOND_LLAMA``)
 HF_FAMILIES = (
     "llama", "mistral", "qwen2", "qwen3", "gemma", "mixtral", "gemma2", "gemma3_text", "gemma3",
     "phi3", "olmo2", "olmo3", "smollm3", "glm", "glm4", "ministral", "code_llama", "got_ocr2",
-    "gpt2", "gpt_neox", "falcon", "starcoder2", "stablelm", "granite", "cohere",
+    "emu3", "emu3_text_model",
+    "gpt2", "gpt-sw3", "gpt_neox", "falcon", "starcoder2", "stablelm", "granite", "cohere",
+    "gptj", "codegen", "gpt_neo", "gpt_bigcode", "opt", "openai-gpt", "imagegpt",
 )
 # the text path's model type of each multimodal wrapper
-WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2"}
+WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2", "emu3": "emu3_text_model"}
+# model types that HF maps onto another type's config and model classes
+_ALIASES = {"code_llama": "llama", "gpt-sw3": "gpt2"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +165,15 @@ class TransformerConfig:
     embedding_multiplier: Optional[float] = None
     residual_multiplier: Optional[float] = None
     logit_scale: Optional[float] = None
+    # gptj / codegen: the head carries a bias (a tied head a bias of its own)
+    lm_head_bias: bool = False
+    # openai-gpt (GPT-1): post-LN blocks (each norm after its residual add)
+    # and no final norm
+    post_ln: bool = False
+    final_norm: bool = True
+    # imagegpt: the embedding holds this many rows, the head vocab_size
+    # outputs
+    embed_vocab_size: Optional[int] = None
     dtype: torch.dtype = torch.float32
     # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
     # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
@@ -179,11 +196,13 @@ class TransformerConfig:
     ) -> "TransformerConfig":
         """HF ``config.json`` of a llama (or code_llama), mistral, qwen2,
         qwen3, gemma, gemma2, gemma3_text, phi3, olmo2, olmo3, smollm3, glm,
-        glm4, ministral or mixtral checkpoint, or of the gemma3 or got_ocr2
-        wrapper (its text_config) -> config, as the JAX package's family
-        branch builds it; a gpt2, gpt_neox, falcon, starcoder2, stablelm,
-        granite or cohere one through that family's own constructor, as the
-        JAX package's ``beyond_llama`` table does.  Raises ValueError on
+        glm4, ministral or mixtral checkpoint, or of the gemma3, got_ocr2 or
+        emu3 wrapper (its text_config) -> config, as the JAX package's
+        family branch builds it; a gpt2 (or gpt-sw3), gpt_neox, falcon,
+        starcoder2, stablelm, granite, cohere, gptj, codegen, gpt_neo,
+        gpt_bigcode, opt, openai-gpt or imagegpt one through that family's
+        own constructor, as the JAX package's ``beyond_llama`` table does.
+        Raises ValueError on
         anything these families do not express here (rope types other than
         llama3 / yarn / linear, phi3's partial rotary, other bias layouts,
         the JAX constructors' own refusals and every other model type;
@@ -192,8 +211,7 @@ class TransformerConfig:
         and phi3 it is logged and not applied: full causal attention, exact
         for sequences within the window."""
         mt = hf.get("model_type", "llama")
-        if mt == "code_llama":  # HF maps it to LlamaConfig: the llama graph
-            mt = "llama"
+        mt = _ALIASES.get(mt, mt)
         if mt in WRAPPED_TEXT_TYPES:
             # a multimodal wrapper: the text path builds from text_config
             # (its vision tower's weights are dropped on load)
@@ -575,12 +593,168 @@ def _hf_cohere(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
     )
 
 
-# the beyond-llama model types' constructors (JAX transformer.py:361-443, the
-# seven of its list of supported families)
+def _gptj_graph(hf: dict, dtype: torch.dtype, remat: bool, rotary_dim: Any) -> TransformerConfig:
+    """GPT-J's graph, which CodeGen shares: pair-interleaved rotary over the
+    first ``rotary_dim`` dims of each head, one LayerNorm feeding the
+    parallel attention and MLP, bias-free q/k/v/o, a biased non-gated
+    ``gelu_new`` MLP and an untied head with a bias."""
+    dim, n_heads, inner = int(hf["n_embd"]), int(hf["n_head"]), hf.get("n_inner")
+    hd = dim // n_heads
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["n_layer"]),
+        n_heads=n_heads, n_kv_heads=n_heads, hidden_dim=int(inner) if inner else 4 * dim,
+        norm_eps=float(hf.get("layer_norm_epsilon", 1e-5)), norm_type="layernorm",
+        mlp_gated=False, mlp_bias=True,
+        mlp_act=_hf_act(hf.get("activation_function", "gelu_new")),
+        rope_theta=10000.0, rope_interleaved=True,
+        rope_partial_factor=int(rotary_dim) / hd if rotary_dim and int(rotary_dim) < hd else None,
+        parallel_residual="one_norm", tie_embeddings=bool(hf.get("tie_word_embeddings", False)),
+        lm_head_bias=True, remat=remat, dtype=dtype,
+    )
+
+
+def _hf_gptj(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """GPT-J: ``_gptj_graph`` at its ``rotary_dim`` (all of each head when
+    absent); the checkpoint's names are renamed on load
+    (``hf_loader.translate_gptj_state_dict``)."""
+    return _gptj_graph(hf, dtype, remat, hf.get("rotary_dim"))
+
+
+def _hf_codegen(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """CodeGen: GPT-J's graph, its bias-free q/k/v fused in the ``mp_num``
+    = 4 sharded (q, v, k) layout and split on load
+    (``hf_loader.make_codegen_translator``).  A config without
+    ``rotary_dim`` is refused, as in the JAX package (HF then rotates the
+    whole embedding, not each head)."""
+    if not hf.get("rotary_dim"):
+        raise ValueError(
+            "codegen without rotary_dim is not implemented, as in the JAX package (the fallback "
+            "rotates the whole embed dim, not per-head dims)"
+        )
+    return _gptj_graph(hf, dtype, remat, hf["rotary_dim"])
+
+
+def _hf_gpt_neo(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """GPT-Neo: learned positions, unscaled attention logits
+    (``query_scale_override`` 1.0), its "local" layers windowed to the last
+    ``window_size`` keys (``sliding_attention``), bias-free q/k/v with a
+    biased out_proj and a non-gated ``gelu_new`` MLP."""
+    layers = [str(t) for t in hf.get("attention_layers") or []] or (
+        ["global"] * int(hf["num_layers"]))
+    has_local = "local" in layers
+    dim, n_heads = int(hf["hidden_size"]), int(hf["num_heads"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["num_layers"]),
+        n_heads=n_heads, n_kv_heads=n_heads, hidden_dim=int(hf.get("intermediate_size") or 4 * dim),
+        norm_eps=float(hf.get("layer_norm_epsilon", 1e-5)), norm_type="layernorm",
+        mlp_gated=False, mlp_bias=True,
+        mlp_act=_hf_act(hf.get("activation_function", "gelu_new")), o_proj_bias=True,
+        learned_pos=int(hf["max_position_embeddings"]), use_rope=False, query_scale_override=1.0,
+        sliding_window=int(hf.get("window_size", 256)) if has_local else None,
+        layer_types=tuple(
+            "sliding_attention" if t == "local" else "full_attention" for t in layers
+        ) if has_local else (),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)), remat=remat, dtype=dtype,
+    )
+
+
+def _hf_gpt_bigcode(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """GPTBigCode (StarCoder, SantaCoder): GPT-2's blocks and learned
+    positions with multi-query attention (one kv head; the fused ``c_attn``
+    is split on load, ``hf_loader.make_gpt_bigcode_translator``), tied.
+    ``multi_query=False`` is refused, as in the JAX package."""
+    if not hf.get("multi_query", True):
+        raise ValueError("gpt_bigcode multi_query=False is not implemented, as in the JAX package")
+    dim, n_heads, inner = int(hf["n_embd"]), int(hf["n_head"]), hf.get("n_inner")
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["n_layer"]),
+        n_heads=n_heads, n_kv_heads=1, hidden_dim=int(inner) if inner else 4 * dim,
+        norm_eps=float(hf.get("layer_norm_epsilon", 1e-5)), norm_type="layernorm",
+        mlp_gated=False, mlp_bias=True,
+        mlp_act=_hf_act(hf.get("activation_function", "gelu_pytorch_tanh")),
+        qkv_bias=True, o_proj_bias=True, use_rope=False, learned_pos=int(hf["n_positions"]),
+        query_scale_override=None if hf.get("scale_attn_weights", True) else 1.0,
+        tie_embeddings=True, remat=remat, dtype=dtype,
+    )
+
+
+def _hf_opt(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """OPT: learned positions (the checkpoint's two legacy offset rows are
+    dropped on load, ``hf_loader.translate_opt_state_dict``), pre-LN
+    blocks, a non-gated relu MLP and ``enable_bias`` on every projection.
+    The 350m layout (``word_embed_proj_dim != hidden_size``,
+    ``do_layer_norm_before=False``) and LayerNorms without an affine are
+    refused, as in the JAX package."""
+    dim = int(hf["hidden_size"])
+    if int(hf.get("word_embed_proj_dim", dim)) != dim:
+        raise ValueError(
+            "opt word_embed_proj_dim != hidden_size (project_in / project_out, the 350m layout) "
+            "is not implemented, as in the JAX package"
+        )
+    if not hf.get("do_layer_norm_before", True):
+        raise ValueError(
+            "opt do_layer_norm_before=False (the 350m post-norm layout) is not implemented, as "
+            "in the JAX package"
+        )
+    if not hf.get("layer_norm_elementwise_affine", True):
+        raise ValueError(
+            "opt layer_norm_elementwise_affine=False is not implemented, as in the JAX package"
+        )
+    bias, n_heads = bool(hf.get("enable_bias", True)), int(hf["num_attention_heads"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["num_hidden_layers"]),
+        n_heads=n_heads, n_kv_heads=n_heads, hidden_dim=int(hf["ffn_dim"]), norm_eps=1e-5,
+        norm_type="layernorm", mlp_gated=False, mlp_bias=bias,
+        mlp_act=_hf_act(hf.get("activation_function", "relu")), qkv_bias=bias, o_proj_bias=bias,
+        use_rope=False, learned_pos=int(hf["max_position_embeddings"]),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)), remat=remat, dtype=dtype,
+    )
+
+
+def _hf_openai_gpt(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """GPT-1: GPT-2's Conv1D layout with post-LN blocks (ln_1 / ln_2 after
+    each residual add), no final norm, learned positions and a tied head;
+    its ``afn`` "gelu" is the tanh form (HF's ``ACT_FNS``)."""
+    afn = hf.get("afn", "gelu")
+    act = {"gelu": "gelu_tanh", "relu": "relu", "silu": "silu", "swish": "silu"}.get(afn)
+    if act is None:
+        raise ValueError(f"openai-gpt afn {afn!r} is not implemented, as in the JAX package")
+    dim, n_heads = int(hf["n_embd"]), int(hf["n_head"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["n_layer"]),
+        n_heads=n_heads, n_kv_heads=n_heads, hidden_dim=4 * dim,
+        norm_eps=float(hf.get("layer_norm_epsilon", 1e-5)), norm_type="layernorm",
+        post_ln=True, final_norm=False, mlp_gated=False, mlp_bias=True, mlp_act=act,
+        qkv_bias=True, o_proj_bias=True, use_rope=False, learned_pos=int(hf["n_positions"]),
+        tie_embeddings=True, remat=remat, dtype=dtype,
+    )
+
+
+def _hf_imagegpt(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """ImageGPT: GPT-2's graph over colour-cluster tokens, with RMSNorm
+    blocks (its LayerNorm neither centres nor offsets), a ``quick_gelu``
+    MLP and an untied head of ``vocab_size - 1`` outputs over an embedding
+    of ``vocab_size`` rows (the start token is never predicted)."""
+    dim, n_heads, inner = int(hf["n_embd"]), int(hf["n_head"]), hf.get("n_inner")
+    vocab = int(hf["vocab_size"])
+    return TransformerConfig(
+        vocab_size=vocab - 1, embed_vocab_size=vocab, dim=dim, n_layers=int(hf["n_layer"]),
+        n_heads=n_heads, n_kv_heads=n_heads, hidden_dim=int(inner) if inner else 4 * dim,
+        norm_eps=float(hf.get("layer_norm_epsilon", 1e-5)), mlp_gated=False, mlp_bias=True,
+        mlp_act=_hf_act(hf.get("activation_function", "quick_gelu")), qkv_bias=True,
+        o_proj_bias=True, use_rope=False, learned_pos=int(hf["n_positions"]),
+        tie_embeddings=False, remat=remat, dtype=dtype,
+    )
+
+
+# the beyond-llama model types' constructors (JAX transformer.py:361-443:
+# the seven of its list of supported families, then the GPT lineage)
 _BEYOND_LLAMA = {
     "gpt2": _hf_gpt2, "gpt_neox": _hf_gpt_neox, "falcon": _hf_falcon,
     "starcoder2": _hf_starcoder2, "stablelm": _hf_stablelm, "granite": _hf_granite,
-    "cohere": _hf_cohere,
+    "cohere": _hf_cohere, "gptj": _hf_gptj, "codegen": _hf_codegen, "gpt_neo": _hf_gpt_neo,
+    "gpt_bigcode": _hf_gpt_bigcode, "opt": _hf_opt, "openai-gpt": _hf_openai_gpt,
+    "imagegpt": _hf_imagegpt,
 }
 
 
@@ -1132,7 +1306,10 @@ class Block(torch.nn.Module):
     mlp_in ``post_attention_layernorm(x)`` ("two_norm") or the shared
     ln1 x ("one_norm", which has no ``post_attention_layernorm``,
     :5633-5638); ``residual_multiplier`` (granite) scales both branches in
-    x's dtype (:5647-5650).  Norms are RMSNorm or LayerNorm by
+    x's dtype (:5647-5650); with ``post_ln`` (GPT-1) attention reads the
+    raw stream and each norm follows its residual add, h =
+    ``input_layernorm``(x + attn(x)), then ``post_attention_layernorm``(h +
+    mlp(h)) (:5610-5613).  Norms are RMSNorm or LayerNorm by
     ``norm_type``."""
 
     def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
@@ -1151,6 +1328,7 @@ class Block(torch.nn.Module):
             raise ValueError(f"parallel_residual={cfg.parallel_residual!r}")
         self.parallel_residual = cfg.parallel_residual
         self.residual_multiplier = cfg.residual_multiplier
+        self.post_ln = cfg.post_ln
 
     def forward(
         self,
@@ -1162,6 +1340,9 @@ class Block(torch.nn.Module):
         """``self_attn`` stands in for the block's attention when given (the
         cached attention of ``serving.forward_with_cache``)."""
         attn = self.self_attn if self_attn is None else self_attn
+        if self.post_ln:
+            h = self.input_layernorm(x + attn(x, attn_mask, positions))
+            return self.post_attention_layernorm(h + self.mlp(h))
         if self.input_layernorm is None:  # post-norm-only
             h = x + self.post_attention_layernorm(attn(x, attn_mask, positions))
             return h + self.post_feedforward_layernorm(self.mlp(h))
@@ -1184,11 +1365,14 @@ class Block(torch.nn.Module):
 class Decoder(torch.nn.Module):
     def __init__(self, cfg: TransformerConfig, device: Any) -> None:
         super().__init__()
+        # imagegpt's table has a row (its start token) the head does not
+        # predict
         self.embed_tokens = torch.nn.Embedding(
-            cfg.vocab_size, cfg.dim, dtype=cfg.dtype, device=device
+            cfg.embed_vocab_size or cfg.vocab_size, cfg.dim, dtype=cfg.dtype, device=device
         )
         self.layers = torch.nn.ModuleList(Block(cfg, device, i) for i in range(cfg.n_layers))
-        self.norm = _block_norm(cfg, device)
+        # GPT-1 has no final norm (and no ``model.norm`` keys, as in JAX)
+        self.norm = _block_norm(cfg, device) if cfg.final_norm else torch.nn.Identity()
         # gpt2's learned absolute positions (HF wpe)
         self.pos_embed = (
             torch.nn.Embedding(cfg.learned_pos, cfg.dim, dtype=cfg.dtype, device=device)
@@ -1282,7 +1466,9 @@ class CausalLM(torch.nn.Module):
     """Callable with a batch dict {"input_ids", optional "attention_mask"}
     (or a bare id tensor), returning logits.  Weights are drawn from
     ``generator`` (a fresh one seeded 0 when None) with the JAX package's
-    initial distributions."""
+    initial distributions.  ``lm_head_bias`` biases the untied head
+    (``lm_head.bias``) or, tied, adds ``tied_head_bias`` (zeros at first, as
+    in JAX) to the tied logits."""
 
     def __init__(
         self,
@@ -1292,14 +1478,19 @@ class CausalLM(torch.nn.Module):
     ) -> None:
         super().__init__()
         self.model = Decoder(cfg, device)
+        kw = {"dtype": cfg.dtype, "device": device}
         self.lm_head = (
             None
             if cfg.tie_embeddings
-            else torch.nn.Linear(cfg.dim, cfg.vocab_size, bias=False, dtype=cfg.dtype, device=device)
+            else torch.nn.Linear(cfg.dim, cfg.vocab_size, bias=cfg.lm_head_bias, **kw)
         )
         self.final_logit_softcap = cfg.final_logit_softcap
         self.logit_scale = cfg.logit_scale
         init_weights(self, generator, device)
+        self.tied_head_bias = (
+            torch.nn.Parameter(torch.zeros(cfg.vocab_size, **kw))
+            if cfg.tie_embeddings and cfg.lm_head_bias else None
+        )
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Vocab logits of final-normed hidden states, multiplied by
@@ -1307,6 +1498,8 @@ class CausalLM(torch.nn.Module):
         (gemma2), each in the logits' own dtype, in the JAX head's order."""
         if self.lm_head is None:
             logits = h @ self.model.embed_tokens.weight.t()
+            if self.tied_head_bias is not None:
+                logits = logits + self.tied_head_bias.to(logits.dtype)
         else:
             logits = self.lm_head(h)
         if self.logit_scale is not None:

@@ -65,7 +65,8 @@ CASES = {
 }
 CONFIG_FIELDS = (*EARLIER_FIELDS, "norm_type", "norm_bias", "mlp_gated", "mlp_bias", "use_rope",
                  "learned_pos", "parallel_residual", "embedding_multiplier",
-                 "residual_multiplier", "logit_scale")
+                 "residual_multiplier", "logit_scale", "lm_head_bias", "post_ln", "final_norm",
+                 "embed_vocab_size")
 # what makes each knob bind: the port without it gives other logits
 WITHOUT_FEATURE = [
     ("gpt2", {"learned_pos": None}),
@@ -175,7 +176,8 @@ def test_the_blocks_take_their_own_norms_and_mlps():
     assert pair("stablelm")[1].model.layers[0].self_attn.rope_partial_dim == 4
 
 
-@pytest.mark.parametrize("case", ["gpt_neox", "falcon", "granite", "cohere"])
+@pytest.mark.parametrize("case", ["gpt_neox", "gpt_neox_sequential", "falcon", "falcon_new",
+                                  "falcon_rw", "starcoder2", "stablelm", "granite", "cohere"])
 def test_cached_generate_matches_jax(case):
     """Greedy ``generate`` from the KV cache gives the JAX package's tokens;
     the logits that chose each new token equal the JAX model's forward over

@@ -29,6 +29,8 @@ def dev():
     "n,d",
     [(100, 300), (37, 1030), (5, 129), (0, 256), (1, 130), (64, 2050)]
     + [(n, d) for d in (512, 600, 5632) for n in (1, 37, 1024)]
+    # GPT-J-6B's and OPT-6.7B's width
+    + [(1024, 4096)]
     # rows split over blocks (TMA and cp.async panels, a ragged last split),
     # and one block a tile summing several 4096-row chunks
     + [(5000, 512), (5000, 600), (70000, 130), (9000, 2048)],
@@ -54,7 +56,12 @@ def test_syrk_gram(dev, n, d, dtype):
      (1, 12, 2, 300, 128), (1, 8, 1, 300, 256), (2, 4, 2, 257, 256),
      # head dim 96 on the 128 instance: Phi-3-mini's ungrouped heads, grouped
      # heads and ragged sequences
-     (1, 32, 32, 1024, 96), (2, 8, 2, 300, 96), (1, 4, 1, 77, 96), (3, 6, 3, 129, 96)],
+     (1, 32, 32, 1024, 96), (2, 8, 2, 300, 96), (1, 4, 1, 77, 96), (3, 6, 3, 129, 96),
+     # GPT-J-6B's heads (head dim 256 with no grouping), OPT-6.7B's (32 / 32
+     # of 128) and StarCoderBase-1B's (16 over one kv head of 128), whole
+     # and ragged
+     (1, 16, 16, 1024, 256), (2, 16, 16, 257, 256), (1, 32, 32, 1024, 128),
+     (2, 32, 32, 300, 128), (1, 16, 1, 1024, 128), (3, 16, 1, 129, 128)],
 )
 def test_flash_attention(dev, b, h, h_kv, s, d):
     q = torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16)
@@ -65,6 +72,27 @@ def test_flash_attention(dev, b, h, h_kv, s, d):
     ref = ops.causal_attention_plain(q, k, v, d ** -0.5)
     # both round p (or softmax(p)) to bf16 before PV, at different points
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=3e-2)
+
+
+@pytest.mark.parametrize(
+    "b,h,h_kv,s,d",
+    [(1, 20, 20, 1024, 128), (2, 4, 4, 129, 128), (1, 8, 2, 300, 64), (1, 16, 16, 257, 256)],
+)
+def test_flash_attention_unscaled(dev, b, h, h_kv, s, d):
+    """Scale 1 (GPT-Neo's and unscaled GPTBigCode's logits), at about
+    sqrt(d) times the usual logits: the online max and the exp2 rescaling
+    keep every row normalised."""
+    q = torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(b, h_kv, s, d, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(b, h_kv, s, d, device=dev, dtype=torch.bfloat16)
+    out = ops.flash_attention(q, k, v, 1.0)
+    torch.cuda.synchronize()
+    ref = ops.causal_attention_plain(q, k, v, 1.0)
+    assert torch.isfinite(out).all()
+    # a row's probabilities nearly pick one value of v, so outputs reach
+    # |4| and more, where each side's rounding to bf16 is an ulp of up to
+    # 2^-7 |ref|
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -6, atol=3e-2)
 
 
 @pytest.mark.parametrize("rep", [1, 4, 8])
@@ -148,7 +176,11 @@ def test_flash_attention_rejects_unsupported(dev):
     # one row), ranks from 1 to past the 16-row tile's limit, d_out that is
     # a multiple of no tile
     + [(n, 576, r, 1001, bias) for n in (1, 4, 512) for r in (1, 17, 256, 1500)
-       for bias in (True, False)],
+       for bias in (True, False)]
+    # GPT-J-6B's and OPT-6.7B's biased MLP pairs, StarCoderBase-1B's k/v
+    # pairs with 128-wide outputs (a prefill and a decode step)
+    + [(1024, 4096, 32, 16384, True), (1024, 16384, 32, 4096, True), (1024, 2048, 32, 128, True),
+       (4, 2048, 32, 128, True)],
 )
 def test_lowrank_matmul(dev, n, d_in, r, d_out, bias):
     x = torch.randn(n, d_in, device=dev, dtype=torch.bfloat16)

@@ -117,9 +117,10 @@ REFUSED_BY_PORT = {
                            moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
                            qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8,
                            n_group=1, topk_group=1),
-    # beyond-llama types after the first seven
-    "gptj": dict(model_type="gptj", vocab_size=128, n_embd=32, n_layer=2, n_head=4, rotary_dim=4,
-                 n_positions=64),
+    # beyond-llama types the port does not build yet: bloom's ALiBi, olmo's
+    # non-parametric LayerNorm
+    "bloom": dict(model_type="bloom", vocab_size=128, hidden_size=32, n_layer=2, n_head=4,
+                  layer_norm_epsilon=1e-5),
     "olmo": tiny_hf("olmo"),
 }
 
