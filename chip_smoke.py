@@ -87,6 +87,15 @@ head of 128, learned positions, q/k/v fused in c_attn), each written in its
 checkpoint layout.  Since slice 16 the family phases draw their planted
 weights on the card.
 
+Slice 17 runs it on the llama lineage with knobs of its own, at the
+defaults of transformers' config classes: Persimmon-8B (64 heads of 64,
+half of each rotated, q/k LayerNorms with biases, relu^2, its weights in
+the per-head fused query_key_value), Nemotron (48 heads of 128,
+LayerNorm1P, relu^2, MLP 24576: the largest Gram) and Arcee AFM-4.5B (32
+heads of 80: flash at head dim 80, on its 128 instance with 80-wide tensor
+maps).  Since slice 17 every planted weight is drawn on the card, slice
+1's, its trainer snapshot's and phi-2's too.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -107,8 +116,9 @@ round ms, acceptance and the gate's measured ratio), phi2_cli_decompose
 (wall, ranks, launches: SYRK and no flash; the artifact reloaded, the fused
 serve against its pairs and its f32 twin), qwen2_1_5b, gemma_2b,
 llama3_2_1b, gemma2_2b, gemma3_1b, phi3_mini, olmo2_1b, glm4_9b, smollm3_3b,
-gpt2_xl, pythia_1_4b, falcon_7b, gptj_6b, opt_6_7b and starcoderbase_1b
-(walk and phase wall and its split, cuts,
+gpt2_xl, pythia_1_4b, falcon_7b, gptj_6b, opt_6_7b, starcoderbase_1b,
+persimmon_8b, nemotron_hf_default and arcee_hf_default (walk and phase
+wall and its split, cuts,
 ranks, artifact, fused serve, ``generate``, f32 tokens, reference), dwain_mlp,
 falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
 lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
@@ -246,6 +256,11 @@ LOCKD_GRAD_LIMITS = {"max_rel": 0.05, "rms_rel": 0.02, "gain_err": 0.01}
 TRAINER_PROSE = ("README.md", "SURVEY.md", "COMPONENTS.md", "docs/*.md", "NOTES_ROUND*.md")
 TRAINER_SNAPSHOT_NAME = "tinyllama-snapshot"  # not a known config: the generic llama branch
 TRAINER_PROMPT, TRAINER_NEW = 128, 16
+# the fine-tuned artifact's fused serve against its pairs and its cached
+# against its uncached logits (its logits on prose reach [8, 16), where one
+# bf16 ulp is 0.0625): read max 0.0625 and RMS-relative 3.6e-3-3.9e-3 at
+# seeds 0 and 1 on card-drawn weights, the gate held at 2-3x
+TRAINER_MAX_ABS, TRAINER_RMS_REL = 0.125, 1e-2
 
 # Slice 9: the rest of cached serving.  trainer_llm_generate runs the CLI's
 # generate task with apps/trainer_llm/examples_config/generate_tinyllama.yaml's
@@ -399,11 +414,40 @@ STARCODERBASE_1B = dict(
     n_positions=8192, n_inner=8192, multi_query=True, activation_function="gelu_pytorch_tanh",
     layer_norm_epsilon=1e-5, scale_attn_weights=True, tie_word_embeddings=True,
 )
+# Slice 17: the llama lineage with knobs of its own, the same way, at the
+# defaults of transformers 4.57.6's config classes (written as numbers; the
+# card has no transformers): PersimmonConfig(), which its docstring ties to
+# adept/persimmon-8b-base (64 heads of 64, half of each head rotated, q/k LayerNorms with biases, relu^2, biases everywhere; its
+# weights written in the per-head fused query_key_value); NemotronConfig(),
+# whose docstring names nvidia/nemotron-3-8b-base-4k-hf but whose widths
+# are larger than that checkpoint's (48 heads of 128, LayerNorm1P, relu^2,
+# MLP 24576: the largest Gram yet); and ArceeConfig(), tied to
+# arcee-ai/AFM-4.5B (32 heads of 80, flash's head dim 80; relu^2)
+PERSIMMON_8B = dict(
+    model_type="persimmon", vocab_size=262144, hidden_size=4096, intermediate_size=16384,
+    num_hidden_layers=36, num_attention_heads=64, hidden_act="relu2", layer_norm_eps=1e-5,
+    rope_theta=25000.0, rope_scaling=None, qk_layernorm=True, partial_rotary_factor=0.5,
+    tie_word_embeddings=False, max_position_embeddings=16384,
+)
+NEMOTRON_HF_DEFAULT = dict(
+    model_type="nemotron", vocab_size=256000, hidden_size=6144, intermediate_size=24576,
+    num_hidden_layers=32, num_attention_heads=48, head_dim=128, num_key_value_heads=None,
+    hidden_act="relu2", norm_eps=1e-5, rope_theta=10000.0, partial_rotary_factor=0.5,
+    attention_bias=False, mlp_bias=False, tie_word_embeddings=False, max_position_embeddings=4096,
+)
+ARCEE_HF_DEFAULT = dict(
+    model_type="arcee", vocab_size=32000, hidden_size=2560, intermediate_size=18432,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32, head_dim=80,
+    hidden_act="relu2", rms_norm_eps=1e-5, rope_theta=10000.0, rope_scaling=None,
+    attention_bias=False, mlp_bias=False, tie_word_embeddings=False, max_position_embeddings=4096,
+)
 FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b": GEMMA2_2B,
                   "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI, "olmo2_1b": OLMO2_1B,
                   "glm4_9b": GLM4_9B, "smollm3_3b": SMOLLM3_3B, "gpt2_xl": GPT2_XL,
                   "pythia_1_4b": PYTHIA_1_4B, "falcon_7b": FALCON_7B, "gptj_6b": GPTJ_6B,
-                  "opt_6_7b": OPT_6_7B, "starcoderbase_1b": STARCODERBASE_1B}
+                  "opt_6_7b": OPT_6_7B, "starcoderbase_1b": STARCODERBASE_1B,
+                  "persimmon_8b": PERSIMMON_8B, "nemotron_hf_default": NEMOTRON_HF_DEFAULT,
+                  "arcee_hf_default": ARCEE_HF_DEFAULT}
 # the first published layer each cut keeps (0 where not named): gemma3's
 # 5th and 6th (sliding, full), smollm3's 3rd and 4th (rope, NoPE)
 FAMILY_FIRST_LAYER = {"gemma3_1b": 4, "smollm3_3b": 2}
@@ -424,7 +468,8 @@ PHI_SNAPSHOT_NAME = "phi2-snapshot"  # not a known config: the generic phi branc
 # the family phases' weights are drawn on the card: every family's gates
 # were read again at seeds 0 and 1 and hold 2-3x the larger reading (GLM-4's
 # reference max raised 0.075 -> 0.09; PERF.md).  phi-2 read
-# 0.031 / 4.2e-3 and 0.029 / 4.4e-3; Qwen2-1.5B 0.033-0.035 / 4.5e-3-5.0e-3
+# 0.031 / 4.2e-3 and 0.029 / 4.4e-3 (on the card's draws since slice 17:
+# 0.031 / 4.3e-3 and 0.030 / 4.3e-3); Qwen2-1.5B 0.033-0.035 / 4.5e-3-5.0e-3
 # and 0.032 / 5.3e-3; Gemma-2B 0.25 / 6.0e-3-6.2e-3 (one bf16 ulp of logits
 # in [32, 64)) and 0.151 / 6.6e-3
 FAMILY_GATES = {
@@ -460,6 +505,12 @@ FAMILY_GATES = {
     "gptj_6b": {"serve": (0.09375, 6e-3), "reference": (0.06, 1.1e-2)},
     "opt_6_7b": {"serve": (0.09375, 1e-2), "reference": (0.06, 1.1e-2)},
     "starcoderbase_1b": {"serve": (0.09375, 1e-2), "reference": (0.075, 1.25e-2)},
+    # slice 17, the larger reading of seeds 0 and 1: Persimmon-8B 0.031 /
+    # 3.4e-3 and 0.030 / 4.3e-3; Nemotron 0.031 / 2.6e-3 and 0.027 /
+    # 4.1e-3; Arcee 0.031 / 3.1e-3 and 0.026 / 4.2e-3
+    "persimmon_8b": {"serve": (0.09375, 1e-2), "reference": (0.075, 1.1e-2)},
+    "nemotron_hf_default": {"serve": (0.09375, 7.5e-3), "reference": (0.06, 1.1e-2)},
+    "arcee_hf_default": {"serve": (0.09375, 9e-3), "reference": (0.06, 1.1e-2)},
 }
 
 # Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
@@ -530,7 +581,9 @@ RESUME_REL = 1e-5
 
 # Model-level gates, about 2-3x the readings on an H100 at seed 0 (PERF.md):
 # fused vs unfused logits read max 0.031 (one bf16 ulp), RMS-relative 1.8e-3;
-# bf16 on the card vs f32 on the CPU read max 0.025, RMS-relative 4.1e-3
+# bf16 on the card vs f32 on the CPU read max 0.025, RMS-relative 4.1e-3.
+# On the card's draws (since slice 17), the larger of seeds 0 and 1: 0.031
+# / 2.4e-3 and 0.026 / 4.1e-3
 FUSED_MAX_ABS, FUSED_RMS_REL = 0.0625, 5e-3
 REF_MAX_ABS, REF_RMS_REL = 0.06, 1e-2
 
@@ -738,8 +791,11 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # grid, GPT-2 XL's MLP (6400), Pythia-1.4B's (8192) and Falcon-7B's
     # (18176, a 1.32 GB f32 Gram, the largest); GPT-J-6B's and OPT-6.7B's
     # width (4096; their MLPs' 16384 is Gemma-2B's, StarCoderBase-1B's 2048
-    # and 8192 are above)
-    for d in (5632, 2048, 10240, 16384, 9216, 13696, 1600, 4544, 6400, 8192, 18176, 4096):
+    # and 8192 are above); slice 17's: Nemotron's MLP (24576, a 2.42 GB f32
+    # Gram, the largest) and width (6144), Arcee's MLP (18432) and width
+    # (2560; Persimmon's 4096 and 16384 are above)
+    for d in (5632, 2048, 10240, 16384, 9216, 13696, 1600, 4544, 6400, 8192, 18176, 4096,
+              24576, 6144, 18432, 2560):
         y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
         recs["syrk_gram"].append(check_kernel(
             "syrk_gram",
@@ -784,6 +840,14 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     flash_check(dev, g, recs, 1, SEQ, h=32, h_kv=32, hd=128)
     flash_check(dev, g, recs, 1, SEQ, h=16, h_kv=1, hd=128)
     flash_check(dev, g, recs, 1, SEQ, h=20, h_kv=20, hd=128, scale=1.0)
+    # slice 17: Arcee's 32 heads of 80 (head dim 80 on the 128 instance,
+    # 80-wide tensor maps) at the walk's 1 x 1024 and its cached generate's
+    # 4 x 128 prefill, Persimmon's 64 / 64 heads of 64 and Nemotron's 48 /
+    # 48 of 128
+    flash_check(dev, g, recs, 1, SEQ, h=32, h_kv=32, hd=80)
+    flash_check(dev, g, recs, 4, FAMILY_PROMPT_LENS[0], h=32, h_kv=32, hd=80)
+    flash_check(dev, g, recs, 1, SEQ, h=64, h_kv=64, hd=64)
+    flash_check(dev, g, recs, 1, SEQ, h=48, h_kv=48, hd=128)
 
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
@@ -820,7 +884,17 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
               # OPT-6.7B's layer-0 o_proj at 64 and v_proj at 128,
               # StarCoderBase-1B's o_proj at 64 and v_proj at 64 of 128
               (SEQ, 4096, 64, 4096, True), (SEQ, 4096, 128, 4096, True),
-              (SEQ, 2048, 64, 2048, True), (SEQ, 2048, 64, 128, True))
+              (SEQ, 2048, 64, 2048, True), (SEQ, 2048, 64, 128, True),
+              # slice 17's pairs at the ranks their walks chose at seeds 0
+              # and 1: Nemotron's at 24 (6144 <-> 24576, 6144 -> 6144),
+              # Arcee's at 40 (layer 0's MLP, 2560 <-> 18432) and 20 (the
+              # rest), unbiased; Persimmon's at 32 with biases (its MLP's
+              # 4096 <-> 16384 is OPT-6.7B's above)
+              (SEQ, 6144, 24, 24576, False), (SEQ, 24576, 24, 6144, False),
+              (SEQ, 6144, 24, 6144, False),
+              (SEQ, 2560, 40, 18432, False), (SEQ, 18432, 40, 2560, False),
+              (SEQ, 2560, 20, 18432, False), (SEQ, 18432, 20, 2560, False),
+              (SEQ, 2560, 20, 2560, False), (SEQ, 4096, 32, 4096, True))
     for n, d_in, r, d_out, with_bias in shapes:
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
@@ -1010,59 +1084,43 @@ def tinyllama_2_layer() -> models.TransformerConfig:
     return dataclasses.replace(full, n_layers=N_LAYERS)
 
 
-def _planted(rng):
-    """``planted(d_out, d_in)``: ``A @ B / sqrt(r * d_in)`` plus 1% noise, r
-    = 256, from ``rng``."""
-    return _Draws(rng).planted
-
-
 class _Draws:
-    """The planted weights' draws: f32 standard normals from numpy's
-    generator ``rng`` on the host, or from a ``torch.Generator`` on ``dev``
-    seeded ``seed`` (the products on the card too), and constant vectors
-    of the same kind."""
+    """The planted weights' draws: f32 standard normals from a
+    ``torch.Generator`` on ``dev`` seeded ``seed`` (the products on the
+    card too), and constant vectors."""
 
-    def __init__(self, rng=None, seed: int = 0, dev=None) -> None:
-        self.rng, self.dev = rng, dev
-        if dev is not None:
-            self.gen = torch.Generator(device=dev).manual_seed(seed)
+    def __init__(self, seed: int, dev) -> None:
+        self.dev = dev
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def normal(self, *shape: int):
-        if self.dev is None:
-            return self.rng.standard_normal(shape, dtype=np.float32)
+    def normal(self, *shape: int) -> torch.Tensor:
         return torch.randn(shape, device=self.dev, generator=self.gen)
 
-    def full(self, n: int, value: float):
-        if self.dev is None:
-            return np.full(n, value, np.float32)
+    def full(self, n: int, value: float) -> torch.Tensor:
         return torch.full((n,), value, device=self.dev)
 
-    def sqrt(self, n: int):
-        """sqrt(n) in f32 on the host, a Python float for the card."""
-        return np.sqrt(n, dtype=np.float32) if self.dev is None else math.sqrt(n)
-
-    def planted(self, d_out: int, d_in: int):
+    def planted(self, d_out: int, d_in: int) -> torch.Tensor:
         """``A @ B / sqrt(r * d_in)`` plus 1% noise, r = 256."""
-        w = (self.normal(d_out, PLANTED_RANK) @ self.normal(PLANTED_RANK, d_in)) / self.sqrt(
+        w = (self.normal(d_out, PLANTED_RANK) @ self.normal(PLANTED_RANK, d_in)) / math.sqrt(
             PLANTED_RANK * d_in)
-        w += 0.01 * self.normal(d_out, d_in) / self.sqrt(d_in)
+        w += 0.01 * self.normal(d_out, d_in) / math.sqrt(d_in)
         return w
 
 
-def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev=None) -> dict:
-    """Random weights in HF names; every decomposable projection is planted
-    at rank 256 (``_Draws.planted``), a non-gated MLP (GPT-2, GPT-NeoX,
-    Falcon) without ``gate_proj``.  Projection biases (Qwen2's and GLM-4's
-    q/k/v, GPT-2's and GPT-NeoX's q/k/v/o and MLP, GPT-J's head) are
-    0.1-scale noise; norms (the sandwich norms, OLMo-2's post norms and flat
-    q/k norms too) are the identity (zeros for gemma's (1 + w) norms), a
-    LayerNorm's offset 0.1-scale noise; a tied embedding has RMS 1 /
+def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev) -> dict:
+    """Random weights in HF names, drawn on ``dev`` (``_Draws``); every
+    decomposable projection is planted at rank 256 (``_Draws.planted``), a
+    non-gated MLP (GPT-2, GPT-NeoX, Falcon, Nemotron) without
+    ``gate_proj``.  Projection biases (Qwen2's and GLM-4's q/k/v, GPT-2's and
+    GPT-NeoX's q/k/v/o and MLP, GPT-J's head) are 0.1-scale noise; norms
+    (the sandwich norms, OLMo-2's post norms and flat q/k norms too) are the
+    identity (zeros for gemma's and Nemotron's (1 + w) norms, none for
+    OLMo's norms without an affine), a LayerNorm's offset (Persimmon's q/k
+    LayerNorms' too) 0.1-scale noise; a tied embedding has RMS 1 /
     sqrt(dim), so the tied head's logits have RMS 1 (and gemma's
     sqrt(dim)-scaled embeddings RMS 1), and GPT-2's position table the same
-    RMS as its tied embedding.  numpy arrays drawn on the host, or with
-    ``dev`` tensors drawn there by a ``torch.Generator`` (other numbers from
-    the same recipe)."""
-    draws = _Draws(np.random.default_rng(seed)) if dev is None else _Draws(seed=seed, dev=dev)
+    RMS as its tied embedding."""
+    draws = _Draws(seed, dev)
     planted = draws.planted
     hd = cfg.head_dim
     weight = draws.full(cfg.dim, 0.0 if cfg.norm_plus_one else 1.0)
@@ -1071,15 +1129,17 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev=None) -> 
         return 0.1 * draws.normal(n)
 
     def norm(name: str) -> None:
+        if cfg.norm_no_affine:
+            return
         sd[name + ".weight"] = weight
         if cfg.norm_type == "layernorm" and cfg.norm_bias:
             sd[name + ".bias"] = bias(cfg.dim)
 
     embed = draws.normal(cfg.embed_vocab_size or cfg.vocab_size, cfg.dim)
-    sd = {"model.embed_tokens.weight": embed / draws.sqrt(cfg.dim) if cfg.tie_embeddings
+    sd = {"model.embed_tokens.weight": embed / math.sqrt(cfg.dim) if cfg.tie_embeddings
           else embed}
     if cfg.learned_pos is not None:
-        sd["model.pos_embed.weight"] = draws.normal(cfg.learned_pos, cfg.dim) / draws.sqrt(cfg.dim)
+        sd["model.pos_embed.weight"] = draws.normal(cfg.learned_pos, cfg.dim) / math.sqrt(cfg.dim)
     for i in range(cfg.n_layers):
         p = f"model.layers.{i}."
         sd[p + "self_attn.q_proj.weight"] = planted(cfg.n_heads * hd, cfg.dim)
@@ -1104,6 +1164,8 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev=None) -> 
             for proj, width in zip("qk", widths):
                 sd[p + f"self_attn.{proj}_norm.weight"] = draws.full(
                     width, 0.0 if cfg.norm_plus_one else 1.0)
+                if cfg.qk_norm_type == "layernorm":
+                    sd[p + f"self_attn.{proj}_norm.bias"] = bias(width)
         if not cfg.post_norm_only:
             norm(p + "input_layernorm")
         if cfg.parallel_residual != "one_norm":
@@ -1115,7 +1177,7 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev=None) -> 
     if cfg.final_norm:
         norm("model.norm")
     if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = draws.normal(cfg.vocab_size, cfg.dim) / draws.sqrt(cfg.dim)
+        sd["lm_head.weight"] = draws.normal(cfg.vocab_size, cfg.dim) / math.sqrt(cfg.dim)
     if cfg.lm_head_bias:
         sd["tied_head_bias" if cfg.tie_embeddings else "lm_head.bias"] = bias(cfg.vocab_size)
     return sd
@@ -1491,7 +1553,7 @@ def ft_walk(dev, cfg, weights, seed: int, mode: str, **extra):
     (the last 8 decomposed pairs, 20 steps at lr 1e-4 on token batches from
     seed + 5); returns the model, config, wall seconds, the fine-tune's
     record and the pipelined eigh's record (required where it precomputes)."""
-    model = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev), weights)
+    model = utils.load_state_dict(models.CausalLM(cfg, device=dev), weights)
     ft = TimedFinetune(finetune.make_finetune_fn(
         mode, token_batches(cfg.vocab_size, seed + 5), models.ce_loss,
         num_last_modules_to_finetune=FT_LAST_N, num_steps=FT_STEPS, lr=FT_LR))
@@ -2092,10 +2154,10 @@ def resnet_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
         torch.cuda.empty_cache()
 
 
-def trainer_inputs(cfg: models.TransformerConfig, seed: int, root: pathlib.Path) -> tuple:
+def trainer_inputs(cfg: models.TransformerConfig, seed: int, root: pathlib.Path, dev) -> tuple:
     """A local HF snapshot (TinyLlama's config.json at 2 layers, bf16, and a
-    pytorch_model.bin of ``planted_rank_weights``) and a JSONL of the
-    repository's prose, one paragraph a record."""
+    pytorch_model.bin of ``planted_rank_weights``, drawn on ``dev``) and a
+    JSONL of the repository's prose, one paragraph a record."""
     snap = root / "snapshot"
     snap.mkdir()
     hf = dict(model_type="llama", architectures=["LlamaForCausalLM"], vocab_size=cfg.vocab_size,
@@ -2105,8 +2167,7 @@ def trainer_inputs(cfg: models.TransformerConfig, seed: int, root: pathlib.Path)
               hidden_act="silu", max_position_embeddings=2048, tie_word_embeddings=False,
               torch_dtype="bfloat16")
     (snap / "config.json").write_text(json.dumps(hf, indent=2))
-    sd = {k: torch.from_numpy(v).to(torch.bfloat16)
-          for k, v in planted_rank_weights(cfg, seed).items()}
+    sd = {k: v.to(torch.bfloat16).cpu() for k, v in planted_rank_weights(cfg, seed, dev).items()}
     torch.save(sd, snap / "pytorch_model.bin")
     here = pathlib.Path(__file__).resolve().parent
     paths = sorted({p for pattern in TRAINER_PROSE for p in here.glob(pattern)})
@@ -2269,7 +2330,7 @@ def trainer_llm_decompose(dev, cfg, seed: int, root: pathlib.Path) -> tuple:
     cut, SYRK launched; the artifact reloads onto two fresh models from
     the snapshot to identical state dicts, equal to the saved one (and to
     the .safetensors where that package is installed)."""
-    snap, data, prose_bytes = trainer_inputs(cfg, seed, root)
+    snap, data, prose_bytes = trainer_inputs(cfg, seed, root, dev)
     cfg_path, out = root / "decompose.json", root / "decompose_out"
     run_cfg = trainer_decompose_config(snap, data)
     cfg_path.write_text(json.dumps(run_cfg))
@@ -2368,9 +2429,10 @@ def trainer_llm_finetune(dev, seed: int, root: pathlib.Path, snap, data, artifac
         y_pairs = model(probe)
         pnn.fuse_factor_pairs(model)
         y_fused = model(probe)
-    serve = logits_agree(y_fused, y_pairs, FUSED_MAX_ABS, FUSED_RMS_REL, "trainer_llm_serve")
+    serve = logits_agree(y_fused, y_pairs, TRAINER_MAX_ABS, TRAINER_RMS_REL, "trainer_llm_serve")
     prompt = probe["input_ids"][:, :TRAINER_PROMPT]
-    gen = cached_generate(model, prompt, TRAINER_NEW, "trainer_llm_generate", GEN_MAX_ABS, GEN_RMS_REL)
+    gen = cached_generate(model, prompt, TRAINER_NEW, "trainer_llm_generate", TRAINER_MAX_ABS,
+                          TRAINER_RMS_REL)
     counts = ops.launch_counts()
     require_launches(counts, ("lowrank_matmul", "flash_attention"), "trainer_llm_finetune")
     emit({"phase": "trainer_llm_finetune", "wall_s": wall, "steps": summary["steps"],
@@ -2603,7 +2665,7 @@ def serving_paths(dev, cfg, weights, deco_model, seed: int) -> dict:
     lens = lens_t.cpu().numpy()
     ops.reset_launch_counts()
     t_start = time.perf_counter()
-    orig = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev), weights)
+    orig = utils.load_state_dict(models.CausalLM(cfg, device=dev), weights)
     deco32 = copy.deepcopy(deco_model).to(dev)
     deco = copy.deepcopy(deco32).to(torch.bfloat16)
     orig32 = f32_twin(orig)
@@ -2839,15 +2901,20 @@ def gpt2_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: v.T.contiguous() if k.endswith(conv1d) else v for k, v in out.items()}
 
 
-def gpt_neox_layout(sd: dict[str, torch.Tensor], n_heads: int) -> dict[str, torch.Tensor]:
-    """GPT-NeoX's checkpoint layout: q/k/v fused a head at a time
-    ([head 0: q k v][head 1: q k v]...) in ``attention.query_key_value``,
-    HF's names, the untied head ``embed_out``."""
+def per_head(n_heads: int):
+    """q/k/v fused a head at a time: [head 0: q k v][head 1: q k v]..."""
     def fuse(q, k, v):
         return torch.stack([t.reshape(n_heads, -1, *t.shape[1:]) for t in (q, k, v)],
                            dim=1).reshape(3 * q.shape[0], *q.shape[1:])
 
-    return renamed(fused_query_key_value(sd, fuse), (
+    return fuse
+
+
+def gpt_neox_layout(sd: dict[str, torch.Tensor], n_heads: int) -> dict[str, torch.Tensor]:
+    """GPT-NeoX's checkpoint layout: q/k/v fused a head at a time in
+    ``attention.query_key_value``, HF's names, the untied head
+    ``embed_out``."""
+    return renamed(fused_query_key_value(sd, per_head(n_heads)), (
         ("model.embed_tokens.", "gpt_neox.embed_in."),
         ("model.norm.", "gpt_neox.final_layer_norm."),
         ("model.layers.", "gpt_neox.layers."), ("lm_head.", "embed_out."),
@@ -2901,13 +2968,27 @@ def gpt_bigcode_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {**out, "lm_head.weight": sd["model.embed_tokens.weight"]}
 
 
+def persimmon_layout(sd: dict[str, torch.Tensor], n_heads: int) -> dict[str, torch.Tensor]:
+    """Persimmon's checkpoint layout: q/k/v fused a head at a time in
+    ``self_attn.query_key_value``, its names (``dense``, ``q_layernorm`` /
+    ``k_layernorm``, ``dense_h_to_4h`` / ``dense_4h_to_h``,
+    ``final_layernorm``)."""
+    return renamed(fused_query_key_value(sd, per_head(n_heads)), (
+        ("model.norm.", "model.final_layernorm."), (".self_attn.o_proj.", ".self_attn.dense."),
+        (".self_attn.q_norm.", ".self_attn.q_layernorm."),
+        (".self_attn.k_norm.", ".self_attn.k_layernorm."),
+        (".mlp.up_proj.", ".mlp.dense_h_to_4h."), (".mlp.down_proj.", ".mlp.dense_4h_to_h.")))
+
+
 # the families whose planted weights are written in their checkpoint layout
 # and translated back by the loader, as a snapshot's would be
 FAMILY_LAYOUTS = {"phi3_mini": lambda sd: fused_layout(sd, qkv=True), "glm4_9b": glm4_layout,
                   "gpt2_xl": gpt2_layout,
                   "pythia_1_4b": lambda sd: gpt_neox_layout(sd, PYTHIA_1_4B["num_attention_heads"]),
                   "falcon_7b": falcon_layout, "gptj_6b": gptj_layout, "opt_6_7b": opt_layout,
-                  "starcoderbase_1b": gpt_bigcode_layout}
+                  "starcoderbase_1b": gpt_bigcode_layout,
+                  "persimmon_8b": lambda sd: persimmon_layout(
+                      sd, PERSIMMON_8B["num_attention_heads"])}
 
 
 def family_weights(cfg: models.TransformerConfig, name: str, seed: int,
@@ -3036,28 +3117,29 @@ def phi2_2_layer() -> models.PhiConfig:
     return dataclasses.replace(models.PhiConfig.phi2(dtype=torch.bfloat16), n_layers=FAMILY_LAYERS)
 
 
-def planted_phi_weights(cfg: models.PhiConfig, seed: int) -> dict[str, np.ndarray]:
-    """Random weights in HF phi names: every projection planted at rank 256
-    (``_planted``) with a 0.1-scale bias, LayerNorms the identity, the head
-    as slice 1's with a 0.1-scale bias."""
-    rng = np.random.default_rng(seed)
-    f32 = np.float32
-    planted = _planted(rng)
+def planted_phi_weights(cfg: models.PhiConfig, seed: int, dev) -> dict[str, torch.Tensor]:
+    """Random weights in HF phi names, drawn on ``dev`` (``_Draws``): every
+    projection planted at rank 256 with a 0.1-scale bias, LayerNorms the
+    identity, the head as slice 1's with a 0.1-scale bias."""
+    draws = _Draws(seed, dev)
+    planted = draws.planted
     d, hid = cfg.dim, cfg.hidden_dim
 
-    def bias(n: int) -> np.ndarray:
-        return 0.1 * rng.standard_normal(n, dtype=f32)
+    def bias(n: int) -> torch.Tensor:
+        return 0.1 * draws.normal(n)
 
-    sd = {"model.embed_tokens.weight": rng.standard_normal((cfg.vocab_size, d), dtype=f32)}
+    sd = {"model.embed_tokens.weight": draws.normal(cfg.vocab_size, d)}
     for i in range(cfg.n_layers):
         p = f"model.layers.{i}."
         for proj in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.dense"):
             sd[p + proj + ".weight"], sd[p + proj + ".bias"] = planted(d, d), bias(d)
         sd[p + "mlp.fc1.weight"], sd[p + "mlp.fc1.bias"] = planted(hid, d), bias(hid)
         sd[p + "mlp.fc2.weight"], sd[p + "mlp.fc2.bias"] = planted(d, hid), bias(d)
-        sd[p + "input_layernorm.weight"], sd[p + "input_layernorm.bias"] = np.ones(d, f32), np.zeros(d, f32)
-    sd["model.final_layernorm.weight"], sd["model.final_layernorm.bias"] = np.ones(d, f32), np.zeros(d, f32)
-    sd["lm_head.weight"] = rng.standard_normal((cfg.vocab_size, d), dtype=f32) / np.sqrt(d, dtype=f32)
+        sd[p + "input_layernorm.weight"], sd[p + "input_layernorm.bias"] = (draws.full(d, 1.0),
+                                                                            draws.full(d, 0.0))
+    sd["model.final_layernorm.weight"], sd["model.final_layernorm.bias"] = (draws.full(d, 1.0),
+                                                                            draws.full(d, 0.0))
+    sd["lm_head.weight"] = draws.normal(cfg.vocab_size, d) / math.sqrt(d)
     sd["lm_head.bias"] = bias(cfg.vocab_size)
     return sd
 
@@ -3082,8 +3164,8 @@ def phi2_cli_decompose(dev, seed: int, root: pathlib.Path, data: pathlib.Path) -
               layer_norm_eps=cfg.norm_eps, rope_theta=cfg.rope_theta, hidden_act="gelu_new",
               max_position_embeddings=2048, tie_word_embeddings=False, torch_dtype="bfloat16")
     (snap / "config.json").write_text(json.dumps(hf, indent=2))
-    torch.save({k: torch.from_numpy(v).to(torch.bfloat16)
-                for k, v in planted_phi_weights(cfg, seed).items()}, snap / "pytorch_model.bin")
+    torch.save({k: v.to(torch.bfloat16).cpu() for k, v in planted_phi_weights(cfg, seed, dev).items()},
+               snap / "pytorch_model.bin")
     run_cfg = {**trainer_decompose_config(snap, data), "decomposed_model_name": PHI_SNAPSHOT_NAME,
                "decomposed_model_enable_gradient_checkpointing": True,
                "lm_eval_initial": False, "lm_eval_tasks": None}
@@ -3688,8 +3770,8 @@ def main() -> None:
 
     # --- main path: decompose -> artifact -> serve ----------------------
     cfg = tinyllama_2_layer()
-    weights = planted_rank_weights(cfg, args.seed)
-    model = utils.load_numpy_state_dict(models.CausalLM(cfg, device=dev), weights)
+    weights = planted_rank_weights(cfg, args.seed, dev)
+    model = utils.load_state_dict(models.CausalLM(cfg, device=dev), weights)
     n_sites = len(engine.get_decomposeable_submodule_names(model, ["lm_head"]))
     params_before = utils.get_num_params(model)
     probe = utils.to_device(next(token_batches(cfg.vocab_size, args.seed + 3)), dev)
@@ -3784,15 +3866,13 @@ def main() -> None:
         cli_ft_counts = trainer_llm_finetune(dev, args.seed, pathlib.Path(tmp), snap, data, artifact)
         cli_gen_counts = trainer_llm_generate(dev, args.seed, pathlib.Path(tmp), snap, data, artifact)
         paths_counts = serving_paths(dev, cfg, weights, model, args.seed)
-        del model
+        del model, weights
         torch.cuda.empty_cache()
         # --- slice 10: phi-2 through the CLI, on the same prose ----------
         phi_counts = phi2_cli_decompose(dev, args.seed, pathlib.Path(tmp), data)
     torch.cuda.empty_cache()
     family_counts = {}
-    for name in ("qwen2_1_5b", "gemma_2b", "llama3_2_1b", "gemma2_2b", "gemma3_1b", "phi3_mini",
-                 "olmo2_1b", "glm4_9b", "smollm3_3b", "gpt2_xl", "pythia_1_4b", "falcon_7b",
-                 "gptj_6b", "opt_6_7b", "starcoderbase_1b"):
+    for name in ("qwen2_1_5b", *FAMILY_CONFIGS):
         family_counts.update(family_serve(dev, name, args.seed))
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()

@@ -50,12 +50,13 @@
 //     finish;
 //   * grouped-query attention: query head h reads kv head h / (h / h_kv), so
 //     no repeated copy is made;
-//   * a head dim of 96 (Phi-3) is one and a half 64-column swizzle atoms a
-//     row, so it runs the 128-wide instance with its tensor maps 96 wide:
-//     TMA zero-fills columns 96-127 of Q, K and V (as it zero-fills rows
-//     past seq), the zero columns add nothing to Q K^T and give zero
-//     columns of O, and only the 96 real columns of O are stored (DS).
-//     The tensor cores do 4/3 of the head's work;
+//   * a head dim of 96 (Phi-3) or 80 (Arcee) is one and a half or one and
+//     a quarter 64-column swizzle atoms a row, so it runs the 128-wide
+//     instance with its tensor maps 96 or 80 wide: TMA zero-fills columns
+//     96-127 (80-127) of Q, K and V (as it zero-fills rows past seq), the
+//     zero columns add nothing to Q K^T and give zero columns of O, and
+//     only the real columns of O are stored (DS).  The tensor cores do
+//     4/3 (1.6x) of the head's work;
 //   * each consumer warpgroup pipelines its own work (FlashAttention-3's
 //     intra-warpgroup overlap): S_j = Q K_j^T is issued before
 //     P_{j-1} V_{j-1}, and the softmax of S_j runs while that product is
@@ -436,7 +437,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h, i
 }  // namespace
 
 // q, o: (b, h, s, d); k, v: (b, h_kv, s, d); bf16, d contiguous, h % h_kv
-// == 0, d in {64, 96, 128, 256}, sm_scale > 0.  strides: the (batch, head, seq) element strides
+// == 0, d in {64, 80, 96, 128, 256}, sm_scale > 0.  strides: the (batch, head, seq) element strides
 // of q, k, v and o in that order (12 values), each a multiple of 8; every
 // base 16-byte aligned.  Launches on `stream`, allocates nothing, returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported head_dim or
@@ -447,17 +448,18 @@ extern "C" int ptdeco_flash_attention_fwd(const void* q, const void* k, const vo
   const float scale_log2 = sm_scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
+  if (d == 80) return launch<128, 80>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
   if (d == 96) return launch<128, 96>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
   if (d == 128) return launch<128>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
   if (d == 256) return launch<256>(q, k, v, o, b, h, h_kv, s, scale_log2, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory of one CTA at head_dim d (0 for another d); 96
-// runs the 128 instance
+// dynamic shared memory of one CTA at head_dim d (0 for another d); 80 and
+// 96 run the 128 instance
 extern "C" int ptdeco_flash_smem_bytes(int d) {
-  return d == 64                ? Layout<64>::kSmemBytes
-         : d == 96 || d == 128 ? Layout<128>::kSmemBytes
+  return d == 64                             ? Layout<64>::kSmemBytes
+         : d == 80 || d == 96 || d == 128 ? Layout<128>::kSmemBytes
          : d == 256 ? Layout<256>::kSmemBytes
                     : 0;
 }

@@ -17,8 +17,12 @@ StarCoder2's MLP renamed; GPT-1's, gpt-sw3's and ImageGPT's Conv1D
 layouts go through GPT-2's translator (ImageGPT's untied head kept),
 GPT-J's, GPT-Neo's and OPT's names are renamed (OPT's two legacy position
 rows dropped), CodeGen's sharded (q, v, k) ``qkv_proj`` and StarCoder's
-multi-query ``c_attn`` split; emu3's text path keeps llama's names.  A
-translator takes numpy arrays or tensors.
+multi-query ``c_attn`` split; emu3's text path keeps llama's names, and
+so do olmo, nemotron, ernie4_5, arcee, seed_oss, exaone4 and helium;
+Persimmon's per-head fused ``query_key_value`` is split as GPT-NeoX's (and
+through the fuyu wrapper), VaultGemma's, Apertus's (its xIELU scalars too),
+HunYuan's and open-llama's names are renamed.  A translator takes numpy
+arrays or tensors.
 Shards are read from ``*.safetensors`` where that package is importable,
 else from ``pytorch_model*.bin`` with ``torch.load``.
 """
@@ -55,6 +59,11 @@ __all__ = [
     "translate_gpt_neo_state_dict",
     "make_gpt_bigcode_translator",
     "translate_opt_state_dict",
+    "make_persimmon_translator",
+    "translate_vaultgemma_state_dict",
+    "translate_apertus_state_dict",
+    "translate_hunyuan_state_dict",
+    "translate_open_llama_state_dict",
     "translator_for",
 ]
 
@@ -200,24 +209,28 @@ def _phi3_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
 
 
 def make_multimodal_text_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
-    """The gemma3 and got_ocr2 wrappers: strip ``model.language_model.`` to
-    ``model.``, drop the vision tower and projector the text path never runs
-    (and a tied ``lm_head.weight``; gemma3 is tied unless its text_config
-    says otherwise, got_ocr2 untied), then the inner family's translator
-    (gemma3_text and qwen2 need none)."""
+    """The gemma3, got_ocr2 and fuyu wrappers: strip ``model.language_model.``
+    to ``model.`` (fuyu's older layout nests its persimmon model one level
+    shallower, under ``language_model.``), drop the vision tower, projector
+    and patch embedding the text path never runs (and a tied
+    ``lm_head.weight``; gemma3 is tied unless its text_config says
+    otherwise, got_ocr2 and fuyu untied), then the inner family's
+    translator (persimmon's split; gemma3_text and qwen2 need none)."""
     mt = hf_cfg["model_type"]
     inner_cfg = dict(hf_cfg.get("text_config") or {})
     inner_cfg.setdefault("model_type", WRAPPED_TEXT_TYPES[mt])
     inner = translator_for(inner_cfg)
     tied = bool(inner_cfg.get("tie_word_embeddings", mt == "gemma3"))
-    drop = ("model.vision_tower.", "model.multi_modal_projector.")
+    drop = ("model.vision_tower.", "model.multi_modal_projector.", "model.vision_embed_tokens.",
+            "vision_embed_tokens.")
 
     def translate(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         out: dict[str, torch.Tensor] = {}
         for k, v in sd.items():
             if k.startswith(drop) or (k == "lm_head.weight" and tied):
                 continue
-            out[k.replace("model.language_model.", "model.")] = v
+            k = k.replace("model.language_model.", "model.")
+            out[k.removeprefix("language_model.")] = v
         return inner(out) if inner is not None else out
 
     return translate
@@ -259,6 +272,16 @@ def translate_gpt2_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
     return out
 
 
+def _split_per_head_qkv(stem: str, leaf: str, v: Any, n_heads: int, hd: int,
+                        out: dict[str, Any]) -> None:
+    """A ``query_key_value`` fused a head at a time, rows [head 0: q k
+    v][head 1: q k v]... (GPT-NeoX's and Persimmon's), split into
+    ``{stem}.self_attn.{q,k,v}_proj.{leaf}`` of ``out``."""
+    w = v.reshape(n_heads, 3, hd, *v.shape[1:])
+    for i, name in enumerate(("q_proj", "k_proj", "v_proj")):
+        out[f"{stem}.self_attn.{name}.{leaf}"] = w[:, i].reshape(n_heads * hd, *v.shape[1:])
+
+
 def make_gpt_neox_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
     """GPT-NeoX's layout: ``query_key_value`` fuses q/k/v per head, its
     rows [head 0: q k v][head 1: q k v]..., so its split takes the head
@@ -282,16 +305,70 @@ def make_gpt_neox_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
                              (".mlp.dense_4h_to_h.", ".mlp.down_proj.")):
                 k = k.replace(old, new)
             if ".attention.query_key_value." in k:
-                stem, leaf = k.split(".attention.query_key_value.")
-                w = v.reshape(n_heads, 3, hd, *v.shape[1:])
-                for i, name in enumerate(("q_proj", "k_proj", "v_proj")):
-                    out[f"{stem}.self_attn.{name}.{leaf}"] = w[:, i].reshape(n_heads * hd,
-                                                                            *v.shape[1:])
+                _split_per_head_qkv(*k.split(".attention.query_key_value."), v, n_heads, hd, out)
                 continue
             out[k] = v
         return out
 
     return translate
+
+
+def make_persimmon_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """Persimmon's layout: ``self_attn.query_key_value`` fused a head at a
+    time as GPT-NeoX's, ``self_attn.dense`` -> ``o_proj``, ``q_layernorm``
+    / ``k_layernorm`` -> ``q_norm`` / ``k_norm``, ``dense_h_to_4h`` /
+    ``dense_4h_to_h`` -> up / down, ``final_layernorm`` -> ``model.norm``;
+    the rotary buffers are dropped."""
+    n_heads = int(hf_cfg["num_attention_heads"])
+    hd = int(hf_cfg["hidden_size"]) // n_heads
+
+    def translate(sd: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in _renamed(sd, (
+                ("model.final_layernorm.", "model.norm."),
+                (".self_attn.dense.", ".self_attn.o_proj."),
+                (".self_attn.q_layernorm.", ".self_attn.q_norm."),
+                (".self_attn.k_layernorm.", ".self_attn.k_norm."),
+                (".mlp.dense_h_to_4h.", ".mlp.up_proj."), (".mlp.dense_4h_to_h.", ".mlp.down_proj.")),
+                drop=("rotary_emb.inv_freq",)).items():
+            if ".self_attn.query_key_value." in k:
+                _split_per_head_qkv(*k.split(".self_attn.query_key_value."), v, n_heads, hd, out)
+            else:
+                out[k] = v
+        return out
+
+    return translate
+
+
+def translate_vaultgemma_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """VaultGemma names the pre-MLP norm of its plain two-norm block
+    ``pre_feedforward_layernorm``: renamed onto ``post_attention_layernorm``."""
+    return _renamed(sd, ((".pre_feedforward_layernorm.", ".post_attention_layernorm."),))
+
+
+def translate_apertus_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """Apertus's block norms ``attention_layernorm`` / ``feedforward_layernorm``
+    -> the input and post-attention norms, and its xIELU scalars
+    ``mlp.act_fn.alpha_p`` / ``alpha_n`` -> ``mlp.act_alpha_p`` / ``act_alpha_n``."""
+    return _renamed(sd, ((".attention_layernorm.", ".input_layernorm."),
+                         (".feedforward_layernorm.", ".post_attention_layernorm."),
+                         (".mlp.act_fn.alpha_p", ".mlp.act_alpha_p"),
+                         (".mlp.act_fn.alpha_n", ".mlp.act_alpha_n")))
+
+
+def translate_hunyuan_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """HunYuan's (dense) per-head norms ``query_layernorm`` /
+    ``key_layernorm`` -> ``q_norm`` / ``k_norm``."""
+    return _renamed(sd, ((".self_attn.query_layernorm.", ".self_attn.q_norm."),
+                         (".self_attn.key_layernorm.", ".self_attn.k_norm.")))
+
+
+def translate_open_llama_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """open-llama's layout is llama's with ``embed_layer_norm`` ->
+    ``embed_norm``; the shared input/output embedding has no
+    ``lm_head.weight`` of its own, and one a snapshot holds is dropped."""
+    return {k: v for k, v in _renamed(sd, (("model.embed_layer_norm.", "model.embed_norm."),)).items()
+            if k != "lm_head.weight"}
 
 
 def make_falcon_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
@@ -487,13 +564,13 @@ def translate_opt_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
 _SAME_NAMES = (
     "llama", "code_llama", "mistral", "ministral", "qwen2", "qwen3", "gemma", "gemma2",
     "gemma3_text", "olmo2", "olmo3", "smollm3", "phi", "stablelm", "granite", "cohere", "emu3",
-    "emu3_text_model",
+    "emu3_text_model", "olmo", "nemotron", "ernie4_5", "arcee", "seed_oss", "exaone4", "helium",
 )
 
 
 # the translator of every other layout; each of ``_MADE_FROM_CONFIG`` makes
-# it from the config (phi3's, GPT-NeoX's, Falcon's, CodeGen's and
-# GPTBigCode's splits take its widths, the wrappers' text path its type)
+# it from the config (phi3's, GPT-NeoX's, Falcon's, CodeGen's, GPTBigCode's
+# and Persimmon's splits take its widths, the wrappers' text path its type)
 _TRANSLATORS = {
     "glm": translate_glm_state_dict, "glm4": translate_glm4_state_dict,
     "gpt2": translate_gpt2_state_dict, "openai-gpt": translate_gpt2_state_dict,
@@ -502,12 +579,16 @@ _TRANSLATORS = {
     "gpt_neo": translate_gpt_neo_state_dict, "opt": translate_opt_state_dict,
     "gpt_neox": make_gpt_neox_translator, "falcon": make_falcon_translator,
     "codegen": make_codegen_translator, "gpt_bigcode": make_gpt_bigcode_translator,
+    "persimmon": make_persimmon_translator, "fuyu": make_multimodal_text_translator,
+    "vaultgemma": translate_vaultgemma_state_dict, "apertus": translate_apertus_state_dict,
+    "hunyuan_v1_dense": translate_hunyuan_state_dict,
+    "open-llama": translate_open_llama_state_dict,
     "got_ocr2": make_multimodal_text_translator, "mixtral": translate_mixtral_state_dict,
     "phi3": _phi3_translator, "gemma3": make_multimodal_text_translator,
 }
 _MADE_FROM_CONFIG = (_phi3_translator, make_gpt_neox_translator, make_falcon_translator,
                      make_codegen_translator, make_gpt_bigcode_translator,
-                     make_multimodal_text_translator)
+                     make_persimmon_translator, make_multimodal_text_translator)
 
 
 def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:

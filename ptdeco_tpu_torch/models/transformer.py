@@ -3,19 +3,24 @@ the llama graph that the port has, in PyTorch.
 
 Counterpart of the llama-family, Mixtral and gpt2 / gpt_neox / falcon /
 starcoder2 / stablelm / granite / cohere / gptj / codegen / gpt_neo /
-gpt_bigcode / opt / openai-gpt / imagegpt parts of
+gpt_bigcode / opt / openai-gpt / imagegpt / olmo / nemotron / persimmon /
+ernie4_5 / arcee / seed_oss / exaone4 / vaultgemma / apertus /
+hunyuan_v1_dense / helium / open-llama parts of
 ``ptdeco_tpu/models/transformer.py``: RMSNorm (optionally the gemma (1 + w)
-flavour) or LayerNorm (optionally without its offset), HF rotate-half rope
+flavour) or LayerNorm (optionally without its offset, without any affine as
+OLMo's, or Nemotron's (1 + w)), HF rotate-half rope
 at absolute positions (optionally with llama3, yarn, linear or phi3's
 short-factor longrope scaling, over only the leading dims of each head and
 pair-interleaved as GLM's, or left out per layer as SmolLM3's NoPE
 layers), grouped-query attention (optionally with
 Qwen2's and GLM's q/k/v biases, Qwen3's and Gemma-3's per-head q/k RMSNorm,
 OLMo-2's q/k RMSNorm over the whole projection and its ``clip_qkv`` clamp,
-Gemma-2's logit soft-cap and query scale, and the sliding-window layers of
+Persimmon's per-head q/k LayerNorm, Gemma-2's logit soft-cap and query
+scale, and the sliding-window layers of
 Gemma-3, OLMo-3 and Ministral with Gemma-3's and OLMo-3's local rope, or
 no rotary at all), a gated MLP (SwiGLU, or gemma's tanh-GELU) or a
-non-gated biased one (exact or tanh GELU, relu), the top-k routed mixture
+non-gated one (exact or tanh GELU, relu, relu^2, Apertus's xIELU with its
+learned scalars), the top-k routed mixture
 of SwiGLU experts (``MoEMLP``), pre-norm blocks (the sandwich norms of
 Gemma-2, Gemma-3 and GLM-4, OLMo-2's post-norm-only blocks, the one-norm
 and two-norm parallel residuals of GPT-NeoX, Falcon, Cohere and GPT-J,
@@ -23,7 +28,8 @@ Granite's scaled residuals, GPT-1's post-LN blocks; optionally each under
 ``torch.utils.checkpoint``, the config's ``remat``), an embedding
 optionally scaled by sqrt(dim) (gemma) or Granite's multiplier, with
 GPT-2's learned positions added (ImageGPT's with one more row than the
-head has outputs), no final norm for GPT-1, and a dict-in/logits-out
+head has outputs) and open-llama's LayerNorm over it, no final norm for
+GPT-1, and a dict-in/logits-out
 ``CausalLM`` (optionally scaling and soft-capping its logits, with GPT-J's
 biased head).
 Every projection is an ``nn.Linear`` site and parameter names follow HF
@@ -69,20 +75,23 @@ logger = logging.getLogger(__name__)
 
 
 # the HF model types ``TransformerConfig.from_hf_config`` builds (gemma3,
-# got_ocr2 and emu3 are multimodal wrappers, whose text paths are
-# gemma3_text, qwen2 and emu3_text_model, the llama graph over multimodal
-# tokens; code_llama and gpt-sw3 are llama's and gpt2's graphs under other
-# names, ``_ALIASES``; the types from gpt2 on are not the llama graph and
-# build through their own constructors, ``_BEYOND_LLAMA``)
+# got_ocr2, emu3 and fuyu are multimodal wrappers, whose text paths are
+# gemma3_text, qwen2, emu3_text_model (the llama graph over multimodal
+# tokens) and persimmon; code_llama and gpt-sw3 are llama's and gpt2's
+# graphs under other names, ``_ALIASES``; the types from gpt2 on build
+# through their own constructors, ``_BEYOND_LLAMA``)
 HF_FAMILIES = (
     "llama", "mistral", "qwen2", "qwen3", "gemma", "mixtral", "gemma2", "gemma3_text", "gemma3",
     "phi3", "olmo2", "olmo3", "smollm3", "glm", "glm4", "ministral", "code_llama", "got_ocr2",
     "emu3", "emu3_text_model",
     "gpt2", "gpt-sw3", "gpt_neox", "falcon", "starcoder2", "stablelm", "granite", "cohere",
     "gptj", "codegen", "gpt_neo", "gpt_bigcode", "opt", "openai-gpt", "imagegpt",
+    "olmo", "nemotron", "persimmon", "fuyu", "ernie4_5", "arcee", "seed_oss", "exaone4",
+    "vaultgemma", "apertus", "hunyuan_v1_dense", "helium", "open-llama",
 )
 # the text path's model type of each multimodal wrapper
-WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2", "emu3": "emu3_text_model"}
+WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2", "emu3": "emu3_text_model",
+                      "fuyu": "persimmon"}
 # model types that HF maps onto another type's config and model classes
 _ALIASES = {"code_llama": "llama", "gpt-sw3": "gpt2"}
 
@@ -103,11 +112,15 @@ class TransformerConfig:
     # n_heads * head_dim != dim), the tanh-GELU MLP, the embedding scaled
     # by sqrt(dim), and the (1 + w) RMSNorm
     head_dim_override: Optional[int] = None
-    mlp_act: str = "silu"  # "silu" | "gelu_tanh" | "gelu_exact" | "relu" | "quick_gelu"
+    # "silu" | "gelu_tanh" | "gelu_exact" | "relu" | "quick_gelu" | "relu2" | "xielu"
+    mlp_act: str = "silu"
     scale_embeddings: bool = False
     norm_plus_one: bool = False
-    # Qwen3 and Gemma-3: a per-head RMSNorm on q and k before rope
+    # Qwen3 and Gemma-3: a per-head RMSNorm on q and k before rope;
+    # qk_norm_type "layernorm" makes it a per-head LayerNorm with a bias
+    # (Persimmon's qk_layernorm)
     qk_norm: bool = False
+    qk_norm_type: str = "rmsnorm"  # | "layernorm"
     # OLMo-2 / OLMo-3: the q/k RMSNorms span the whole projection (all heads
     # jointly, widths n_heads * head_dim and n_kv_heads * head_dim)
     qk_norm_flat: bool = False
@@ -157,6 +170,9 @@ class TransformerConfig:
     # logits (cohere's logit_scale, granite's 1 / logits_scaling)
     norm_type: str = "rmsnorm"  # | "layernorm"
     norm_bias: bool = True
+    # olmo: LayerNorm blocks with no weight and no bias (OlmoLayerNorm);
+    # norm_plus_one on a LayerNorm is Nemotron's LayerNorm1P, y * (w + 1) + b
+    norm_no_affine: bool = False
     mlp_gated: bool = True
     mlp_bias: bool = False
     use_rope: bool = True
@@ -174,6 +190,9 @@ class TransformerConfig:
     # imagegpt: the embedding holds this many rows, the head vocab_size
     # outputs
     embed_vocab_size: Optional[int] = None
+    # open-llama: a LayerNorm (its offset by norm_bias) over the embedding
+    # before the first block
+    embed_norm: bool = False
     dtype: torch.dtype = torch.float32
     # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
     # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
@@ -200,8 +219,11 @@ class TransformerConfig:
         emu3 wrapper (its text_config) -> config, as the JAX package's
         family branch builds it; a gpt2 (or gpt-sw3), gpt_neox, falcon,
         starcoder2, stablelm, granite, cohere, gptj, codegen, gpt_neo,
-        gpt_bigcode, opt, openai-gpt or imagegpt one through that family's
-        own constructor, as the JAX package's ``beyond_llama`` table does.
+        gpt_bigcode, opt, openai-gpt, imagegpt, olmo, nemotron, persimmon
+        (or the fuyu wrapper), ernie4_5, arcee, seed_oss, exaone4,
+        vaultgemma, apertus, hunyuan_v1_dense, helium or open-llama one
+        through that family's own constructor, as the JAX package's
+        ``beyond_llama`` table does.
         Raises ValueError on
         anything these families do not express here (rope types other than
         llama3 / yarn / linear, phi3's partial rotary, other bias layouts,
@@ -266,21 +288,13 @@ class TransformerConfig:
         n_heads = int(hf["num_attention_heads"])
         dim = int(hf["hidden_size"])
         head_dim = hf.get("head_dim")
-        override = (
-            int(head_dim) if head_dim is not None and int(head_dim) * n_heads != dim else None
-        )
         rot_dim = int(head_dim) if head_dim is not None else dim // n_heads
         theta = float(hf.get("rope_theta", 10000.0))
         rope_llama3, rope_yarn = None, None
         if rs is not None and mt != "phi3":
             rtype = rs.get("rope_type", rs.get("type"))
             if rtype == "llama3":
-                rope_llama3 = (
-                    float(rs["factor"]),
-                    float(rs.get("low_freq_factor", 1.0)),
-                    float(rs.get("high_freq_factor", 4.0)),
-                    int(rs.get("original_max_position_embeddings", 8192)),
-                )
+                rope_llama3 = _llama3_scaling(rs)
             elif rtype == "yarn":
                 rope_yarn = yarn_parameters(
                     rot_dim, theta, rs, int(hf.get("max_position_embeddings", 4096))
@@ -334,7 +348,7 @@ class TransformerConfig:
             rope_theta=theta,
             qkv_bias=bool(hf.get("attention_bias", mt in qkv_bias_types)),
             tie_embeddings=bool(hf.get("tie_word_embeddings", gemma_like)),
-            head_dim_override=override,
+            head_dim_override=_explicit_head_dim(hf),
             mlp_act=act_map[act],
             scale_embeddings=gemma_like,
             norm_plus_one=gemma_like,
@@ -410,6 +424,7 @@ class TransformerConfig:
 _HF_ACTS = {
     "gelu": "gelu_exact", "gelu_new": "gelu_tanh", "gelu_fast": "gelu_tanh",
     "gelu_pytorch_tanh": "gelu_tanh", "silu": "silu", "relu": "relu", "quick_gelu": "quick_gelu",
+    "relu2": "relu2", "xielu": "xielu",
 }
 
 
@@ -747,14 +762,255 @@ def _hf_imagegpt(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig
     )
 
 
+def _llama3_scaling(rs: dict) -> tuple:
+    """A llama3 ``rope_scaling`` as ``rope_llama3_scaling``: (factor,
+    low_freq_factor, high_freq_factor, original_max_position_embeddings)."""
+    return (float(rs["factor"]), float(rs.get("low_freq_factor", 1.0)),
+            float(rs.get("high_freq_factor", 4.0)),
+            int(rs.get("original_max_position_embeddings", 8192)))
+
+
+def _explicit_head_dim(hf: dict) -> Optional[int]:
+    """``head_dim`` where it is not hidden_size / heads, else None (the JAX
+    constructors' ``head_dim_override``)."""
+    hd = hf.get("head_dim")
+    if hd is None or int(hd) * int(hf["num_attention_heads"]) == int(hf["hidden_size"]):
+        return None
+    return int(hd)
+
+
+def _llama_lineage(hf: dict, dtype: torch.dtype, remat: bool, **knobs: Any) -> TransformerConfig:
+    """The llama graph's widths as the lineage's JAX constructors read them
+    (``num_key_value_heads`` absent or null: one kv head a query head;
+    rope_theta 10000 and an untied head unless given), with the family's
+    ``knobs`` over them."""
+    n_heads = int(hf["num_attention_heads"])
+    widths = dict(
+        vocab_size=int(hf["vocab_size"]), dim=int(hf["hidden_size"]),
+        n_layers=int(hf["num_hidden_layers"]), n_heads=n_heads,
+        n_kv_heads=int(hf.get("num_key_value_heads") or n_heads),
+        hidden_dim=int(hf["intermediate_size"]), rope_theta=float(hf.get("rope_theta", 10000.0)),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)), remat=remat, dtype=dtype,
+    )
+    return TransformerConfig(**{**widths, **knobs})
+
+
+def _hf_olmo(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """OLMo (v1): the llama graph with LayerNorms that have no weight and no
+    bias (OlmoLayerNorm, its eps fixed at 1e-5) and the optional
+    ``clip_qkv`` clamp; a gated MLP, full rotary, no biases.
+    ``attention_bias`` is refused, as in the JAX package."""
+    if hf.get("attention_bias", False):
+        raise ValueError("olmo attention_bias=True is not expressed, as in the JAX package")
+    clip = hf.get("clip_qkv")
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=1e-5, norm_type="layernorm", norm_no_affine=True,
+        clip_qkv=float(clip) if clip is not None else None,
+        mlp_act=_hf_act(hf.get("hidden_act", "silu")),
+    )
+
+
+def _hf_nemotron(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Nemotron: LayerNorm1P blocks (y * (w + 1) + b, w zero-initialized), a
+    non-gated squared-relu MLP and rotate-half rotary over
+    ``partial_rotary_factor`` of each head."""
+    pct = float(hf.get("partial_rotary_factor", 0.5))
+    bias = bool(hf.get("attention_bias", False))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("norm_eps", 1e-5)), norm_type="layernorm",
+        norm_plus_one=True, mlp_gated=False, mlp_bias=bool(hf.get("mlp_bias", False)),
+        mlp_act=_hf_act(hf.get("hidden_act", "relu2")), qkv_bias=bias, o_proj_bias=bias,
+        rope_partial_factor=pct if pct < 1.0 else None,
+    )
+
+
+def _hf_persimmon(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Persimmon (and Fuyu's text path): LayerNorm blocks, biases on every
+    projection, a per-head q/k LayerNorm with a bias (``qk_layernorm``),
+    rotate-half rotary over ``partial_rotary_factor`` of each head and a
+    non-gated squared-relu MLP; multi-head attention only.  Its per-head
+    fused ``query_key_value`` is split on load
+    (``hf_loader.make_persimmon_translator``)."""
+    pct = float(hf.get("partial_rotary_factor", 0.5))
+    return _llama_lineage(
+        hf, dtype, remat, n_kv_heads=int(hf["num_attention_heads"]),
+        norm_eps=float(hf.get("layer_norm_eps", 1e-5)), norm_type="layernorm",
+        qk_norm=bool(hf.get("qk_layernorm", True)), qk_norm_type="layernorm", mlp_gated=False,
+        mlp_bias=True, mlp_act=_hf_act(hf.get("hidden_act", "relu2")), qkv_bias=True,
+        o_proj_bias=True, rope_theta=float(hf.get("rope_theta", 25000.0)),
+        rope_partial_factor=pct if pct < 1.0 else None,
+    )
+
+
+def _hf_ernie4_5(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """ERNIE-4.5 (dense): one ``use_bias`` over q/k/v, o_proj and the gated
+    MLP, pair-interleaved rotary over the whole head, an explicit
+    ``head_dim``, tied unless told otherwise."""
+    bias = bool(hf.get("use_bias", False))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        head_dim_override=_explicit_head_dim(hf), mlp_act=_hf_act(hf.get("hidden_act", "silu")),
+        mlp_bias=bias, qkv_bias=bias, o_proj_bias=bias, rope_interleaved=True,
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)),
+    )
+
+
+def _hf_arcee(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Arcee (AFM): the llama graph with a non-gated squared-relu MLP and
+    an explicit ``head_dim``."""
+    bias = bool(hf.get("attention_bias", False))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        head_dim_override=_explicit_head_dim(hf), mlp_gated=False,
+        mlp_bias=bool(hf.get("mlp_bias", False)), mlp_act=_hf_act(hf.get("hidden_act", "relu2")),
+        qkv_bias=bias, o_proj_bias=bias,
+    )
+
+
+def _hf_seed_oss(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Seed-OSS: the llama graph with split bias knobs, ``attention_bias``
+    (on by default) on q/k/v and ``attention_out_bias`` on o_proj, and an
+    explicit ``head_dim``."""
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-6)),
+        head_dim_override=_explicit_head_dim(hf), mlp_act=_hf_act(hf.get("hidden_act", "silu")),
+        mlp_bias=bool(hf.get("mlp_bias", False)), qkv_bias=bool(hf.get("attention_bias", True)),
+        o_proj_bias=bool(hf.get("attention_out_bias", False)),
+    )
+
+
+def _hf_exaone4(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """EXAONE-4: OLMo-2's post-norm-only blocks with per-head q/k RMSNorms
+    and hybrid sliding layers (``layer_types``, or every
+    ``sliding_window_pattern``-th layer full); with a window, only the
+    sliding layers rotate (``rope_layers``)."""
+    sliding = hf.get("sliding_window")
+    layer_types = tuple(hf.get("layer_types") or ())
+    if not layer_types and sliding:
+        pat = int(hf.get("sliding_window_pattern") or 4)
+        layer_types = tuple("full_attention" if (i + 1) % pat == 0 else "sliding_attention"
+                            for i in range(int(hf["num_hidden_layers"])))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        head_dim_override=_explicit_head_dim(hf), qk_norm=True, post_norm_only=True,
+        mlp_act=_hf_act(hf.get("hidden_act", "silu")),
+        qkv_bias=bool(hf.get("attention_bias") or False),
+        sliding_window=int(sliding) if sliding else None, layer_types=layer_types,
+        rope_layers=tuple(int(t == "sliding_attention") for t in layer_types) if sliding else (),
+    )
+
+
+def _hf_vaultgemma(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """VaultGemma: Gemma-2's knobs ((1 + w) RMSNorms, the sqrt(dim)
+    embedding scale, soft-caps, ``query_pre_attn_scalar``, hybrid sliding
+    layers, even layers sliding by default) in plain pre-norm blocks, whose
+    pre-MLP norm the checkpoint names ``pre_feedforward_layernorm``
+    (renamed on load); tied."""
+    sliding = hf.get("sliding_window")
+    layer_types = tuple(hf.get("layer_types") or ())
+    if not layer_types and sliding:
+        layer_types = tuple("sliding_attention" if i % 2 == 0 else "full_attention"
+                            for i in range(int(hf["num_hidden_layers"])))
+
+    def opt_float(key: str) -> Optional[float]:
+        return float(hf[key]) if hf.get(key) is not None else None
+
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-6)),
+        head_dim_override=_explicit_head_dim(hf),
+        mlp_act=_hf_act(hf.get("hidden_activation") or hf.get("hidden_act", "gelu_pytorch_tanh")),
+        scale_embeddings=True, norm_plus_one=True,
+        attn_logit_softcap=opt_float("attn_logit_softcapping"),
+        final_logit_softcap=opt_float("final_logit_softcapping"),
+        query_scale_override=opt_float("query_pre_attn_scalar"),
+        sliding_window=int(sliding) if sliding else None, layer_types=layer_types,
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)),
+    )
+
+
+def _hf_apertus(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Apertus: llama attention with per-head q/k RMSNorms, a non-gated
+    xIELU MLP whose two scalars are learned (``MLP.act_alpha_p`` /
+    ``act_alpha_n``) and llama3 rope scaling; its checkpoint's norm and
+    alpha names are renamed on load.  Other rope scalings are refused, as
+    in the JAX package."""
+    rs = hf.get("rope_scaling")
+    rtype = None if rs is None else rs.get("rope_type", rs.get("type"))
+    if rtype not in (None, "default", "llama3"):
+        raise ValueError(f"apertus rope_scaling type {rtype!r} is not implemented, as in the JAX "
+                         "package")
+    bias = bool(hf.get("attention_bias", False))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        head_dim_override=_explicit_head_dim(hf), qk_norm=True, mlp_gated=False,
+        mlp_act=_hf_act(hf.get("hidden_act", "xielu")), mlp_bias=bool(hf.get("mlp_bias", False)),
+        qkv_bias=bias, o_proj_bias=bias,
+        rope_llama3_scaling=_llama3_scaling(rs) if rtype == "llama3" else None,
+    )
+
+
+def _hf_hunyuan_dense(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """HunYuan (dense): the llama graph with per-head q/k RMSNorms, named
+    ``query_layernorm`` / ``key_layernorm`` in the checkpoint (renamed on
+    load).  ``rope_scaling`` is refused, as in the JAX package."""
+    if hf.get("rope_scaling") is not None:
+        raise ValueError("hunyuan rope_scaling is not implemented, as in the JAX package")
+    bias = bool(hf.get("attention_bias", False))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        head_dim_override=_explicit_head_dim(hf), qk_norm=True,
+        mlp_act=_hf_act(hf.get("hidden_act", "silu")), qkv_bias=bias, o_proj_bias=bias,
+    )
+
+
+def _silu_only(hf: dict, family: str) -> str:
+    act = _hf_act(hf.get("hidden_act", "silu"))
+    if act != "silu":
+        raise ValueError(f"{family} hidden_act {hf.get('hidden_act')!r} is not implemented, as "
+                         "in the JAX package")
+    return act
+
+
+def _hf_helium(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Helium: the llama graph with pair-interleaved rotary over the whole
+    head, an explicit ``head_dim`` (kept even where it is hidden_size /
+    heads, as JAX keeps it), q/k/v and MLP biases by config (o_proj never
+    biased) and rms eps 1e-8.  Only silu is built, as in the JAX package."""
+    return _llama_lineage(
+        hf, dtype, remat, head_dim_override=int(hf["head_dim"]) if hf.get("head_dim") else None,
+        norm_eps=float(hf.get("rms_norm_eps", 1e-8)), mlp_act=_silu_only(hf, "helium"),
+        rope_theta=float(hf.get("rope_theta", 100000.0)), rope_interleaved=True,
+        qkv_bias=bool(hf.get("attention_bias", False)), mlp_bias=bool(hf.get("mlp_bias", False)),
+    )
+
+
+def _hf_open_llama(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """OpenLLaMA (HF's deprecated ``open-llama``): the llama graph with
+    ``use_stable_embedding``'s LayerNorm over the token embedding (at
+    rms_norm_eps, as JAX builds it) and ``shared_input_output_embedding``
+    tying; multi-head attention.  Only silu is built, as in the JAX
+    package."""
+    return _llama_lineage(
+        hf, dtype, remat, n_kv_heads=int(hf["num_attention_heads"]),
+        norm_eps=float(hf.get("rms_norm_eps", 1e-6)), mlp_act=_silu_only(hf, "open-llama"),
+        embed_norm=bool(hf.get("use_stable_embedding", True)),
+        tie_embeddings=bool(hf.get("shared_input_output_embedding", True)),
+    )
+
+
 # the beyond-llama model types' constructors (JAX transformer.py:361-443:
-# the seven of its list of supported families, then the GPT lineage)
+# the seven of its list of supported families, the GPT lineage, then the
+# llama lineage with knobs of its own)
 _BEYOND_LLAMA = {
     "gpt2": _hf_gpt2, "gpt_neox": _hf_gpt_neox, "falcon": _hf_falcon,
     "starcoder2": _hf_starcoder2, "stablelm": _hf_stablelm, "granite": _hf_granite,
     "cohere": _hf_cohere, "gptj": _hf_gptj, "codegen": _hf_codegen, "gpt_neo": _hf_gpt_neo,
     "gpt_bigcode": _hf_gpt_bigcode, "opt": _hf_opt, "openai-gpt": _hf_openai_gpt,
-    "imagegpt": _hf_imagegpt,
+    "imagegpt": _hf_imagegpt, "olmo": _hf_olmo, "nemotron": _hf_nemotron,
+    "persimmon": _hf_persimmon, "ernie4_5": _hf_ernie4_5, "arcee": _hf_arcee,
+    "seed_oss": _hf_seed_oss, "exaone4": _hf_exaone4, "vaultgemma": _hf_vaultgemma,
+    "apertus": _hf_apertus, "hunyuan_v1_dense": _hf_hunyuan_dense, "helium": _hf_helium,
+    "open-llama": _hf_open_llama,
 }
 
 
@@ -783,24 +1039,37 @@ class RMSNorm(torch.nn.Module):
 class LayerNorm(torch.nn.Module):
     """LayerNorm in f32, cast back to x's dtype (the JAX package's
     ``nn.LayerNorm``): weight ones, offset ``bias`` zeros, or none with
-    ``bias=False`` (Cohere's)."""
+    ``bias=False`` (Cohere's).  ``plus_one`` is Nemotron's LayerNorm1P, y *
+    (w + 1) + b with w zero-initialized (the stored weight is HF's raw
+    value); ``affine=False`` (OLMo's) has neither weight nor bias, so no
+    state-dict key."""
 
     def __init__(
-        self, dim: int, eps: float, dtype: torch.dtype, device: Any, bias: bool = True
+        self, dim: int, eps: float, dtype: torch.dtype, device: Any, bias: bool = True,
+        plus_one: bool = False, affine: bool = True,
     ) -> None:
         super().__init__()
-        self.weight = torch.nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        init = torch.zeros if plus_one else torch.ones
+        self.register_parameter(
+            "weight",
+            torch.nn.Parameter(init(dim, dtype=dtype, device=device)) if affine else None,
+        )
         self.register_parameter(
             "bias",
-            torch.nn.Parameter(torch.zeros(dim, dtype=dtype, device=device)) if bias else None,
+            torch.nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+            if bias and affine else None,
         )
         self.eps = eps
+        self.plus_one = plus_one
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
         mean = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight.to(torch.float32)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            w = self.weight.to(torch.float32)
+            y = y * (w + 1.0 if self.plus_one else w)
         if self.bias is not None:
             y = y + self.bias.to(torch.float32)
         return y.to(x.dtype)
@@ -810,7 +1079,8 @@ def _block_norm(cfg: TransformerConfig, device: Any) -> torch.nn.Module:
     """A block's (and the final) norm of width dim, by ``norm_type`` (the
     JAX package's ``_make_block_norm``)."""
     if cfg.norm_type == "layernorm":
-        return LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_bias)
+        return LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_bias,
+                         plus_one=cfg.norm_plus_one, affine=not cfg.norm_no_affine)
     if cfg.norm_type != "rmsnorm":
         raise ValueError(f"norm_type={cfg.norm_type!r}")
     return RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
@@ -979,8 +1249,7 @@ class Attention(torch.nn.Module):
             q_width, k_width = (
                 (cfg.n_heads * hd, cfg.n_kv_heads * hd) if cfg.qk_norm_flat else (hd, hd)
             )
-            self.q_norm = RMSNorm(q_width, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
-            self.k_norm = RMSNorm(k_width, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
+            self.q_norm, self.k_norm = (_qk_norm(cfg, w, device) for w in (q_width, k_width))
         else:
             self.q_norm = self.k_norm = None
         self.qk_norm_flat = cfg.qk_norm_flat
@@ -1067,6 +1336,16 @@ class Attention(torch.nn.Module):
         return self.finish(out.transpose(1, 2).reshape(b, s, -1))
 
 
+def _qk_norm(cfg: TransformerConfig, width: int, device: Any) -> torch.nn.Module:
+    """A q or k norm (the JAX package's ``_make_qk_norm``): RMSNorm, or with
+    ``qk_norm_type`` "layernorm" a LayerNorm with a bias (Persimmon's)."""
+    if cfg.qk_norm_type == "layernorm":
+        return LayerNorm(width, cfg.norm_eps, cfg.dtype, device)
+    if cfg.qk_norm_type != "rmsnorm":
+        raise ValueError(f"qk_norm_type={cfg.qk_norm_type!r}")
+    return RMSNorm(width, cfg.norm_eps, cfg.dtype, device, cfg.norm_plus_one)
+
+
 def _use_flash_kernel(q: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> bool:
     """The model-level gate of transformer.py:4086-4117: bf16 on the card
     with no padding mask and a head_dim the kernel is built for (64, 96, 128
@@ -1123,14 +1402,26 @@ def _activation(name: str, h: torch.Tensor) -> torch.Tensor:
         return F.gelu(h)
     if name == "relu":
         return F.relu(h)
+    if name == "relu2":  # Nemotron's, Persimmon's and Arcee's relu^2
+        return torch.square(F.relu(h))
     return h * torch.sigmoid(1.702 * h)  # quick_gelu
+
+
+def _xielu_alpha(value: float, device: Any) -> torch.nn.Parameter:
+    """HF ``XIELUActivation``'s raw alpha, log(expm1(value)) in bf16, kept
+    as an f32 (1,) parameter as the JAX MLP keeps it."""
+    v = torch.tensor([value], dtype=torch.bfloat16)
+    return torch.nn.Parameter(torch.log(torch.expm1(v)).to(device=device, dtype=torch.float32))
 
 
 class MLP(torch.nn.Module):
     """Gated MLP down(act(gate(x)) * up(x)), act silu (SwiGLU) or tanh-GELU
     (gemma's GeGLU); with ``mlp_gated`` off down(act(up(x))) and no
     ``gate_proj`` (gpt2, gpt_neox, falcon, starcoder2: exact or tanh GELU,
-    relu, quick_gelu).  ``mlp_bias`` biases every projection."""
+    relu, quick_gelu; nemotron, persimmon, arcee: relu^2; apertus: xIELU,
+    whose learned scalars ``act_alpha_p`` / ``act_alpha_n`` are the MLP's
+    own f32 parameters, not Linear sites).  ``mlp_bias`` biases every
+    projection."""
 
     def __init__(self, cfg: TransformerConfig, device: Any) -> None:
         super().__init__()
@@ -1140,14 +1431,35 @@ class MLP(torch.nn.Module):
         )
         self.up_proj = torch.nn.Linear(cfg.dim, cfg.hidden_dim, **kw)
         self.down_proj = torch.nn.Linear(cfg.hidden_dim, cfg.dim, **kw)
-        if cfg.mlp_act not in ("silu", "gelu_tanh", "gelu_exact", "relu", "quick_gelu"):
+        if cfg.mlp_act not in ("silu", "gelu_tanh", "gelu_exact", "relu", "quick_gelu", "relu2",
+                               "xielu"):
             raise ValueError(f"mlp_act={cfg.mlp_act!r}")
         self.act = cfg.mlp_act
+        if self.act == "xielu":
+            # HF's init: log(expm1(0.8)) and log(expm1(0.8 - beta)), beta 0.5
+            self.act_alpha_p = _xielu_alpha(0.8, device)
+            self.act_alpha_n = _xielu_alpha(0.3, device)
+
+    def _act(self, h: torch.Tensor) -> torch.Tensor:
+        if self.act != "xielu":
+            return _activation(self.act, h)
+        # the JAX MLP's xIELU (HF ``_xielu_python``): x > 0 -> alpha_p x^2 +
+        # beta x, else (expm1(min(x, eps)) - x) alpha_n + beta x, alpha_p =
+        # softplus(a_p) and alpha_n = beta + softplus(a_n), each softplus
+        # rounded through bf16 as HF keeps them; in f32, cast back
+        beta = 0.5
+        eps = float(torch.tensor(-1e-6, dtype=torch.bfloat16))
+        ap = F.softplus(self.act_alpha_p.float()).to(torch.bfloat16).float()
+        an = beta + F.softplus(self.act_alpha_n.float()).to(torch.bfloat16).float()
+        xf = h.float()
+        pos = ap * xf * xf + beta * xf
+        neg = (torch.expm1(torch.clamp(xf, max=eps)) - xf) * an + beta * xf
+        return torch.where(xf > 0, pos, neg).to(h.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gate_proj is None:
-            return self.down_proj(_activation(self.act, self.up_proj(x)))
-        return self.down_proj(_activation(self.act, self.gate_proj(x)) * self.up_proj(x))
+            return self.down_proj(self._act(self.up_proj(x)))
+        return self.down_proj(self._act(self.gate_proj(x)) * self.up_proj(x))
 
 
 def _use_int8_kernel(x: torch.Tensor) -> bool:
@@ -1378,6 +1690,11 @@ class Decoder(torch.nn.Module):
             torch.nn.Embedding(cfg.learned_pos, cfg.dim, dtype=cfg.dtype, device=device)
             if cfg.learned_pos is not None else None
         )
+        # open-llama's LayerNorm over the embedding (JAX Decoder.embed_norm)
+        self.embed_norm = (
+            LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device, cfg.norm_bias)
+            if cfg.embed_norm else None
+        )
         self.remat = cfg.remat
         self.scale_embeddings = cfg.scale_embeddings
         self.embedding_multiplier = cfg.embedding_multiplier
@@ -1389,9 +1706,9 @@ class Decoder(torch.nn.Module):
         sqrt(dim) for gemma (the factor computed in f32, cast to the
         activation dtype) or by granite's multiplier (in the activation
         dtype), then the learned position table at absolute ``positions``
-        (b, s; arange when None), as the JAX decoder's ``embed_inputs``.
-        The cached forward (``serving.py``) reuses it with the positions
-        offset by the cache fill."""
+        (b, s; arange when None), then open-llama's embedding norm, as the
+        JAX decoder's ``embed_inputs``.  The cached forward (``serving.py``)
+        reuses it with the positions offset by the cache fill."""
         x = self.embed_tokens(input_ids)
         if self.scale_embeddings:
             x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=torch.float32).to(x.dtype)
@@ -1401,6 +1718,8 @@ class Decoder(torch.nn.Module):
             if positions is None:
                 positions = _positions(*input_ids.shape, 0, input_ids.device)
             x = x + self.pos_embed(positions)
+        if self.embed_norm is not None:
+            x = self.embed_norm(x)
         return x
 
     def forward(

@@ -9,10 +9,10 @@ query head h reads kv head ``h // (heads // kv_heads)``.  The kernel reads
 q, k and v through TMA tensor maps with the caller's strides, so the
 model's transposed (b, s, h, d) views are read as they lie and the output
 takes q's layout; a tensor whose strides TMA cannot address is first
-copied contiguous (``_tma_layout``).  A head dim of 96 runs the 128-wide
-instance with its tensor maps 96 wide: TMA zero-fills columns 96-127 of
-Q, K and V, which add nothing to Q K^T, and only 96 columns of O are
-stored.
+copied contiguous (``_tma_layout``).  A head dim of 80 or 96 runs the
+128-wide instance with its tensor maps 80 or 96 wide: TMA zero-fills the
+columns past them, up to 127, of Q, K and V, which add nothing to Q K^T,
+and only the real columns of O are stored.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ __all__ = [
 ]
 
 # head_dim values the kernel takes: 64, 128 and 256 are template instances
-# of their own; 96 runs the 128 instance (``tile_head_dim``)
-KERNEL_HEAD_DIMS = (64, 96, 128, 256)
+# of their own; 80 and 96 run the 128 instance (``tile_head_dim``)
+KERNEL_HEAD_DIMS = (64, 80, 96, 128, 256)
 # query rows a CTA takes at a time, K/V ring depth
 # (csrc/flash_attention_fwd.cu: kBM, kStages)
 BLOCK_M, STAGES = 128, 2
@@ -45,9 +45,9 @@ BLOCK_M, STAGES = 128, 2
 
 def tile_head_dim(head_dim: int) -> int:
     """The head dim of the template instance that runs ``head_dim``: its
-    own, or 128 for 96 (one and a half 64-column swizzle atoms a row; the
-    tensor maps' zero fill pads it to two)."""
-    return 128 if head_dim == 96 else head_dim
+    own, or 128 for 80 and 96 (one and a quarter or one and a half 64-column
+    swizzle atoms a row; the tensor maps' zero fill pads it to two)."""
+    return 128 if head_dim in (80, 96) else head_dim
 
 
 def block_n(head_dim: int) -> int:

@@ -96,7 +96,7 @@ def test_flash_attention_unscaled(dev, b, h, h_kv, s, d):
 
 
 @pytest.mark.parametrize("rep", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("s", [1, 63, 127, 129, 1000])
 def test_flash_attention_edges(dev, s, d, rep):
     """Sequences shorter than, one past and ragged against the 128-row tile
@@ -114,7 +114,7 @@ def test_flash_attention_edges(dev, s, d, rep):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=3e-2)
 
 
-@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 def test_flash_attention_strided_views(dev, d):
     """The model's transposed (b, s, h, d) views are read as they lie and the
     output takes q's layout; a view whose seq stride TMA cannot address
@@ -146,8 +146,8 @@ def test_flash_smem_bytes_agree(dev):
     fn = _build.kernel_function("flash_attention_fwd", "ptdeco_flash_smem_bytes", [ctypes.c_int])
     for d in fa.KERNEL_HEAD_DIMS:
         assert fn(d) == fa.smem_bytes(d)
-    assert fn(96) == fn(128)  # the 128 instance runs head dim 96
-    assert fn(80) == 0
+    assert fn(80) == fn(96) == fn(128)  # the 128 instance runs head dims 80 and 96
+    assert fn(72) == 0
 
 
 def test_flash_attention_backward_recomputes(dev):

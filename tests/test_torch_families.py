@@ -107,6 +107,13 @@ REFUSED_BY_BOTH = {
     "gpt2_scale_attn_by_inverse_layer_idx": dict(
         model_type="gpt2", vocab_size=128, n_embd=32, n_layer=2, n_head=4, n_positions=64,
         scale_attn_by_inverse_layer_idx=True),
+    # the llama lineage's own refusals
+    "olmo_attention_bias": tiny_hf("olmo", attention_bias=True),
+    "hunyuan_rope_scaling": tiny_hf("hunyuan_v1_dense",
+                                    rope_scaling={"rope_type": "dynamic", "factor": 2.0}),
+    "helium_gelu": tiny_hf("helium", hidden_act="gelu"),
+    "open_llama_relu": tiny_hf("open-llama", hidden_act="relu"),
+    "apertus_yarn": tiny_hf("apertus", rope_scaling={"rope_type": "yarn", "factor": 2.0}),
 }
 REFUSED_BY_PORT = {
     "olmoe": tiny_hf("olmoe", num_experts=4, num_experts_per_tok=2),
@@ -117,11 +124,11 @@ REFUSED_BY_PORT = {
                            moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
                            qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8,
                            n_group=1, topk_group=1),
-    # beyond-llama types the port does not build yet: bloom's ALiBi, olmo's
-    # non-parametric LayerNorm
+    # beyond-llama types the port does not build yet: bloom's ALiBi,
+    # biogpt's scaled embedding and offset position table
     "bloom": dict(model_type="bloom", vocab_size=128, hidden_size=32, n_layer=2, n_head=4,
                   layer_norm_epsilon=1e-5),
-    "olmo": tiny_hf("olmo"),
+    "biogpt": tiny_hf("biogpt"),
 }
 
 

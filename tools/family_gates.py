@@ -1,16 +1,20 @@
-"""Read the family phases' model-level gates again.
+"""Read ``chip_smoke.py``'s model-level gates again.
 
     python3 tools/family_gates.py [--kernels] [--seeds 0 1] [--only NAME ...]
+    python3 tools/family_gates.py --whole [--seeds 0 1]
     (from the repo root, on a CUDA machine)
 
-Runs ``chip_smoke.py``'s kernel lines (with ``--kernels``), then its
-``family_serve`` phase of every family (``qwen2_1_5b`` and
-``FAMILY_CONFIGS``, or the ``--only`` ones) at each seed with the gates
-opened, so that no reading stops the run, and prints each phase's JSON line
-as ``chip_smoke.py`` does.  The last line is one JSON object: for each
-family, the larger reading of the seeds of each gate (serve: the fused
-serve and the cached ``generate``; reference: the CPU f32 reference) beside
-the gate ``chip_smoke.py`` holds, and their ratio.  A family that raises is
+Every model-level gate of ``chip_smoke.py`` is a ``logits_agree`` call;
+this tool opens them all (but the bit-equal ones, whose limit is 0), so
+that no reading stops the run, and records each call's readings beside
+the limit the call asked for.  By default it runs ``chip_smoke.py``'s
+kernel lines (with ``--kernels``), then its ``family_serve`` phase of every
+family (``qwen2_1_5b`` and ``FAMILY_CONFIGS``, or the ``--only`` ones) at
+each seed; with ``--whole`` all of ``chip_smoke.main`` at each seed (slice
+1's model, its trainer CLI and phi-2 included).  Each phase's JSON line is
+printed as ``chip_smoke.py`` prints it.  The last line is one JSON object:
+for each gate (the ``what`` of its call), the larger reading of the seeds
+beside the limit and their ratio.  A family or seed that raises is
 reported and the run goes on.
 """
 
@@ -27,17 +31,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from ptdeco_tpu_torch.ops import _build  # noqa: E402
 
-# gates no reading reaches
-OPEN = {"serve": (1e9, 1e9), "reference": (1e9, 1e9)}
-
-
-def readings(rec: dict) -> dict[str, tuple[float, float]]:
-    """A phase's (max, RMS-relative) readings by gate."""
-    def pair(*parts):
-        return (max(rec[p]["max_abs_diff"] for p in parts),
-                max(rec[p]["rms_rel_diff"] for p in parts))
-
-    return {"serve": pair("serve", "generate"), "reference": pair("reference")}
+# a limit no reading reaches
+OPEN = 1e9
 
 
 def main() -> None:
@@ -45,47 +40,52 @@ def main() -> None:
     parser.add_argument("--kernels", action="store_true", help="run the kernel lines first")
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     parser.add_argument("--only", nargs="+", help="these families only")
+    parser.add_argument("--whole", action="store_true", help="all of chip_smoke.main a seed")
     args = parser.parse_args()
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(cs.nvidia_smi(), flush=True)
-    _build.build_all()
-    if args.kernels:
-        cs.kernel_checks(dev)
-    names = args.only or ["qwen2_1_5b", *cs.FAMILY_CONFIGS]
-    gates = {n: cs.FAMILY_GATES[n] for n in names if n in cs.FAMILY_GATES}
-    largest: dict[str, dict[str, list[float]]] = {}
-    for seed in args.seeds:
-        for name in names:
-            cs.FAMILY_GATES[name] = OPEN
-            lines = []
-            emit = cs.emit
+    largest: dict[str, dict] = {}
+    agree = cs.logits_agree
 
-            def kept(obj: dict) -> None:
-                lines.append(obj)
-                emit(obj)
+    def recorded(a, b, max_abs, rms_rel, what):
+        if max_abs == 0.0 and rms_rel == 0.0:  # bit-equal: held as it is
+            return agree(a, b, max_abs, rms_rel, what)
+        got = agree(a, b, OPEN, OPEN, what)
+        rec = largest.setdefault(what, {"largest": [0.0, 0.0], "gate": [max_abs, rms_rel]})
+        rec["largest"] = [max(r, g) for r, g in zip(rec["largest"], (
+            got["max_abs_diff"], got["rms_rel_diff"]))]
+        return {**got, "limit_max_abs": max_abs, "limit_rms_rel": rms_rel}
 
-            cs.emit = kept
+    cs.logits_agree = recorded
+    for name in ("qwen2_1_5b", *cs.FAMILY_CONFIGS):
+        # a family without gates yet gets placeholders, recorded as such
+        cs.FAMILY_GATES.setdefault(name, {"serve": (0.0625, 1e-2), "reference": (0.0625, 1e-2)})
+    if args.whole:
+        for seed in args.seeds:
+            sys.argv = ["chip_smoke.py", "--seed", str(seed)]
             try:
-                cs.family_serve(dev, name, seed)
+                cs.main()
             except Exception:
-                print(f"FAILED {name} seed {seed}", flush=True)
+                print(f"FAILED chip_smoke.main seed {seed}", flush=True)
                 traceback.print_exc()
-            finally:
-                cs.emit = emit
-            for rec in lines:
-                if rec.get("phase") == name:
-                    for gate, got in readings(rec).items():
-                        best = largest.setdefault(name, {}).setdefault(gate, [0.0, 0.0])
-                        best[:] = [max(b, g) for b, g in zip(best, got)]
             torch.cuda.empty_cache()
-    cs.emit({"gates": {
-        name: {gate: {"largest": got, "gate": gates.get(name, {}).get(gate),
-                      "ratio": [g / r if r else None for g, r in zip(gates[name][gate], got)]
-                      if name in gates else None}
-               for gate, got in by_gate.items()}
-        for name, by_gate in largest.items()}, "seeds": args.seeds})
+    else:
+        dev = torch.device("cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(cs.nvidia_smi(), flush=True)
+        _build.build_all()
+        if args.kernels:
+            cs.kernel_checks(dev)
+        names = args.only or ["qwen2_1_5b", *cs.FAMILY_CONFIGS]
+        for seed in args.seeds:
+            for name in names:
+                try:
+                    cs.family_serve(dev, name, seed)
+                except Exception:
+                    print(f"FAILED {name} seed {seed}", flush=True)
+                    traceback.print_exc()
+                torch.cuda.empty_cache()
+    cs.emit({"gates": {what: {**rec, "ratio": [g / r if r else None for g, r in zip(
+        rec["gate"], rec["largest"])]} for what, rec in largest.items()}, "seeds": args.seeds})
 
 
 if __name__ == "__main__":
