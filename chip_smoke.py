@@ -96,6 +96,14 @@ heads of 80: flash at head dim 80, on its 128 instance with 80-wide tensor
 maps).  Since slice 17 every planted weight is drawn on the card, slice
 1's, its trainer snapshot's and phi-2's too.
 
+Slice 18 runs it on two dense decoders with a position or norm knob of
+their own: BLOOM-7B1 (ALiBi over 32 heads of 128, which must launch no
+flash kernel in its walk, serve or prefill, as the JAX gate keeps it
+plain; an embedding LayerNorm and a 250880-token tied embedding; its
+weights in the per-head fused query_key_value) and BitNet at
+BitNetConfig()'s defaults (the two sub-norms, flash at 20 query heads
+over 5 kv heads of 128).
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -117,7 +125,8 @@ round ms, acceptance and the gate's measured ratio), phi2_cli_decompose
 serve against its pairs and its f32 twin), qwen2_1_5b, gemma_2b,
 llama3_2_1b, gemma2_2b, gemma3_1b, phi3_mini, olmo2_1b, glm4_9b, smollm3_3b,
 gpt2_xl, pythia_1_4b, falcon_7b, gptj_6b, opt_6_7b, starcoderbase_1b,
-persimmon_8b, nemotron_hf_default and arcee_hf_default (walk and phase
+persimmon_8b, nemotron_hf_default, arcee_hf_default, bloom_7b1 and
+bitnet_hf_default (walk and phase
 wall and its split, cuts,
 ranks, artifact, fused serve, ``generate``, f32 tokens, reference), dwain_mlp,
 falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
@@ -441,19 +450,41 @@ ARCEE_HF_DEFAULT = dict(
     hidden_act="relu2", rms_norm_eps=1e-5, rope_theta=10000.0, rope_scaling=None,
     attention_bias=False, mlp_bias=False, tie_word_embeddings=False, max_position_embeddings=4096,
 )
+# Slice 18: the dense decoders with a position or norm knob of their own,
+# the same way: bigscience/bloom-7b1's published config.json (ALiBi over 32
+# heads of 128, an embedding LayerNorm, biases everywhere, a tanh-GELU MLP
+# of 16384, tied over a 250880-token vocabulary: a 2.05 GB bf16 embedding;
+# BloomConfig()'s defaults are toy widths, hidden 64; its weights written in
+# the per-head fused query_key_value) and transformers 4.57.6's
+# BitNetConfig() defaults, which its docstring ties to
+# microsoft/bitnet-b1.58-2B-4T (20 query heads over 5 kv heads of 128, the
+# two sub-norms, a gated relu^2 MLP of 6912, untied)
+BLOOM_7B1 = dict(
+    model_type="bloom", vocab_size=250880, hidden_size=4096, n_layer=30, n_head=32,
+    layer_norm_epsilon=1e-5, apply_residual_connection_post_layernorm=False,
+    tie_word_embeddings=True,
+)
+BITNET_HF_DEFAULT = dict(
+    model_type="bitnet", vocab_size=128256, hidden_size=2560, intermediate_size=6912,
+    num_hidden_layers=30, num_attention_heads=20, num_key_value_heads=5, hidden_act="relu2",
+    rms_norm_eps=1e-5, rope_theta=500000.0, attention_bias=False, tie_word_embeddings=False,
+    max_position_embeddings=2048,
+)
 FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b": GEMMA2_2B,
                   "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI, "olmo2_1b": OLMO2_1B,
                   "glm4_9b": GLM4_9B, "smollm3_3b": SMOLLM3_3B, "gpt2_xl": GPT2_XL,
                   "pythia_1_4b": PYTHIA_1_4B, "falcon_7b": FALCON_7B, "gptj_6b": GPTJ_6B,
                   "opt_6_7b": OPT_6_7B, "starcoderbase_1b": STARCODERBASE_1B,
                   "persimmon_8b": PERSIMMON_8B, "nemotron_hf_default": NEMOTRON_HF_DEFAULT,
-                  "arcee_hf_default": ARCEE_HF_DEFAULT}
+                  "arcee_hf_default": ARCEE_HF_DEFAULT, "bloom_7b1": BLOOM_7B1,
+                  "bitnet_hf_default": BITNET_HF_DEFAULT}
 # the first published layer each cut keeps (0 where not named): gemma3's
 # 5th and 6th (sliding, full), smollm3's 3rd and 4th (rope, NoPE)
 FAMILY_FIRST_LAYER = {"gemma3_1b": 4, "smollm3_3b": 2}
 # the families whose attention takes flash in the JAX package: Gemma-2's
-# soft-capped attention is plain there, so flash must launch 0 times
-FAMILY_NO_FLASH = ("gemma2_2b",)
+# soft-capped attention and BLOOM's ALiBi are plain there (the kernel has no
+# logit bias), so flash must launch 0 times
+FAMILY_NO_FLASH = ("gemma2_2b", "bloom_7b1")
 # gemma3's cached generate prompt, past its 512-token window
 GEMMA3_PROMPT = 640
 FAMILY_LAYERS = 2
@@ -511,6 +542,13 @@ FAMILY_GATES = {
     "persimmon_8b": {"serve": (0.09375, 1e-2), "reference": (0.075, 1.1e-2)},
     "nemotron_hf_default": {"serve": (0.09375, 7.5e-3), "reference": (0.06, 1.1e-2)},
     "arcee_hf_default": {"serve": (0.09375, 9e-3), "reference": (0.06, 1.1e-2)},
+    # slice 18, the larger reading of seeds 0 and 1: BLOOM-7B1 0.25 /
+    # 5.0e-3 and 0.143 / 5.2e-3 (0.25 is one bf16 ulp of a logit in [32,
+    # 64), as Gemma-2B's: its tied head, after the embedding norm, scores
+    # each input token's own row high); BitNet 0.039 / 6.4e-3 and 0.037 /
+    # 5.9e-3
+    "bloom_7b1": {"serve": (0.5, 1.25e-2), "reference": (0.4, 1.3e-2)},
+    "bitnet_hf_default": {"serve": (0.09375, 1.5e-2), "reference": (0.09, 1.5e-2)},
 }
 
 # Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
@@ -793,9 +831,10 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # width (4096; their MLPs' 16384 is Gemma-2B's, StarCoderBase-1B's 2048
     # and 8192 are above); slice 17's: Nemotron's MLP (24576, a 2.42 GB f32
     # Gram, the largest) and width (6144), Arcee's MLP (18432) and width
-    # (2560; Persimmon's 4096 and 16384 are above)
+    # (2560; Persimmon's 4096 and 16384 are above); slice 18's: BitNet's MLP
+    # (6912; BLOOM-7B1's 4096 and 16384 are above)
     for d in (5632, 2048, 10240, 16384, 9216, 13696, 1600, 4544, 6400, 8192, 18176, 4096,
-              24576, 6144, 18432, 2560):
+              24576, 6144, 18432, 2560, 6912):
         y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
         recs["syrk_gram"].append(check_kernel(
             "syrk_gram",
@@ -848,6 +887,11 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     flash_check(dev, g, recs, 4, FAMILY_PROMPT_LENS[0], h=32, h_kv=32, hd=80)
     flash_check(dev, g, recs, 1, SEQ, h=64, h_kv=64, hd=64)
     flash_check(dev, g, recs, 1, SEQ, h=48, h_kv=48, hd=128)
+    # slice 18: BitNet's 20 query heads over 5 kv heads of 128 at the walk's
+    # 1 x 1024 and its cached generate's 4 x 128 prefill (BLOOM's ALiBi
+    # layers never take flash)
+    flash_check(dev, g, recs, 1, SEQ, h=20, h_kv=5, hd=128)
+    flash_check(dev, g, recs, 4, FAMILY_PROMPT_LENS[0], h=20, h_kv=5, hd=128)
 
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
@@ -894,7 +938,17 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
               (SEQ, 6144, 24, 6144, False),
               (SEQ, 2560, 40, 18432, False), (SEQ, 18432, 40, 2560, False),
               (SEQ, 2560, 20, 18432, False), (SEQ, 18432, 20, 2560, False),
-              (SEQ, 2560, 20, 2560, False), (SEQ, 4096, 32, 4096, True))
+              (SEQ, 2560, 20, 2560, False), (SEQ, 4096, 32, 4096, True),
+              # slice 18's pairs at the ranks their walks chose at seeds 0
+              # and 1: BitNet's unbiased MLP at 20 (2560 <-> 6912), its k/v
+              # pairs' 640-wide outputs at 20 and layer 0's v_proj at 80 and
+              # 40 and o_proj at 80 (its q / o at 20 are Arcee's 2560 ->
+              # 2560 above); BLOOM-7B1's biased up_proj at 256 and down_proj
+              # at 128 (its q/k/v at 32 and o_proj at 64 are OPT-6.7B's above)
+              (SEQ, 2560, 20, 6912, False), (SEQ, 6912, 20, 2560, False),
+              (SEQ, 2560, 20, 640, False), (SEQ, 2560, 80, 640, False),
+              (SEQ, 2560, 40, 640, False), (SEQ, 2560, 80, 2560, False),
+              (SEQ, 4096, 256, 16384, True), (SEQ, 16384, 128, 4096, True))
     for n, d_in, r, d_out, with_bias in shapes:
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
@@ -1115,8 +1169,9 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev) -> dict:
     GPT-NeoX's q/k/v/o and MLP, GPT-J's head) are 0.1-scale noise; norms
     (the sandwich norms, OLMo-2's post norms and flat q/k norms too) are the
     identity (zeros for gemma's and Nemotron's (1 + w) norms, none for
-    OLMo's norms without an affine), a LayerNorm's offset (Persimmon's q/k
-    LayerNorms' too) 0.1-scale noise; a tied embedding has RMS 1 /
+    OLMo's norms without an affine; BLOOM's embedding norm and BitNet's
+    sub-norms too), a LayerNorm's offset (Persimmon's q/k LayerNorms' too)
+    0.1-scale noise; a tied embedding has RMS 1 /
     sqrt(dim), so the tied head's logits have RMS 1 (and gemma's
     sqrt(dim)-scaled embeddings RMS 1), and GPT-2's position table the same
     RMS as its tied embedding."""
@@ -1174,6 +1229,11 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev) -> dict:
             norm(p + "pre_feedforward_layernorm")
         if cfg.sandwich_norms or cfg.post_norm_only:
             norm(p + "post_feedforward_layernorm")
+        if cfg.sub_norms:
+            sd[p + "self_attn.attn_sub_norm.weight"] = draws.full(cfg.n_heads * hd, 1.0)
+            sd[p + "mlp.ffn_sub_norm.weight"] = draws.full(cfg.hidden_dim, 1.0)
+    if cfg.embed_norm:
+        norm("model.embed_norm")
     if cfg.final_norm:
         norm("model.norm")
     if not cfg.tie_embeddings:
@@ -2980,6 +3040,20 @@ def persimmon_layout(sd: dict[str, torch.Tensor], n_heads: int) -> dict[str, tor
         (".mlp.up_proj.", ".mlp.dense_h_to_4h."), (".mlp.down_proj.", ".mlp.dense_4h_to_h.")))
 
 
+def bloom_layout(sd: dict[str, torch.Tensor], n_heads: int) -> dict[str, torch.Tensor]:
+    """BLOOM's checkpoint layout: q/k/v fused a head at a time in
+    ``self_attention.query_key_value``, HF's names (``word_embeddings`` and
+    its ``word_embeddings_layernorm``, ``h``, ``self_attention.dense``,
+    ``dense_h_to_4h`` / ``dense_4h_to_h``, ``ln_f``), no head (tied)."""
+    return renamed(fused_query_key_value(sd, per_head(n_heads)), (
+        ("model.embed_norm.", "transformer.word_embeddings_layernorm."),
+        ("model.embed_tokens.", "transformer.word_embeddings."),
+        ("model.norm.", "transformer.ln_f."), ("model.layers.", "transformer.h."),
+        (".self_attn.query_key_value.", ".self_attention.query_key_value."),
+        (".self_attn.o_proj.", ".self_attention.dense."), (".mlp.up_proj.", ".mlp.dense_h_to_4h."),
+        (".mlp.down_proj.", ".mlp.dense_4h_to_h.")))
+
+
 # the families whose planted weights are written in their checkpoint layout
 # and translated back by the loader, as a snapshot's would be
 FAMILY_LAYOUTS = {"phi3_mini": lambda sd: fused_layout(sd, qkv=True), "glm4_9b": glm4_layout,
@@ -2988,7 +3062,8 @@ FAMILY_LAYOUTS = {"phi3_mini": lambda sd: fused_layout(sd, qkv=True), "glm4_9b":
                   "falcon_7b": falcon_layout, "gptj_6b": gptj_layout, "opt_6_7b": opt_layout,
                   "starcoderbase_1b": gpt_bigcode_layout,
                   "persimmon_8b": lambda sd: persimmon_layout(
-                      sd, PERSIMMON_8B["num_attention_heads"])}
+                      sd, PERSIMMON_8B["num_attention_heads"]),
+                  "bloom_7b1": lambda sd: bloom_layout(sd, BLOOM_7B1["n_head"])}
 
 
 def family_weights(cfg: models.TransformerConfig, name: str, seed: int,

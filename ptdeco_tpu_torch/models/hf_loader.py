@@ -18,11 +18,14 @@ layouts go through GPT-2's translator (ImageGPT's untied head kept),
 GPT-J's, GPT-Neo's and OPT's names are renamed (OPT's two legacy position
 rows dropped), CodeGen's sharded (q, v, k) ``qkv_proj`` and StarCoder's
 multi-query ``c_attn`` split; emu3's text path keeps llama's names, and
-so do olmo, nemotron, ernie4_5, arcee, seed_oss, exaone4 and helium;
-Persimmon's per-head fused ``query_key_value`` is split as GPT-NeoX's (and
-through the fuyu wrapper), VaultGemma's, Apertus's (its xIELU scalars too),
-HunYuan's and open-llama's names are renamed.  A translator takes numpy
-arrays or tensors.
+so do olmo, nemotron, ernie4_5, arcee, seed_oss, exaone4, helium, cohere2
+and bitnet; Persimmon's, BLOOM's and GPT-NeoX-Japanese's per-head fused
+``query_key_value`` is split as GPT-NeoX's (and through the fuyu wrapper;
+GPT-NeoX-Japanese's o_proj biases zero-filled but the last layer's), MPT's
+``Wqkv`` cut in [q | k | v], VaultGemma's, Apertus's (its xIELU scalars
+too), HunYuan's, open-llama's, XGLM's, BioGPT's (its two offset rows
+dropped), CTRL's and XLM's names are renamed (the last two's head biases
+onto ``tied_head_bias``).  A translator takes numpy arrays or tensors.
 Shards are read from ``*.safetensors`` where that package is importable,
 else from ``pytorch_model*.bin`` with ``torch.load``.
 """
@@ -35,6 +38,7 @@ import logging
 import pathlib
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from .. import utils
@@ -64,6 +68,13 @@ __all__ = [
     "translate_apertus_state_dict",
     "translate_hunyuan_state_dict",
     "translate_open_llama_state_dict",
+    "make_bloom_translator",
+    "make_mpt_translator",
+    "translate_xglm_state_dict",
+    "translate_biogpt_state_dict",
+    "translate_ctrl_state_dict",
+    "translate_xlm_state_dict",
+    "make_gpt_neox_japanese_translator",
     "translator_for",
 ]
 
@@ -538,6 +549,15 @@ def make_gpt_bigcode_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
     return translate
 
 
+# OPT's layer names, which BioGPT and XGLM share: ``self_attn.out_proj``, the
+# per-layer ``self_attn_layer_norm`` / ``final_layer_norm`` (before the MLP)
+# and ``fc1`` / ``fc2``
+_OPT_LAYER_NAMES = ((".self_attn.out_proj.", ".self_attn.o_proj."),
+                    (".self_attn_layer_norm.", ".input_layernorm."),
+                    (".final_layer_norm.", ".post_attention_layernorm."),
+                    (".fc1.", ".mlp.up_proj."), (".fc2.", ".mlp.down_proj."))
+
+
 def translate_opt_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
     """OPT's layout: ``embed_positions`` holds two leading rows for torch's
     legacy +2 offset (HF adds 2 to every position), dropped so that the
@@ -551,13 +571,184 @@ def translate_opt_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
             ("model.decoder.embed_tokens.", "model.embed_tokens."),
             ("model.decoder.embed_positions.", "model.pos_embed."),
             ("model.decoder.final_layer_norm.", "model.norm."),
-            ("model.decoder.layers.", "model.layers."), (".self_attn.out_proj.", ".self_attn.o_proj."),
-            (".self_attn_layer_norm.", ".input_layernorm."),
-            (".final_layer_norm.", ".post_attention_layernorm."), (".fc1.", ".mlp.up_proj."),
-            (".fc2.", ".mlp.down_proj."))).items():
+            ("model.decoder.layers.", "model.layers."), *_OPT_LAYER_NAMES)).items():
         if k != "lm_head.weight":
             out[k] = v[2:] if k.startswith("model.pos_embed.") else v
     return out
+
+
+def make_bloom_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """BLOOM's layout: ``self_attention.query_key_value`` fused a head at a
+    time as GPT-NeoX's (``BloomAttention._reshape``'s (heads, 3, head_dim)
+    view), ``word_embeddings`` / ``word_embeddings_layernorm`` ->
+    ``embed_tokens`` / ``embed_norm``, ``h`` -> ``layers``,
+    ``self_attention.dense`` -> ``o_proj``, ``dense_h_to_4h`` /
+    ``dense_4h_to_h`` -> up / down, ``ln_f`` -> ``model.norm``; the tied
+    ``lm_head`` is dropped."""
+    n_heads = int(hf_cfg.get("n_head", hf_cfg.get("num_attention_heads", 0)))
+    hd = int(hf_cfg.get("hidden_size", hf_cfg.get("n_embed", 0))) // n_heads
+
+    def translate(sd: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in _renamed(sd, (
+                ("transformer.word_embeddings_layernorm.", "model.embed_norm."),
+                ("transformer.word_embeddings.", "model.embed_tokens."),
+                ("transformer.ln_f.", "model.norm."), ("transformer.h.", "model.layers."),
+                (".self_attention.dense.", ".self_attn.o_proj."),
+                (".mlp.dense_h_to_4h.", ".mlp.up_proj."),
+                (".mlp.dense_4h_to_h.", ".mlp.down_proj."))).items():
+            if k == "lm_head.weight":
+                continue
+            if ".self_attention.query_key_value." in k:
+                _split_per_head_qkv(*k.split(".self_attention.query_key_value."), v, n_heads, hd,
+                                    out)
+            else:
+                out[k] = v
+        return out
+
+    return translate
+
+
+def make_mpt_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """MPT's layout: ``attn.Wqkv`` stacks [q (d_model) | k | v] rows, k and
+    v ``kv_n_heads`` heads each, cut at those widths; ``wte`` ->
+    ``embed_tokens``, ``blocks`` -> ``layers``, ``norm_1`` / ``norm_2`` ->
+    the input and post-attention norms, ``attn.out_proj`` -> ``o_proj``,
+    ``ffn.up_proj`` / ``ffn.down_proj`` -> the MLP's, ``norm_f`` ->
+    ``model.norm``; the tied ``lm_head`` is dropped."""
+    dim, n_heads = int(hf_cfg["d_model"]), int(hf_cfg["n_heads"])
+    kv_dim = dim // n_heads * int(hf_cfg.get("attn_config", {}).get("kv_n_heads", n_heads))
+
+    def translate(sd: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in _renamed(sd, (
+                ("transformer.wte.", "model.embed_tokens."), ("transformer.norm_f.", "model.norm."),
+                ("transformer.blocks.", "model.layers."), (".norm_1.", ".input_layernorm."),
+                (".norm_2.", ".post_attention_layernorm."),
+                (".attn.out_proj.", ".self_attn.o_proj."), (".ffn.", ".mlp."))).items():
+            if k == "lm_head.weight":
+                continue
+            if ".attn.Wqkv." not in k:
+                out[k] = v
+                continue
+            stem, leaf = k.split(".attn.Wqkv.")
+            for name, part in zip(("q_proj", "k_proj", "v_proj"),
+                                  (v[:dim], v[dim:dim + kv_dim], v[dim + kv_dim:])):
+                out[f"{stem}.self_attn.{name}.{leaf}"] = part
+        return out
+
+    return translate
+
+
+def translate_xglm_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """XGLM's layout: OPT's layer names (``_OPT_LAYER_NAMES``), the
+    decoder's ``layer_norm`` -> ``model.norm``; its sinusoids have no
+    weight; the tied ``lm_head`` is dropped."""
+    return {k: v for k, v in _renamed(sd, (("model.layer_norm.", "model.norm."),
+                                           *_OPT_LAYER_NAMES)).items() if k != "lm_head.weight"}
+
+
+def translate_biogpt_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """BioGPT's layout: OPT's under ``biogpt.``, its position table's two
+    offset rows dropped as OPT's, the decoder's ``layer_norm`` ->
+    ``model.norm``; the tied ``output_projection`` is dropped."""
+    out: dict[str, Any] = {}
+    for k, v in _renamed(sd, (
+            ("biogpt.embed_positions.", "model.pos_embed."), ("biogpt.layer_norm.", "model.norm."),
+            ("biogpt.", "model."), *_OPT_LAYER_NAMES)).items():
+        if k != "output_projection.weight":
+            out[k] = v[2:] if k.startswith("model.pos_embed.") else v
+    return out
+
+
+def translate_ctrl_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """CTRL's layout: ``transformer.w`` -> ``embed_tokens``,
+    ``multi_head_attention.{Wq,Wk,Wv,dense}`` -> q / k / v / o, the ``ffn``
+    Sequential's ``0`` / ``2`` -> up / down, ``layernorm1`` / ``layernorm2``
+    -> the input and post-attention norms, ``transformer.layernorm`` ->
+    ``model.norm``; the tied head keeps only its bias, as
+    ``tied_head_bias``."""
+    out: dict[str, Any] = {}
+    for k, v in _renamed(sd, (
+            ("transformer.w.", "model.embed_tokens."), ("transformer.layernorm.", "model.norm."),
+            ("transformer.h.", "model.layers."), (".multi_head_attention.Wq.", ".self_attn.q_proj."),
+            (".multi_head_attention.Wk.", ".self_attn.k_proj."),
+            (".multi_head_attention.Wv.", ".self_attn.v_proj."),
+            (".multi_head_attention.dense.", ".self_attn.o_proj."),
+            (".layernorm1.", ".input_layernorm."), (".layernorm2.", ".post_attention_layernorm."),
+            (".ffn.0.", ".mlp.up_proj."), (".ffn.2.", ".mlp.down_proj."),
+            ("lm_head.bias", "tied_head_bias"))).items():
+        if k != "lm_head.weight":
+            out[k] = v
+    return out
+
+
+def translate_xlm_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """XLM's (causal) layout: ``embeddings`` / ``position_embeddings`` /
+    ``layer_norm_emb`` -> ``embed_tokens`` / ``pos_embed`` / ``embed_norm``,
+    the per-layer lists ``attentions.N.{q,k,v,out}_lin``, ``layer_norm1.N``
+    / ``layer_norm2.N`` (after each residual add) and ``ffns.N.lin1`` /
+    ``lin2`` onto the layer tree, ``pred_layer.proj``'s bias ->
+    ``tied_head_bias`` (its weight is the tied embedding); the language
+    table is dropped (a causal LM's forward passes no languages)."""
+    lists = (("attentions", "self_attn"), ("layer_norm1", "input_layernorm"),
+             ("layer_norm2", "post_attention_layernorm"), ("ffns", "mlp"))
+    out: dict[str, Any] = {}
+    for k, v in sd.items():
+        if k.startswith("transformer.lang_embeddings.") or k == "pred_layer.proj.weight":
+            continue
+        for theirs, ours in lists:
+            if k.startswith(f"transformer.{theirs}."):
+                layer, rest = k[len(f"transformer.{theirs}."):].split(".", 1)
+                k = f"model.layers.{layer}.{ours}.{rest}"
+                break
+        for old, new in (("transformer.embeddings.", "model.embed_tokens."),
+                         ("transformer.position_embeddings.", "model.pos_embed."),
+                         ("transformer.layer_norm_emb.", "model.embed_norm."),
+                         ("pred_layer.proj.bias", "tied_head_bias"),
+                         (".self_attn.q_lin.", ".self_attn.q_proj."),
+                         (".self_attn.k_lin.", ".self_attn.k_proj."),
+                         (".self_attn.v_lin.", ".self_attn.v_proj."),
+                         (".self_attn.out_lin.", ".self_attn.o_proj."),
+                         (".mlp.lin1.", ".mlp.up_proj."), (".mlp.lin2.", ".mlp.down_proj.")):
+            k = k.replace(old, new)
+        out[k] = v
+    return out
+
+
+def make_gpt_neox_japanese_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """GPT-NeoX-Japanese's layout: the bias-free ``attention.query_key_value``
+    fused a head at a time (GPT-NeoX's split), ``attention.dense`` ->
+    ``o_proj``, whose bias the checkpoint holds as ``attention.dense_bias``
+    on the last layer only: every other layer's is zero-filled (HF's module
+    has none there); ``embed_in`` / ``embed_out`` / ``final_layer_norm``
+    and the MLP's ``dense_*`` renamed; the rotary buffers dropped."""
+    n_heads, dim = int(hf_cfg["num_attention_heads"]), int(hf_cfg["hidden_size"])
+    n_layers = int(hf_cfg["num_hidden_layers"])
+
+    def translate(sd: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in _renamed(sd, (
+                ("gpt_neox_japanese.embed_in.", "model.embed_tokens."),
+                ("gpt_neox_japanese.final_layer_norm.", "model.norm."),
+                ("gpt_neox_japanese.layers.", "model.layers."), ("embed_out.", "lm_head."),
+                (".attention.dense_bias", ".self_attn.o_proj.bias"),
+                (".attention.dense.", ".self_attn.o_proj."),
+                (".mlp.dense_h_to_4h.", ".mlp.up_proj."), (".mlp.dense_4h_to_h.", ".mlp.down_proj.")),
+                drop=("rotary_emb.inv_freq",)).items():
+            if ".attention.query_key_value." in k:
+                _split_per_head_qkv(*k.split(".attention.query_key_value."), v, n_heads,
+                                    dim // n_heads, out)
+            else:
+                out[k] = v
+        like = out.get(f"model.layers.{n_layers - 1}.self_attn.o_proj.bias", torch.zeros(dim))
+        for i in range(n_layers - 1):
+            out.setdefault(f"model.layers.{i}.self_attn.o_proj.bias",
+                           np.zeros_like(like) if isinstance(like, np.ndarray)
+                           else torch.zeros_like(like))
+        return out
+
+    return translate
 
 
 # model types whose HF names are the port model's own
@@ -565,6 +756,7 @@ _SAME_NAMES = (
     "llama", "code_llama", "mistral", "ministral", "qwen2", "qwen3", "gemma", "gemma2",
     "gemma3_text", "olmo2", "olmo3", "smollm3", "phi", "stablelm", "granite", "cohere", "emu3",
     "emu3_text_model", "olmo", "nemotron", "ernie4_5", "arcee", "seed_oss", "exaone4", "helium",
+    "cohere2", "bitnet",
 )
 
 
@@ -582,13 +774,18 @@ _TRANSLATORS = {
     "persimmon": make_persimmon_translator, "fuyu": make_multimodal_text_translator,
     "vaultgemma": translate_vaultgemma_state_dict, "apertus": translate_apertus_state_dict,
     "hunyuan_v1_dense": translate_hunyuan_state_dict,
-    "open-llama": translate_open_llama_state_dict,
+    "open-llama": translate_open_llama_state_dict, "bloom": make_bloom_translator,
+    "mpt": make_mpt_translator, "xglm": translate_xglm_state_dict,
+    "biogpt": translate_biogpt_state_dict, "ctrl": translate_ctrl_state_dict,
+    "xlm": translate_xlm_state_dict, "gpt_neox_japanese": make_gpt_neox_japanese_translator,
     "got_ocr2": make_multimodal_text_translator, "mixtral": translate_mixtral_state_dict,
     "phi3": _phi3_translator, "gemma3": make_multimodal_text_translator,
 }
 _MADE_FROM_CONFIG = (_phi3_translator, make_gpt_neox_translator, make_falcon_translator,
                      make_codegen_translator, make_gpt_bigcode_translator,
-                     make_persimmon_translator, make_multimodal_text_translator)
+                     make_persimmon_translator, make_multimodal_text_translator,
+                     make_bloom_translator, make_mpt_translator,
+                     make_gpt_neox_japanese_translator)
 
 
 def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:

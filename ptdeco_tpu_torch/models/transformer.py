@@ -5,7 +5,8 @@ Counterpart of the llama-family, Mixtral and gpt2 / gpt_neox / falcon /
 starcoder2 / stablelm / granite / cohere / gptj / codegen / gpt_neo /
 gpt_bigcode / opt / openai-gpt / imagegpt / olmo / nemotron / persimmon /
 ernie4_5 / arcee / seed_oss / exaone4 / vaultgemma / apertus /
-hunyuan_v1_dense / helium / open-llama parts of
+hunyuan_v1_dense / helium / open-llama / cohere2 / gpt_neox_japanese /
+biogpt / xlm / bitnet / xglm / ctrl / bloom / mpt parts of
 ``ptdeco_tpu/models/transformer.py``: RMSNorm (optionally the gemma (1 + w)
 flavour) or LayerNorm (optionally without its offset, without any affine as
 OLMo's, or Nemotron's (1 + w)), HF rotate-half rope
@@ -18,9 +19,11 @@ OLMo-2's q/k RMSNorm over the whole projection and its ``clip_qkv`` clamp,
 Persimmon's per-head q/k LayerNorm, Gemma-2's logit soft-cap and query
 scale, and the sliding-window layers of
 Gemma-3, OLMo-3 and Ministral with Gemma-3's and OLMo-3's local rope, or
-no rotary at all), a gated MLP (SwiGLU, or gemma's tanh-GELU) or a
+no rotary at all, or BLOOM's and MPT's ALiBi; BitNet's RMSNorm over the
+merged heads), a gated MLP (SwiGLU, or gemma's tanh-GELU) or a
 non-gated one (exact or tanh GELU, relu, relu^2, Apertus's xIELU with its
-learned scalars), the top-k routed mixture
+learned scalars; BitNet's RMSNorm over the activation product), the
+top-k routed mixture
 of SwiGLU experts (``MoEMLP``), pre-norm blocks (the sandwich norms of
 Gemma-2, Gemma-3 and GLM-4, OLMo-2's post-norm-only blocks, the one-norm
 and two-norm parallel residuals of GPT-NeoX, Falcon, Cohere and GPT-J,
@@ -28,8 +31,9 @@ Granite's scaled residuals, GPT-1's post-LN blocks; optionally each under
 ``torch.utils.checkpoint``, the config's ``remat``), an embedding
 optionally scaled by sqrt(dim) (gemma) or Granite's multiplier, with
 GPT-2's learned positions added (ImageGPT's with one more row than the
-head has outputs) and open-llama's LayerNorm over it, no final norm for
-GPT-1, and a dict-in/logits-out
+head has outputs) or XGLM's and CTRL's computed sinusoids, and
+open-llama's, BLOOM's and XLM's LayerNorm over it, no final norm for GPT-1
+and XLM, and a dict-in/logits-out
 ``CausalLM`` (optionally scaling and soft-capping its logits, with GPT-J's
 biased head).
 Every projection is an ``nn.Linear`` site and parameter names follow HF
@@ -47,6 +51,7 @@ import logging
 import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -88,6 +93,7 @@ HF_FAMILIES = (
     "gptj", "codegen", "gpt_neo", "gpt_bigcode", "opt", "openai-gpt", "imagegpt",
     "olmo", "nemotron", "persimmon", "fuyu", "ernie4_5", "arcee", "seed_oss", "exaone4",
     "vaultgemma", "apertus", "hunyuan_v1_dense", "helium", "open-llama",
+    "cohere2", "gpt_neox_japanese", "biogpt", "xlm", "bitnet", "xglm", "ctrl", "bloom", "mpt",
 )
 # the text path's model type of each multimodal wrapper
 WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2", "emu3": "emu3_text_model",
@@ -190,9 +196,22 @@ class TransformerConfig:
     # imagegpt: the embedding holds this many rows, the head vocab_size
     # outputs
     embed_vocab_size: Optional[int] = None
-    # open-llama: a LayerNorm (its offset by norm_bias) over the embedding
-    # before the first block
+    # open-llama, bloom, xlm: a LayerNorm (its offset by norm_bias) over
+    # the embedding (after any position add) before the first block
     embed_norm: bool = False
+    # bloom / mpt: ALiBi, slope_h * key position added to head h's scaled
+    # f32 logits (no rotary, no position table)
+    use_alibi: bool = False
+    # bitnet: RMSNorms over the merged heads before o_proj (attn_sub_norm)
+    # and over the activation product before down_proj (ffn_sub_norm)
+    sub_norms: bool = False
+    # xglm / ctrl: a computed sinusoid table (sin | cos halves, no
+    # parameter) at positions + sinusoidal_offset, added to the embedding;
+    # "fairseq" (xglm) spaces the frequencies by log(1e4) / (half - 1),
+    # "t2t" (ctrl) by 2 log(1e4) / dim
+    sinusoidal_pos: bool = False
+    sinusoidal_offset: int = 2
+    sinusoidal_kind: str = "fairseq"  # | "t2t"
     dtype: torch.dtype = torch.float32
     # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
     # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
@@ -221,8 +240,9 @@ class TransformerConfig:
         starcoder2, stablelm, granite, cohere, gptj, codegen, gpt_neo,
         gpt_bigcode, opt, openai-gpt, imagegpt, olmo, nemotron, persimmon
         (or the fuyu wrapper), ernie4_5, arcee, seed_oss, exaone4,
-        vaultgemma, apertus, hunyuan_v1_dense, helium or open-llama one
-        through that family's own constructor, as the JAX package's
+        vaultgemma, apertus, hunyuan_v1_dense, helium, open-llama, cohere2,
+        gpt_neox_japanese, biogpt, xlm, bitnet, xglm, ctrl, bloom or mpt
+        one through that family's own constructor, as the JAX package's
         ``beyond_llama`` table does.
         Raises ValueError on
         anything these families do not express here (rope types other than
@@ -998,9 +1018,201 @@ def _hf_open_llama(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConf
     )
 
 
+def _hf_cohere2(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Cohere2 (Command-R7B): Cohere's one-norm parallel block with hybrid
+    sliding layers (``layer_types``, or every ``sliding_window_pattern``-th
+    layer full), where only the sliding layers rotate (``rope_layers``).
+    ``use_qk_norm`` is refused, as in the JAX package."""
+    if hf.get("use_qk_norm"):
+        raise ValueError("cohere2 use_qk_norm is not implemented, as in the JAX package")
+    sliding = hf.get("sliding_window")
+    layer_types = tuple(hf.get("layer_types") or ())
+    if not layer_types and sliding:
+        pat = int(hf.get("sliding_window_pattern") or 4)
+        layer_types = tuple("full_attention" if (i + 1) % pat == 0 else "sliding_attention"
+                            for i in range(int(hf["num_hidden_layers"])))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("layer_norm_eps", 1e-5)), norm_type="layernorm",
+        norm_bias=False, head_dim_override=_explicit_head_dim(hf),
+        mlp_act=_hf_act(hf.get("hidden_act", "silu")),
+        qkv_bias=bool(hf.get("attention_bias", False)), rope_interleaved=True,
+        parallel_residual="one_norm", logit_scale=float(hf.get("logit_scale", 0.0625)),
+        sliding_window=int(sliding) if sliding else None, layer_types=layer_types,
+        rope_layers=tuple(int(t == "sliding_attention") for t in layer_types) if sliding else (),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)),
+    )
+
+
+def _hf_gpt_neox_japanese(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """GPT-NeoX-Japanese: sequential NeoX blocks (LayerNorm, a bias-free
+    non-gated MLP of ``intermediate_multiple_size`` times the width),
+    split-half rotary over ``rotary_pct`` of each head, bias-free q/k/v from
+    the per-head fused ``query_key_value``, and an o_proj bias that the
+    checkpoint holds on the last layer only (the others zero-filled on
+    load, ``hf_loader.make_gpt_neox_japanese_translator``)."""
+    dim, n_heads = int(hf["hidden_size"]), int(hf["num_attention_heads"])
+    pct = float(hf.get("rotary_pct", 1.0))
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["num_hidden_layers"]),
+        n_heads=n_heads, n_kv_heads=n_heads,
+        hidden_dim=int(dim * float(hf.get("intermediate_multiple_size", 4))),
+        norm_eps=float(hf.get("layer_norm_eps", 1e-5)), norm_type="layernorm", mlp_gated=False,
+        mlp_act=_hf_act(hf.get("hidden_act", "gelu")), o_proj_bias=True,
+        rope_theta=float(hf.get("rotary_emb_base", 10000.0)),
+        rope_partial_factor=pct if pct < 1.0 else None,
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)), remat=remat, dtype=dtype,
+    )
+
+
+def _hf_biogpt(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """BioGPT: OPT's pre-LN blocks (biases everywhere, a non-gated exact-GELU
+    MLP) with the sqrt(dim) embedding scale and learned positions (the
+    checkpoint's two offset rows dropped on load); tied."""
+    n_heads = int(hf["num_attention_heads"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=int(hf["hidden_size"]),
+        n_layers=int(hf["num_hidden_layers"]), n_heads=n_heads, n_kv_heads=n_heads,
+        hidden_dim=int(hf["intermediate_size"]), norm_eps=float(hf.get("layer_norm_eps", 1e-12)),
+        norm_type="layernorm", mlp_gated=False, mlp_bias=True,
+        mlp_act=_hf_act(hf.get("hidden_act", "gelu")), qkv_bias=True, o_proj_bias=True,
+        learned_pos=int(hf["max_position_embeddings"]), use_rope=False,
+        scale_embeddings=bool(hf.get("scale_embedding", True)), tie_embeddings=True,
+        remat=remat, dtype=dtype,
+    )
+
+
+def _hf_xlm(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """XLM as a causal LM: post-LN blocks and no final norm, learned
+    positions, a LayerNorm over the embedding, an exact-GELU (or relu) MLP
+    and a tied head with a bias of its own (``tied_head_bias``); its
+    language table is dropped on load.  ``causal=False`` (a bidirectional
+    encoder) and ``asm`` (an adaptive softmax head) are refused, as in the
+    JAX package."""
+    if not hf.get("causal"):
+        raise ValueError("xlm with causal=False is a bidirectional encoder, not a causal "
+                         "decoder, as the JAX package says")
+    if hf.get("asm"):
+        raise ValueError("xlm asm=True (adaptive softmax head) is not implemented, as in the JAX "
+                         "package")
+    dim, n_heads = int(hf["emb_dim"]), int(hf["n_heads"])
+    return TransformerConfig(
+        vocab_size=int(hf["n_words" if "n_words" in hf else "vocab_size"]), dim=dim,
+        n_layers=int(hf["n_layers"]), n_heads=n_heads, n_kv_heads=n_heads, hidden_dim=4 * dim,
+        norm_eps=float(hf.get("layer_norm_eps", 1e-12)), norm_type="layernorm", post_ln=True,
+        final_norm=False, mlp_gated=False, mlp_bias=True,
+        mlp_act="gelu_exact" if hf.get("gelu_activation", True) else "relu", qkv_bias=True,
+        o_proj_bias=True, use_rope=False, learned_pos=int(hf.get("max_position_embeddings", 512)),
+        embed_norm=True, tie_embeddings=True, lm_head_bias=True, remat=remat, dtype=dtype,
+    )
+
+
+def _hf_bitnet(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """BitNet: the llama graph with its two sub-norms (``sub_norms``: an
+    RMSNorm over the merged heads before o_proj and one over the activation
+    product before down_proj) and a gated relu^2 MLP; the projections are
+    plain Linears (the ternary quantization is the quantizer's, not the
+    graph's)."""
+    bias = bool(hf.get("attention_bias", False))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        head_dim_override=_explicit_head_dim(hf), sub_norms=True,
+        mlp_act=_hf_act(hf.get("hidden_act", "relu2")), qkv_bias=bias, o_proj_bias=bias,
+        rope_theta=float(hf.get("rope_theta", 500000.0)),
+    )
+
+
+def _hf_xglm(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """XGLM: OPT-style biased pre-LN blocks with a final norm, a non-gated
+    exact-GELU MLP, the sqrt(dim) embedding scale and fairseq's computed
+    sinusoids at positions + 2 (no parameter).  An activation other than
+    gelu is refused, as in the JAX package."""
+    if hf.get("activation_function", "gelu") != "gelu":
+        raise ValueError(f"xglm activation {hf.get('activation_function')!r} is not implemented, "
+                         "as in the JAX package")
+    n_heads = int(hf["attention_heads"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=int(hf["d_model"]), n_layers=int(hf["num_layers"]),
+        n_heads=n_heads, n_kv_heads=n_heads, hidden_dim=int(hf["ffn_dim"]), norm_eps=1e-5,
+        norm_type="layernorm", mlp_gated=False, mlp_bias=True, mlp_act="gelu_exact",
+        qkv_bias=True, o_proj_bias=True, use_rope=False, sinusoidal_pos=True,
+        scale_embeddings=bool(hf.get("scale_embedding", True)),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)), remat=remat, dtype=dtype,
+    )
+
+
+def _hf_ctrl(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """CTRL: pre-LN blocks at its fixed LayerNorm eps 1e-6, a biased relu
+    MLP, the sqrt(dim) embedding scale, tensor2tensor's computed sinusoids
+    at the positions themselves, a final norm and a tied head with a bias
+    of its own (``tied_head_bias``)."""
+    n_heads = int(hf["n_head"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=int(hf["n_embd"]), n_layers=int(hf["n_layer"]),
+        n_heads=n_heads, n_kv_heads=n_heads, hidden_dim=int(hf["dff"]), norm_eps=1e-6,
+        norm_type="layernorm", mlp_gated=False, mlp_bias=True, mlp_act="relu", qkv_bias=True,
+        o_proj_bias=True, use_rope=False, sinusoidal_pos=True, sinusoidal_offset=0,
+        sinusoidal_kind="t2t", scale_embeddings=True, tie_embeddings=True, lm_head_bias=True,
+        remat=remat, dtype=dtype,
+    )
+
+
+def _hf_bloom(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """BLOOM: ALiBi in place of any position embedding, a LayerNorm over the
+    word embeddings, biased q/k/v from the per-head fused
+    ``query_key_value`` (GPT-NeoX's split on load), a biased tanh-GELU MLP
+    of four times the width, tied.
+    ``apply_residual_connection_post_layernorm`` is refused, as in the JAX
+    package."""
+    if hf.get("apply_residual_connection_post_layernorm"):
+        raise ValueError("bloom apply_residual_connection_post_layernorm is not implemented, as "
+                         "in the JAX package")
+    dim = int(hf.get("hidden_size", hf.get("n_embed", 0)))
+    n_heads = int(hf.get("n_head", hf.get("num_attention_heads", 0)))
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim,
+        n_layers=int(hf.get("n_layer", hf.get("num_hidden_layers", 0))), n_heads=n_heads,
+        n_kv_heads=n_heads, hidden_dim=4 * dim, norm_eps=float(hf.get("layer_norm_epsilon", 1e-5)),
+        norm_type="layernorm", mlp_gated=False, mlp_bias=True, mlp_act="gelu_tanh",
+        qkv_bias=True, o_proj_bias=True, use_rope=False, use_alibi=True, embed_norm=True,
+        tie_embeddings=bool(hf.get("tie_word_embeddings", True)), remat=remat, dtype=dtype,
+    )
+
+
+def _hf_mpt(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """MPT: ALiBi (grouped kv heads by ``attn_config.kv_n_heads``), no bias
+    anywhere (LayerNorms without an offset), the straight-thirds ``Wqkv``
+    split on load, a non-gated exact-GELU MLP at ``expansion_ratio``,
+    tied.  As in the JAX package it refuses ``alibi=False``, ``qk_ln``, a
+    head count that is not a power of two (MPT's slopes differ from the
+    ALiBi paper's there), ``alibi_bias_max`` other than 8 and
+    ``no_bias=False``."""
+    attn = hf.get("attn_config", {})
+    if not attn.get("alibi", True):
+        raise ValueError("mpt attn_config.alibi=False is not implemented, as in the JAX package")
+    if attn.get("qk_ln"):
+        raise ValueError("mpt attn_config.qk_ln is not implemented, as in the JAX package")
+    n_heads = int(hf.get("n_heads", 0))
+    if n_heads & (n_heads - 1):
+        raise ValueError("mpt with n_heads not a power of 2 is not implemented, as in the JAX "
+                         "package (mpt's gen_slopes interleave differently there)")
+    if float(attn.get("alibi_bias_max", 8)) != 8.0:
+        raise ValueError("mpt alibi_bias_max != 8 is not implemented, as in the JAX package")
+    if not hf.get("no_bias", True):
+        raise ValueError("mpt no_bias=False is not implemented, as in the JAX package")
+    dim = int(hf["d_model"])
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["n_layers"]), n_heads=n_heads,
+        n_kv_heads=int(attn.get("kv_n_heads", n_heads)),
+        hidden_dim=int(hf.get("expansion_ratio", 4)) * dim, norm_eps=1e-5, norm_type="layernorm",
+        norm_bias=False, mlp_gated=False, mlp_act="gelu_exact", use_rope=False, use_alibi=True,
+        tie_embeddings=True, remat=remat, dtype=dtype,
+    )
+
+
 # the beyond-llama model types' constructors (JAX transformer.py:361-443:
-# the seven of its list of supported families, the GPT lineage, then the
-# llama lineage with knobs of its own)
+# the seven of its list of supported families, the GPT lineage, the llama
+# lineage with knobs of its own, then the dense decoders with a position or
+# norm knob of their own)
 _BEYOND_LLAMA = {
     "gpt2": _hf_gpt2, "gpt_neox": _hf_gpt_neox, "falcon": _hf_falcon,
     "starcoder2": _hf_starcoder2, "stablelm": _hf_stablelm, "granite": _hf_granite,
@@ -1010,7 +1222,9 @@ _BEYOND_LLAMA = {
     "persimmon": _hf_persimmon, "ernie4_5": _hf_ernie4_5, "arcee": _hf_arcee,
     "seed_oss": _hf_seed_oss, "exaone4": _hf_exaone4, "vaultgemma": _hf_vaultgemma,
     "apertus": _hf_apertus, "hunyuan_v1_dense": _hf_hunyuan_dense, "helium": _hf_helium,
-    "open-llama": _hf_open_llama,
+    "open-llama": _hf_open_llama, "cohere2": _hf_cohere2,
+    "gpt_neox_japanese": _hf_gpt_neox_japanese, "biogpt": _hf_biogpt, "xlm": _hf_xlm,
+    "bitnet": _hf_bitnet, "xglm": _hf_xglm, "ctrl": _hf_ctrl, "bloom": _hf_bloom, "mpt": _hf_mpt,
 }
 
 
@@ -1099,6 +1313,43 @@ def _positions(b: int, s: int, start: Any, device: Any) -> torch.Tensor:
     if isinstance(start, torch.Tensor):
         return start.to(device=device, dtype=torch.int64)[:, None] + steps[None, :]
     return (start + steps).expand(b, s)
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes as float32 (the JAX package's ``alibi_slopes``,
+    HF bloom's ``build_alibi_tensor``): 2^(-8 i / n) for i in 1..n at a
+    power-of-two head count n; otherwise the slopes of the largest power of
+    two below it, then every other slope of the table at twice that power
+    (BLOOM-176B's 112 heads)."""
+
+    def pow2_slopes(n: int) -> list[float]:
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        return np.asarray(pow2_slopes(n_heads), np.float32)
+    base = 2 ** math.floor(math.log2(n_heads))
+    extra = pow2_slopes(2 * base)[0::2][: n_heads - base]
+    return np.asarray(pow2_slopes(base) + extra, np.float32)
+
+
+def sinusoidal_positions(positions: torch.Tensor, dim: int, kind: str = "fairseq") -> torch.Tensor:
+    """The computed position table at ``positions`` (any shape), in f32:
+    angles position * exp(-i c) for i < dim / 2, sin and cos concatenated
+    (not interleaved).  ``kind`` "fairseq" (XGLM) takes c = log(1e4) /
+    (dim / 2 - 1), "t2t" (tensor2tensor's, CTRL) c = 2 log(1e4) / dim; the
+    JAX package's ``_sinusoidal_positions`` / ``_t2t_sinusoidal_positions``.
+    Callers add their offset to the positions."""
+    if dim % 2:
+        raise ValueError("sinusoidal positions require an even dim")
+    if kind not in ("fairseq", "t2t"):
+        raise ValueError(f"sinusoidal_kind={kind!r}")
+    half = dim // 2
+    log_1e4 = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+    step = log_1e4 * 2.0 / dim if kind == "t2t" else log_1e4 / (half - 1)
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32) * -step).to(positions.device)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 def yarn_parameters(
@@ -1275,6 +1526,12 @@ class Attention(torch.nn.Module):
         self.sliding_window = cfg.sliding_window if sliding else None
         self.logit_softcap = cfg.attn_logit_softcap
         self.scale_override = cfg.query_scale_override
+        self.use_alibi = cfg.use_alibi
+        self._alibi_by_device: dict = {}
+        # bitnet: an RMSNorm over the merged heads, inside o_proj's input
+        self.attn_sub_norm = (
+            RMSNorm(cfg.n_heads * hd, cfg.norm_eps, cfg.dtype, device) if cfg.sub_norms else None
+        )
 
     def scale(self, hd: int) -> float:
         """The softmax scale at head dim ``hd``."""
@@ -1311,8 +1568,20 @@ class Attention(torch.nn.Module):
         return self.rope(q, positions), self.rope(k, positions), v
 
     def finish(self, merged: torch.Tensor) -> torch.Tensor:
-        """The output projection of the merged heads (b, s, heads * hd)."""
+        """The output projection of the merged heads (b, s, heads * hd),
+        after bitnet's ``attn_sub_norm``."""
+        if self.attn_sub_norm is not None:
+            merged = self.attn_sub_norm(merged)
         return self.o_proj(merged)
+
+    def alibi_slopes(self, device: Any) -> torch.Tensor:
+        """The layer's (heads,) f32 ALiBi slopes on ``device``, copied there
+        once: a host-to-device copy a call would make each cached decode
+        step wait for the card."""
+        device = torch.device(device)
+        if device not in self._alibi_by_device:
+            self._alibi_by_device[device] = torch.from_numpy(alibi_slopes(self.n_heads)).to(device)
+        return self._alibi_by_device[device]
 
     def forward(
         self,
@@ -1321,18 +1590,27 @@ class Attention(torch.nn.Module):
         positions: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         b, s, _ = x.shape
+        if positions is None:
+            positions = _positions(b, s, 0, x.device)
         q, k, v = self.project_qkv(x, positions)
         hd = q.shape[-1]
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (b, heads, s, hd)
         scale = self.scale(hd)
+        # ALiBi: slope_h * key position on head h's scaled logits (b, h, 1,
+        # s), before any soft-cap and the mask (JAX transformer.py:4125-4130)
+        key_bias = (
+            self.alibi_slopes(x.device)[None, :, None, None]
+            * positions.to(torch.float32)[:, None, None, :]
+            if self.use_alibi else None
+        )
         if self.logit_softcap is not None or self.sliding_window is not None:
             out = _capped_windowed_attention(
-                q, k, v, scale, attn_mask, self.logit_softcap, self.sliding_window
+                q, k, v, scale, attn_mask, self.logit_softcap, self.sliding_window, key_bias
             )
-        elif _use_flash_kernel(q, attn_mask):
+        elif key_bias is None and _use_flash_kernel(q, attn_mask):
             out = flash_attention(q, k, v, scale)
         else:
-            out = causal_attention_plain(q, k, v, scale, attn_mask)
+            out = causal_attention_plain(q, k, v, scale, attn_mask, key_bias)
         return self.finish(out.transpose(1, 2).reshape(b, s, -1))
 
 
@@ -1351,8 +1629,9 @@ def _use_flash_kernel(q: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> boo
     with no padding mask and a head_dim the kernel is built for (64, 96, 128
     or 256) takes the flash kernel (which reads the grouped k/v heads
     itself); everything else, an all-ones mask included, takes the einsum
-    path.  ``Attention.forward`` also sends a soft-capped or windowed layer
-    to the einsum path, as the JAX gate does."""
+    path.  ``Attention.forward`` also sends a soft-capped, windowed or
+    ALiBi layer to the einsum path, as the JAX gate does (the kernel has
+    no logit bias)."""
     return (
         q.is_cuda
         and q.dtype == torch.bfloat16
@@ -1369,16 +1648,21 @@ def _capped_windowed_attention(
     attn_mask: Optional[torch.Tensor],
     softcap: Optional[float],
     window: Optional[int],
+    key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The JAX model's einsum attention (transformer.py:4118-4162) with
-    Gemma-2's tanh soft-cap on the f32 logits, then the causal mask narrowed
-    to ``q - k < window`` (HF's convention, the query's own key included)
-    and the padding mask; q (b, h, s, d), k and v (b, h_kv, s, d)."""
+    ``key_bias`` (ALiBi's, broadcast to (b, h, s, s)) added to the scaled
+    f32 logits, Gemma-2's tanh soft-cap on them, then the causal mask
+    narrowed to ``q - k < window`` (HF's convention, the query's own key
+    included) and the padding mask; q (b, h, s, d), k and v (b, h_kv, s,
+    d)."""
     h, s = q.shape[1], q.shape[2]
     rep = h // k.shape[1]
     if rep > 1:
         k, v = (torch.repeat_interleave(t, rep, dim=1) for t in (k, v))
     logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
+    if key_bias is not None:
+        logits = logits + key_bias
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     idx = torch.arange(s, device=q.device)
@@ -1439,6 +1723,11 @@ class MLP(torch.nn.Module):
             # HF's init: log(expm1(0.8)) and log(expm1(0.8 - beta)), beta 0.5
             self.act_alpha_p = _xielu_alpha(0.8, device)
             self.act_alpha_n = _xielu_alpha(0.3, device)
+        # bitnet: an RMSNorm over the activation product, inside down_proj's
+        # input
+        self.ffn_sub_norm = (
+            RMSNorm(cfg.hidden_dim, cfg.norm_eps, cfg.dtype, device) if cfg.sub_norms else None
+        )
 
     def _act(self, h: torch.Tensor) -> torch.Tensor:
         if self.act != "xielu":
@@ -1458,8 +1747,12 @@ class MLP(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gate_proj is None:
-            return self.down_proj(self._act(self.up_proj(x)))
-        return self.down_proj(self._act(self.gate_proj(x)) * self.up_proj(x))
+            h = self._act(self.up_proj(x))
+        else:
+            h = self._act(self.gate_proj(x)) * self.up_proj(x)
+        if self.ffn_sub_norm is not None:
+            h = self.ffn_sub_norm(h)
+        return self.down_proj(h)
 
 
 def _use_int8_kernel(x: torch.Tensor) -> bool:
@@ -1698,6 +1991,8 @@ class Decoder(torch.nn.Module):
         self.remat = cfg.remat
         self.scale_embeddings = cfg.scale_embeddings
         self.embedding_multiplier = cfg.embedding_multiplier
+        # xglm / ctrl: the computed table's kind and offset (no parameter)
+        self.sinusoid = (cfg.sinusoidal_kind, cfg.sinusoidal_offset) if cfg.sinusoidal_pos else None
 
     def embed_inputs(
         self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None
@@ -1706,18 +2001,23 @@ class Decoder(torch.nn.Module):
         sqrt(dim) for gemma (the factor computed in f32, cast to the
         activation dtype) or by granite's multiplier (in the activation
         dtype), then the learned position table at absolute ``positions``
-        (b, s; arange when None), then open-llama's embedding norm, as the
-        JAX decoder's ``embed_inputs``.  The cached forward (``serving.py``)
-        reuses it with the positions offset by the cache fill."""
+        (b, s; arange when None), then the computed sinusoids at positions +
+        ``sinusoidal_offset`` (f32, cast to the activation dtype), then the
+        embedding norm (open-llama's, bloom's, xlm's), as the JAX decoder's
+        ``embed_inputs``.  The cached forward (``serving.py``) reuses it with
+        the positions offset by the cache fill."""
         x = self.embed_tokens(input_ids)
         if self.scale_embeddings:
             x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=torch.float32).to(x.dtype)
         if self.embedding_multiplier is not None:
             x = x * _scalar(self.embedding_multiplier, x.dtype)
+        if positions is None:
+            positions = _positions(*input_ids.shape, 0, input_ids.device)
         if self.pos_embed is not None:
-            if positions is None:
-                positions = _positions(*input_ids.shape, 0, input_ids.device)
             x = x + self.pos_embed(positions)
+        if self.sinusoid is not None:
+            kind, offset = self.sinusoid
+            x = x + sinusoidal_positions(positions + offset, x.shape[-1], kind).to(x.dtype)
         if self.embed_norm is not None:
             x = self.embed_norm(x)
         return x

@@ -90,15 +90,20 @@ def causal_attention_plain(
     v: torch.Tensor,
     sm_scale: float,
     attn_mask: Optional[torch.Tensor] = None,
+    key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """f32 logits masked with the f32 minimum, softmax, probabilities cast
     to q's dtype, then PV (``_reference_causal``).  ``attn_mask`` (b, s),
     zero at padding keys, is the model's einsum path (transformer.py:4118
-    onward) for padded batches."""
+    onward) for padded batches; ``key_bias``, broadcast to (b, h, s, s)
+    (ALiBi's (b, h, 1, s)), is added to the scaled logits before the
+    mask."""
     h, s = q.shape[1], q.shape[2]
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
     logits = logits * sm_scale
+    if key_bias is not None:
+        logits = logits + key_bias
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     if attn_mask is not None:
         mask = mask & attn_mask[:, None, None, :].to(torch.bool)

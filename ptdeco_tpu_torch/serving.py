@@ -11,9 +11,10 @@ Counterpart of the llama-family part of ``ptdeco_tpu/serving.py``:
     each row's cache slot equals its token position, so the pad tail that a
     prefill writes is causally invisible and overwritten as the row decodes.
     ``kv_mask`` (b, max_len) marks the valid key slots of left-padded rows;
-  * the embedding step (learned positions at each row's absolute positions
-    included), the projections (biases and q/k norms included), rope and
-    the output projection are the model's own
+  * the embedding step (learned positions and computed sinusoids at each
+    row's absolute positions included), the projections (biases and q/k
+    norms included), rope and the output projection (BitNet's sub-norm
+    before it) are the model's own
     (``Decoder.embed_inputs``, ``Attention.project_qkv`` /
     ``Attention.finish``), so the cached path cannot drift from the
     uncached forward, for every family ``TransformerConfig`` builds (phi,
@@ -21,9 +22,10 @@ Counterpart of the llama-family part of ``ptdeco_tpu/serving.py``:
   * a prefill from an empty cache (a host ``0`` for ``cache_pos``, no
     ``kv_mask``) launches the flash kernel on the un-repeated GQA k/v, a
     right-padded ragged prefill included (its pad tail is causally later
-    than every real token); decode and per-row steps attend against the
-    cache in plain PyTorch, grouped as ``(kv_heads, rep)`` so the cache is
-    never repeated;
+    than every real token), but for ALiBi layers, which the kernel cannot
+    bias; decode and per-row steps attend against the cache in plain
+    PyTorch, grouped as ``(kv_heads, rep)`` so the cache is never
+    repeated, ALiBi added at each key's cache slot;
   * ``generate`` (eos, ragged prompts, top-k / top-p / min-p, repetition
     penalty), ``generate_beam`` and the batcher (``serving_batcher.py``) are
     Python loops of cached steps (the JAX package's ``lax.scan``); they never
@@ -145,13 +147,14 @@ def _flash_prefill_ok(
 ) -> bool:
     """The gates of the flash-kernel cached prefill, with
     ``CachedAttention.prefill_causal`` (a static zero ``cache_pos``): those
-    of the uncached ``Attention.forward`` (no soft-cap, no window), a
-    multi-token step, and no left-padding mask.  The TPU's ``s % 128`` rule
-    is dropped: the kernel masks its ragged edge."""
+    of the uncached ``Attention.forward`` (no soft-cap, no window, no
+    ALiBi), a multi-token step, and no left-padding mask.  The TPU's ``s %
+    128`` rule is dropped: the kernel masks its ragged edge."""
     return (
         s > 1
         and a.logit_softcap is None
         and a.sliding_window is None
+        and not a.use_alibi
         and kv_mask is None
         and q.is_cuda
         and q.dtype == torch.bfloat16
@@ -205,6 +208,13 @@ class CachedAttention:
             return a.finish(out.reshape(b, s, -1))
         qg = q.reshape(b, s, g, rep, hd).to(torch.float32)
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, self.k_cache.to(torch.float32)) * scale
+        if a.use_alibi:
+            # slope * the absolute cache index (JAX serving.py:302-310): a
+            # key's slot, which equals its position, or differs from it by
+            # a constant of the row that the softmax drops (left padding)
+            slopes = a.alibi_slopes(x.device).reshape(g, rep)
+            key_idx = torch.arange(max_len, device=x.device, dtype=torch.float32)
+            logits = logits + slopes[None, :, :, None, None] * key_idx
         if a.logit_softcap is not None:
             logits = a.logit_softcap * torch.tanh(logits / a.logit_softcap)
         valid = _valid_keys(positions, max_len, self.cache_pos, s, self.kv_mask, a.sliding_window)

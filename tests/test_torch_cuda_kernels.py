@@ -61,7 +61,10 @@ def test_syrk_gram(dev, n, d, dtype):
      # of 128) and StarCoderBase-1B's (16 over one kv head of 128), whole
      # and ragged
      (1, 16, 16, 1024, 256), (2, 16, 16, 257, 256), (1, 32, 32, 1024, 128),
-     (2, 32, 32, 300, 128), (1, 16, 1, 1024, 128), (3, 16, 1, 129, 128)],
+     (2, 32, 32, 300, 128), (1, 16, 1, 1024, 128), (3, 16, 1, 129, 128),
+     # BitNet's 20 query heads over 5 kv heads of 128: the walk's 1 x 1024,
+     # its cached generate's 4 x 128 prefill, and ragged
+     (1, 20, 5, 1024, 128), (4, 20, 5, 128, 128), (2, 20, 5, 301, 128)],
 )
 def test_flash_attention(dev, b, h, h_kv, s, d):
     q = torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16)
@@ -93,6 +96,40 @@ def test_flash_attention_unscaled(dev, b, h, h_kv, s, d):
     # |4| and more, where each side's rounding to bf16 is an ulp of up to
     # 2^-7 |ref|
     torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -6, atol=3e-2)
+
+
+@pytest.mark.parametrize("n_heads,n_kv", [(32, 32), (6, 6), (4, 2)])
+def test_alibi_attention_takes_no_flash(dev, n_heads, n_kv):
+    """A bf16 ALiBi layer on the card (BLOOM's 32 heads of 128, 6 heads, a
+    count that is not a power of two, and MPT's grouped heads) launches no
+    flash kernel, which has no logit bias, and equals its f32 twin on the
+    card within bf16's rounding; the same layer without the bias takes
+    flash and gives other outputs."""
+    import dataclasses
+
+    from ptdeco_tpu_torch import models
+
+    cfg = models.TransformerConfig(
+        vocab_size=64, dim=n_heads * 128, n_layers=1, n_heads=n_heads, n_kv_heads=n_kv,
+        hidden_dim=64, norm_type="layernorm", qkv_bias=True, o_proj_bias=True, use_rope=False,
+        use_alibi=True, dtype=torch.float32)
+    twin = models.transformer.Attention(cfg, dev)
+    layer = models.transformer.Attention(dataclasses.replace(cfg, dtype=torch.bfloat16), dev)
+    layer.load_state_dict(twin.state_dict())
+    x = torch.randn(2, 300, cfg.dim, device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = layer(x.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == 0
+        ref = twin(x)
+        # bf16 inputs, weights, probabilities and output against f32
+        torch.testing.assert_close(out.float(), ref, rtol=0, atol=5e-2 * float(ref.abs().max()))
+        layer.use_alibi = False
+        plain = layer(x.to(torch.bfloat16))
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert float((plain.float() - out.float()).abs().max()) > 0.1 * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("rep", [1, 4, 8])

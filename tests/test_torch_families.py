@@ -114,6 +114,26 @@ REFUSED_BY_BOTH = {
     "helium_gelu": tiny_hf("helium", hidden_act="gelu"),
     "open_llama_relu": tiny_hf("open-llama", hidden_act="relu"),
     "apertus_yarn": tiny_hf("apertus", rope_scaling={"rope_type": "yarn", "factor": 2.0}),
+    # the position- and norm-knob decoders' own refusals
+    "mpt_no_alibi": dict(model_type="mpt", vocab_size=128, d_model=32, n_heads=4, n_layers=2,
+                         attn_config={"alibi": False}),
+    "mpt_qk_ln": dict(model_type="mpt", vocab_size=128, d_model=32, n_heads=4, n_layers=2,
+                      attn_config={"qk_ln": True}),
+    "mpt_six_heads": dict(model_type="mpt", vocab_size=128, d_model=48, n_heads=6, n_layers=2),
+    "mpt_alibi_bias_max": dict(model_type="mpt", vocab_size=128, d_model=32, n_heads=4, n_layers=2,
+                               attn_config={"alibi_bias_max": 16}),
+    "mpt_bias": dict(model_type="mpt", vocab_size=128, d_model=32, n_heads=4, n_layers=2,
+                     no_bias=False),
+    "bloom_residual_post_layernorm": dict(
+        model_type="bloom", vocab_size=128, hidden_size=32, n_layer=2, n_head=4,
+        apply_residual_connection_post_layernorm=True),
+    "cohere2_qk_norm": tiny_hf("cohere2", use_qk_norm=True),
+    "xglm_relu": dict(model_type="xglm", vocab_size=128, d_model=32, num_layers=2,
+                      attention_heads=4, ffn_dim=64, activation_function="relu"),
+    "xlm_bidirectional": dict(model_type="xlm", vocab_size=128, emb_dim=32, n_layers=2, n_heads=4,
+                              causal=False),
+    "xlm_asm": dict(model_type="xlm", vocab_size=128, emb_dim=32, n_layers=2, n_heads=4,
+                    causal=True, asm=True),
 }
 REFUSED_BY_PORT = {
     "olmoe": tiny_hf("olmoe", num_experts=4, num_experts_per_tok=2),
@@ -124,11 +144,10 @@ REFUSED_BY_PORT = {
                            moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
                            qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8,
                            n_group=1, topk_group=1),
-    # beyond-llama types the port does not build yet: bloom's ALiBi,
-    # biogpt's scaled embedding and offset position table
-    "bloom": dict(model_type="bloom", vocab_size=128, hidden_size=32, n_layer=2, n_head=4,
-                  layer_norm_epsilon=1e-5),
-    "biogpt": tiny_hf("biogpt"),
+    # dense types the port does not build yet, each with a mixer of its own:
+    # doge's dynamic-mask key bias, diffllama's differential attention
+    "doge": tiny_hf("doge"),
+    "diffllama": tiny_hf("diffllama"),
 }
 
 

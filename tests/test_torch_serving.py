@@ -572,7 +572,7 @@ def test_flash_prefill_predicate_and_static_zero():
     import types
 
     card_bf16 = types.SimpleNamespace(is_cuda=True, dtype=torch.bfloat16)
-    plain = types.SimpleNamespace(logit_softcap=None, sliding_window=None)
+    plain = types.SimpleNamespace(logit_softcap=None, sliding_window=None, use_alibi=False)
     assert tserving._flash_prefill_ok(plain, 256, 64, card_bf16, None)
     assert tserving._flash_prefill_ok(plain, 100, 128, card_bf16, None)  # the kernel masks its edge
     assert tserving._flash_prefill_ok(plain, 256, 96, card_bf16, None)  # the 128 instance
@@ -583,9 +583,11 @@ def test_flash_prefill_predicate_and_static_zero():
     assert not tserving._flash_prefill_ok(plain, 256, 64, torch.zeros(1, dtype=torch.bfloat16), None)
     assert not tserving._flash_prefill_ok(
         plain, 256, 64, types.SimpleNamespace(is_cuda=True, dtype=torch.float32), None)
-    # Gemma-2's soft-capped and Gemma-3's windowed layers stay plain, as in JAX
-    for layer in (dict(logit_softcap=50.0, sliding_window=None),
-                  dict(logit_softcap=None, sliding_window=512)):
+    # Gemma-2's soft-capped, Gemma-3's windowed and BLOOM's ALiBi layers stay
+    # plain, as in JAX
+    for layer in (dict(logit_softcap=50.0, sliding_window=None, use_alibi=False),
+                  dict(logit_softcap=None, sliding_window=512, use_alibi=False),
+                  dict(logit_softcap=None, sliding_window=None, use_alibi=True)):
         assert not tserving._flash_prefill_ok(types.SimpleNamespace(**layer), 256, 64, card_bf16,
                                               None)
     assert tserving._is_static_zero(0) and tserving._is_static_zero(np.int32(0))
