@@ -104,6 +104,17 @@ weights in the per-head fused query_key_value) and BitNet at
 BitNetConfig()'s defaults (the two sub-norms, flash at 20 query heads
 over 5 kv heads of 128).
 
+Slice 19 runs it on the decoders with a mixer of their own and two text
+paths, at the defaults of transformers' config classes: Doge (dynamic-mask
+attention, whose per-key bias keeps it off flash, and learned residual
+scales), DiffLlama (differential attention, off flash too), Mllama's text
+model (a cross-attention layer skipped in the 2-layer cut) and Moshi's
+temporal transformer (its gating fc1 split on load; MLP 11264); then block
+pruning: slice 1's model with layer 1's attention and layer 0's MLP
+pruned, walked, its pruned weights and artifact round-tripped through the
+trainer's bp_checkpoint_builder directory, served fused, and refused by
+the KV cache.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -125,10 +136,13 @@ round ms, acceptance and the gate's measured ratio), phi2_cli_decompose
 serve against its pairs and its f32 twin), qwen2_1_5b, gemma_2b,
 llama3_2_1b, gemma2_2b, gemma3_1b, phi3_mini, olmo2_1b, glm4_9b, smollm3_3b,
 gpt2_xl, pythia_1_4b, falcon_7b, gptj_6b, opt_6_7b, starcoderbase_1b,
-persimmon_8b, nemotron_hf_default, arcee_hf_default, bloom_7b1 and
-bitnet_hf_default (walk and phase
+persimmon_8b, nemotron_hf_default, arcee_hf_default, bloom_7b1,
+bitnet_hf_default, doge_hf_default, diffllama_hf_default,
+mllama_text_hf_default and moshi_hf_default (walk and phase
 wall and its split, cuts,
-ranks, artifact, fused serve, ``generate``, f32 tokens, reference), dwain_mlp,
+ranks, artifact, fused serve, ``generate``, f32 tokens, reference),
+bp_tinyllama (the pruned walk's sites and launches, the bp directory round
+trip, the fused serve, the cache's refusal), dwain_mlp,
 falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
 lockd_resnet50 (a bf16 step against its f32 twin, ms a step, the trained
 and the planted decomposition, artifact, fused serve),
@@ -150,6 +164,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import json
 import logging
 import math
@@ -470,6 +485,42 @@ BITNET_HF_DEFAULT = dict(
     rms_norm_eps=1e-5, rope_theta=500000.0, attention_bias=False, tie_word_embeddings=False,
     max_position_embeddings=2048,
 )
+# Slice 19: the decoders with a mixer of their own and two text paths, at
+# transformers 4.57.6's config-class defaults (written as numbers):
+# DogeConfig() (8 / 8 heads of 128, MLP 2048, a 2048-token dynamic-mask
+# window, untied; the bias keeps it off flash), DiffLlamaConfig() (32 / 32
+# heads of 64, MLP 8192; plain differential attention, off flash),
+# MllamaTextConfig() (Llama-3.2-11B-Vision's text model: 32 / 8 heads of
+# 128, MLP 14336, 8 cross-attention layers, 8 more embedding rows) and
+# MoshiConfig() (32 / 32 heads of 128, ffn_dim 22528, a gated MLP of 11264,
+# one more embedding row; its 3000-token window is past every input here)
+DOGE_HF_DEFAULT = dict(
+    model_type="doge", vocab_size=32768, hidden_size=1024, intermediate_size=2048,
+    num_hidden_layers=32, num_attention_heads=8, num_key_value_heads=8, hidden_act="silu",
+    rms_norm_eps=1e-6, rope_theta=10000.0, rope_scaling=None, keep_window_size=2048,
+    attention_bias=False, mlp_bias=False, is_moe=False, tie_word_embeddings=False,
+    max_position_embeddings=2048,
+)
+DIFFLLAMA_HF_DEFAULT = dict(
+    model_type="diffllama", vocab_size=32000, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=32, head_dim=64,
+    hidden_act="silu", rms_norm_eps=1e-5, rope_theta=10000.0, rope_scaling=None,
+    attention_bias=False, lambda_std_dev=0.1, tie_word_embeddings=False,
+    max_position_embeddings=2048,
+)
+MLLAMA_TEXT_HF_DEFAULT = dict(
+    model_type="mllama_text_model", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=8, hidden_act="silu",
+    rms_norm_eps=1e-5, rope_theta=500000, rope_scaling=None,
+    cross_attention_layers=[3, 8, 13, 18, 23, 28, 33, 38], tie_word_embeddings=False,
+    max_position_embeddings=131072,
+)
+MOSHI_HF_DEFAULT = dict(
+    model_type="moshi", vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=32, head_dim=128, ffn_dim=22528,
+    hidden_act="silu", rms_norm_eps=1e-8, rope_theta=10000.0, sliding_window=3000,
+    tie_word_embeddings=False, max_position_embeddings=3000,
+)
 FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b": GEMMA2_2B,
                   "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI, "olmo2_1b": OLMO2_1B,
                   "glm4_9b": GLM4_9B, "smollm3_3b": SMOLLM3_3B, "gpt2_xl": GPT2_XL,
@@ -477,14 +528,25 @@ FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b":
                   "opt_6_7b": OPT_6_7B, "starcoderbase_1b": STARCODERBASE_1B,
                   "persimmon_8b": PERSIMMON_8B, "nemotron_hf_default": NEMOTRON_HF_DEFAULT,
                   "arcee_hf_default": ARCEE_HF_DEFAULT, "bloom_7b1": BLOOM_7B1,
-                  "bitnet_hf_default": BITNET_HF_DEFAULT}
+                  "bitnet_hf_default": BITNET_HF_DEFAULT, "doge_hf_default": DOGE_HF_DEFAULT,
+                  "diffllama_hf_default": DIFFLLAMA_HF_DEFAULT,
+                  "mllama_text_hf_default": MLLAMA_TEXT_HF_DEFAULT,
+                  "moshi_hf_default": MOSHI_HF_DEFAULT}
 # the first published layer each cut keeps (0 where not named): gemma3's
-# 5th and 6th (sliding, full), smollm3's 3rd and 4th (rope, NoPE)
-FAMILY_FIRST_LAYER = {"gemma3_1b": 4, "smollm3_3b": 2}
+# 5th and 6th (sliding, full), smollm3's 3rd and 4th (rope, NoPE), mllama's
+# 3rd and 4th (self-attention, cross-attention: skipped)
+FAMILY_FIRST_LAYER = {"gemma3_1b": 4, "smollm3_3b": 2, "mllama_text_hf_default": 2}
 # the families whose attention takes flash in the JAX package: Gemma-2's
-# soft-capped attention and BLOOM's ALiBi are plain there (the kernel has no
-# logit bias), so flash must launch 0 times
-FAMILY_NO_FLASH = ("gemma2_2b", "bloom_7b1")
+# soft-capped attention, BLOOM's ALiBi and Doge's dynamic-mask bias are
+# plain there (the kernel has no logit bias), and DiffLlama's differential
+# attention has no flash path, so flash must launch 0 times
+FAMILY_NO_FLASH = ("gemma2_2b", "bloom_7b1", "doge_hf_default", "diffllama_hf_default")
+# Doge's planted dynamic-mask parameter A and residual scales, DiffLlama's
+# lambda vectors: each drawn off its neutral value (A 0, scales 1, lambda
+# pairs equal) by these standard deviations, so that each binds: A *
+# softplus(dt) spans about one logit over the keys, and lq . lk (64 terms)
+# moves lambda by about 0.6
+DOGE_A_STD, DOGE_RESIDUAL_STD, DIFF_LAMBDA_STD = 0.5, 0.2, 0.3
 # gemma3's cached generate prompt, past its 512-token window
 GEMMA3_PROMPT = 640
 FAMILY_LAYERS = 2
@@ -549,6 +611,17 @@ FAMILY_GATES = {
     # 5.9e-3
     "bloom_7b1": {"serve": (0.5, 1.25e-2), "reference": (0.4, 1.3e-2)},
     "bitnet_hf_default": {"serve": (0.09375, 1.5e-2), "reference": (0.09, 1.5e-2)},
+    # slice 19, the larger reading of seeds 0 and 1: Doge 0.031 / 2.9e-3 and
+    # 0.029 / 5.3e-3; DiffLlama 0.055 / 7.7e-3 and 0.061 / 1.02e-2 (its
+    # RMS group-norm rescales each paired head's difference, which carries
+    # the bf16 error of two probability-weighted sums); Mllama 0.031 /
+    # 1.8e-3 and 0.027 / 3.3e-3; Moshi 0.031 / 2.2e-3 and 0.029 / 4.1e-3.
+    # With Doge's bias set to ones on the card its reference read 0.543 /
+    # 0.0454, with DiffLlama's lambda at lambda_init 1.757 / 0.278
+    "doge_hf_default": {"serve": (0.09375, 9e-3), "reference": (0.075, 1.25e-2)},
+    "diffllama_hf_default": {"serve": (0.125, 2e-2), "reference": (0.15, 2.5e-2)},
+    "mllama_text_hf_default": {"serve": (0.09375, 6e-3), "reference": (0.06, 1e-2)},
+    "moshi_hf_default": {"serve": (0.09375, 6e-3), "reference": (0.075, 1.1e-2)},
 }
 
 # Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
@@ -832,9 +905,11 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # and 8192 are above); slice 17's: Nemotron's MLP (24576, a 2.42 GB f32
     # Gram, the largest) and width (6144), Arcee's MLP (18432) and width
     # (2560; Persimmon's 4096 and 16384 are above); slice 18's: BitNet's MLP
-    # (6912; BLOOM-7B1's 4096 and 16384 are above)
+    # (6912; BLOOM-7B1's 4096 and 16384 are above); slice 19's: Moshi's
+    # gated MLP (11264) and Mllama's (14336; Doge's 1024 and 2048 and
+    # DiffLlama's 2048 and 8192 are above or too narrow to matter)
     for d in (5632, 2048, 10240, 16384, 9216, 13696, 1600, 4544, 6400, 8192, 18176, 4096,
-              24576, 6144, 18432, 2560, 6912):
+              24576, 6144, 18432, 2560, 6912, 11264, 14336):
         y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
         recs["syrk_gram"].append(check_kernel(
             "syrk_gram",
@@ -892,6 +967,12 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # layers never take flash)
     flash_check(dev, g, recs, 1, SEQ, h=20, h_kv=5, hd=128)
     flash_check(dev, g, recs, 4, FAMILY_PROMPT_LENS[0], h=20, h_kv=5, hd=128)
+    # slice 19: Mllama's text model's 32 query heads over 8 kv heads of 128
+    # at the walk's 1 x 1024 and its cached generate's 4 x 128 prefill
+    # (Moshi's 32 / 32 of 128 are OPT-6.7B's; Doge's and DiffLlama's
+    # attention never takes flash)
+    flash_check(dev, g, recs, 1, SEQ, h=32, h_kv=8, hd=128)
+    flash_check(dev, g, recs, 4, FAMILY_PROMPT_LENS[0], h=32, h_kv=8, hd=128)
 
     # the served pairs' shapes first (bias-free; every site is accepted at
     # rank 32 with this configuration's thresholds: gate/up, then down),
@@ -948,7 +1029,11 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
               (SEQ, 2560, 20, 6912, False), (SEQ, 6912, 20, 2560, False),
               (SEQ, 2560, 20, 640, False), (SEQ, 2560, 80, 640, False),
               (SEQ, 2560, 40, 640, False), (SEQ, 2560, 80, 2560, False),
-              (SEQ, 4096, 256, 16384, True), (SEQ, 16384, 128, 4096, True))
+              (SEQ, 4096, 256, 16384, True), (SEQ, 16384, 128, 4096, True),
+              # slice 19's MLP pairs: Moshi's (4096 <-> 11264) and Mllama's
+              # (4096 <-> 14336), unbiased
+              (SEQ, 4096, 32, 11264, False), (SEQ, 11264, 32, 4096, False),
+              (SEQ, 4096, 32, 14336, False), (SEQ, 14336, 32, 4096, False))
     for n, d_in, r, d_out, with_bias in shapes:
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
@@ -1171,7 +1256,10 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev) -> dict:
     identity (zeros for gemma's and Nemotron's (1 + w) norms, none for
     OLMo's norms without an affine; BLOOM's embedding norm and BitNet's
     sub-norms too), a LayerNorm's offset (Persimmon's q/k LayerNorms' too)
-    0.1-scale noise; a tied embedding has RMS 1 /
+    0.1-scale noise; Doge's ``dt_proj`` a unit-gain normal, its A and
+    residual scales and DiffLlama's lambdas off their neutral values
+    (``DOGE_A_STD``, ...); mllama's skipped layers have none; a tied
+    embedding has RMS 1 /
     sqrt(dim), so the tied head's logits have RMS 1 (and gemma's
     sqrt(dim)-scaled embeddings RMS 1), and GPT-2's position table the same
     RMS as its tied embedding."""
@@ -1197,6 +1285,8 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev) -> dict:
         sd["model.pos_embed.weight"] = draws.normal(cfg.learned_pos, cfg.dim) / math.sqrt(cfg.dim)
     for i in range(cfg.n_layers):
         p = f"model.layers.{i}."
+        if i < len(cfg.layer_types) and cfg.layer_types[i] == "skip":
+            continue  # mllama's cross-attention layer: a SkipBlock
         sd[p + "self_attn.q_proj.weight"] = planted(cfg.n_heads * hd, cfg.dim)
         sd[p + "self_attn.k_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
         sd[p + "self_attn.v_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
@@ -1232,6 +1322,18 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev) -> dict:
         if cfg.sub_norms:
             sd[p + "self_attn.attn_sub_norm.weight"] = draws.full(cfg.n_heads * hd, 1.0)
             sd[p + "mlp.ffn_sub_norm.weight"] = draws.full(cfg.hidden_dim, 1.0)
+        if cfg.dyn_mask_keep_window is not None:
+            sd[p + "self_attn.dt_proj.weight"] = draws.normal(
+                cfg.n_kv_heads, cfg.n_kv_heads * hd) / math.sqrt(cfg.n_kv_heads * hd)
+            if cfg.qkv_bias:
+                sd[p + "self_attn.dt_proj.bias"] = bias(cfg.n_kv_heads)
+            sd[p + "self_attn.dyn_mask_A"] = DOGE_A_STD * draws.normal(cfg.n_kv_heads)
+        if cfg.residual_scales:
+            for name in ("input_residual", "post_attention_residual"):
+                sd[p + name] = 1.0 + DOGE_RESIDUAL_STD * draws.normal(cfg.dim)
+        if cfg.diff_attention:
+            for name in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
+                sd[p + f"self_attn.{name}"] = DIFF_LAMBDA_STD * draws.normal(hd)
     if cfg.embed_norm:
         norm("model.embed_norm")
     if cfg.final_norm:
@@ -1291,8 +1393,9 @@ class Routing(contextlib.ContextDecorator):
         self.calls, self.near_ties, self.routed = [], 0, 0
 
     def __enter__(self):
+        # (a SkipBlock has no MLP)
         self.moes = [(i, layer.mlp) for i, layer in enumerate(self.model.model.layers)
-                     if isinstance(layer.mlp, models.transformer.MoEMLP)]
+                     if isinstance(getattr(layer, "mlp", None), models.transformer.MoEMLP)]
         for i, moe in self.moes:
             moe._routing = self._wrap(i, moe)
         return self
@@ -3056,6 +3159,32 @@ def bloom_layout(sd: dict[str, torch.Tensor], n_heads: int) -> dict[str, torch.T
 
 # the families whose planted weights are written in their checkpoint layout
 # and translated back by the loader, as a snapshot's would be
+def moshi_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Moshi's: the attention projections nested in ``.linear``, gate and up
+    fused into the gating ``mlp.fc1`` ([gate | up]), down as ``mlp.fc2``."""
+    out = {}
+    for k, v in sd.items():
+        if ".mlp.up_proj." in k:
+            continue
+        if ".mlp.gate_proj." in k:
+            k, v = k.replace("gate_proj", "fc1"), torch.cat([v, sd[k.replace("gate", "up")]])
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            k = k.replace(f".self_attn.{proj}.", f".self_attn.{proj}.linear.")
+        out[k.replace(".mlp.down_proj.", ".mlp.fc2.")] = v
+    return out
+
+
+def mllama_layout(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A full mllama checkpoint's: the text model under
+    ``model.language_model.``, with a vision tower and projector and the
+    cross-attention layer's (layer 1 of the cut) own weights, which the
+    translator drops."""
+    out = {k.replace("model.", "model.language_model.", 1): v for k, v in sd.items()}
+    small = torch.ones(8, 8, device=sd["model.embed_tokens.weight"].device)
+    return {**out, "model.language_model.layers.1.cross_attn.q_proj.weight": small,
+            "vision_model.patch_embedding.weight": small, "multi_modal_projector.weight": small}
+
+
 FAMILY_LAYOUTS = {"phi3_mini": lambda sd: fused_layout(sd, qkv=True), "glm4_9b": glm4_layout,
                   "gpt2_xl": gpt2_layout,
                   "pythia_1_4b": lambda sd: gpt_neox_layout(sd, PYTHIA_1_4B["num_attention_heads"]),
@@ -3063,7 +3192,20 @@ FAMILY_LAYOUTS = {"phi3_mini": lambda sd: fused_layout(sd, qkv=True), "glm4_9b":
                   "starcoderbase_1b": gpt_bigcode_layout,
                   "persimmon_8b": lambda sd: persimmon_layout(
                       sd, PERSIMMON_8B["num_attention_heads"]),
-                  "bloom_7b1": lambda sd: bloom_layout(sd, BLOOM_7B1["n_head"])}
+                  "bloom_7b1": lambda sd: bloom_layout(sd, BLOOM_7B1["n_head"]),
+                  "doge_hf_default": lambda sd: renamed(sd, ((".dyn_mask_A", ".A"),)),
+                  "moshi_hf_default": moshi_layout, "mllama_text_hf_default": mllama_layout}
+
+
+def family_cut_hf(name: str) -> dict:
+    """The family's config.json cut as ``family_2_layer`` cuts it, for its
+    translator: mllama's cross-attention layers renumbered into the cut."""
+    hf = FAMILY_CONFIGS[name]
+    if "cross_attention_layers" not in hf:
+        return hf
+    lo = FAMILY_FIRST_LAYER.get(name, 0)
+    return dict(hf, num_hidden_layers=FAMILY_LAYERS, cross_attention_layers=[
+        i - lo for i in hf["cross_attention_layers"] if lo <= i < lo + FAMILY_LAYERS])
 
 
 def family_weights(cfg: models.TransformerConfig, name: str, seed: int,
@@ -3075,11 +3217,27 @@ def family_weights(cfg: models.TransformerConfig, name: str, seed: int,
     sd = planted_rank_weights(cfg, seed, dev)
     if name not in FAMILY_LAYOUTS:
         return sd
-    back = hf_loader.translator_for(FAMILY_CONFIGS[name])(FAMILY_LAYOUTS[name](sd))
+    back = hf_loader.translator_for(family_cut_hf(name))(FAMILY_LAYOUTS[name](sd))
     if back.keys() != sd.keys() or any(
             back[k] is not sd[k] and not torch.equal(back[k], sd[k]) for k in sd):
         raise AssertionError(f"{name}: the translated checkpoint layout is not the weights")
     return back
+
+
+def skip_layers_checked(model, config: dict, cfg: models.TransformerConfig, name: str) -> list:
+    """The cut's skipped layers (mllama's cross-attention layer): each holds
+    no site, no decompose_config entry, no state-dict key and no cache
+    entry."""
+    skipped = [i for i, t in enumerate(cfg.layer_types) if t == "skip"]
+    caches = serving.init_cache(model, 1, 8)
+    for i in skipped:
+        prefix = f"model.layers.{i}."
+        held = ([n for n in engine.get_decomposeable_submodule_names(model) if n.startswith(prefix)]
+                + [k for k in config if k.startswith(prefix)]
+                + [k for k in model.state_dict() if k.startswith(prefix)])
+        if held or caches[i] is not None:
+            raise AssertionError(f"{name}: skipped layer {i} holds {held} or a cache entry")
+    return skipped
 
 
 def flash_as_jax(counts: dict[str, int], name: str, what: str) -> None:
@@ -3133,6 +3291,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     if not config:
         raise AssertionError(f"{name}: no site decomposed")
     artifact = artifact_round_trip(model, config, cfg, probe, dev, f"{name}_artifact")
+    skipped = skip_layers_checked(model, config, cfg, name)
     lap("artifact")
 
     with torch.no_grad():
@@ -3176,6 +3335,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
           "param_fraction": utils.get_num_params(model) / params_before,
           "ranks": {k: v["modules"]["0"]["out_features"] for k, v in config.items()},
           "artifact": artifact, "serve": serve, "fused_ms": fused_ms,
+          **({"skipped_layers": skipped} if skipped else {}),
           "cuts": {"layers": [full_layers, cfg.n_layers], "layer_types": cfg.layer_types,
                    "rope_layers": cfg.rope_layers,
                    "weights": f"planted rank {PLANTED_RANK}, seed {seed}", "dtype": "bf16"},
@@ -3317,6 +3477,131 @@ def phi2_cli_decompose(dev, seed: int, root: pathlib.Path, data: pathlib.Path) -
           "fused_vs_f32": vs_f32, "walk_launches": walk, "serve_launches": serve_counts,
           "nvidia_smi": nvidia_smi()})
     return {"phi2_cli_decompose": walk, "phi2_serve": serve_counts}
+
+
+# Block pruning on slice 1's model: layer 1's attention and layer 0's MLP
+BP_ATTN, BP_MLP = [1], [0]
+BP_BUILDER = "ptdeco_tpu_torch/apps/trainer_llm/examples_builder/bp_checkpoint_builder.py"
+
+
+def bp_checkpoint_builder():
+    """The trainer's block-pruned checkpoint builder, loaded from its file as
+    the trainer loads a custom builder."""
+    path = pathlib.Path(__file__).resolve().parent / BP_BUILDER
+    spec = importlib.util.spec_from_file_location("bp_checkpoint_builder", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bp_tinyllama(dev, seed: int, root: pathlib.Path, snap: pathlib.Path) -> dict[str, dict]:
+    """Block pruning on slice 1's model (the trainer phases' snapshot, built
+    through the trainer's builder): ``models.prune_blocks`` of layer 1's
+    attention and layer 0's MLP; the pruned weights written as a
+    bp_checkpoint_builder directory (bp_config.json +
+    state_dict.safetensors) and rebuilt through that builder bit-equal;
+    ``dwain.decompose`` on the rebuilt model (SYRK and flash launched for
+    the surviving sites only, no site in a pruned sublayer); the artifact
+    reloaded bit-equal into the builder's pruned model; the fused serve
+    against its pairs and against the model in f32 on the CPU; and the KV
+    cache refusing the pruned attention, as the JAX package does."""
+    t_phase = time.perf_counter()
+    split = {}
+
+    def lap(part: str) -> None:
+        torch.cuda.synchronize()
+        split[part] = time.perf_counter() - t_phase - sum(split.values())
+
+    original, _ = trainer_builder.make_model_and_tokenizer(
+        model_name=str(snap), dtype="bfloat16", checkpoint_path=str(snap), device=dev)
+    n_sites_before = len(engine.get_decomposeable_submodule_names(original, ["lm_head"]))
+    pruned = models.prune_blocks(original, attn_indices=BP_ATTN, mlp_indices=BP_MLP)
+    bp_dir = root / "bp_checkpoint"
+    bp_dir.mkdir()
+    (bp_dir / "bp_config.json").write_text(
+        json.dumps({"attn_indices": BP_ATTN, "mlp_indices": BP_MLP}))
+    utils.save_state_dict_safetensors(utils.state_dict(pruned),
+                                      str(bp_dir / "state_dict.safetensors"))
+    builder = bp_checkpoint_builder()
+    model, _ = builder.make_model_and_tokenizer(
+        {"bp_model_path": str(bp_dir), "hf_checkpoint_path": str(snap), "seed": seed})
+    model = model.to(dev)
+    vocab = model.model.embed_tokens.weight.shape[0]
+    probe = utils.to_device(next(token_batches(vocab, seed + 3)), dev)
+    with torch.no_grad():
+        rebuilt = logits_agree(model(probe), pruned(probe), 0.0, 0.0, "bp_tinyllama_rebuilt")
+    del original, pruned
+    torch.cuda.empty_cache()
+    sites = engine.get_decomposeable_submodule_names(model, ["lm_head"])
+    pruned_prefixes = tuple([f"model.layers.{i}.self_attn." for i in BP_ATTN]
+                            + [f"model.layers.{i}.mlp." for i in BP_MLP])
+    if any(n.startswith(pruned_prefixes) for n in sites):
+        raise AssertionError(f"bp_tinyllama: a pruned sublayer holds a site: {sites}")
+    lap("build")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, config = dwain.decompose(
+        module=model, data_iterator=token_batches(vocab, seed + 1),
+        metric_iterator=token_batches(vocab, seed + 2), loss_fn=models.ce_loss, device=dev,
+        **DECOMPOSE_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    walk = ops.launch_counts()
+    require_launches(walk, ("syrk_gram", "flash_attention"), "bp_tinyllama decompose")
+    if not config:
+        raise AssertionError("bp_tinyllama: no site decomposed")
+    lap("walk")
+
+    art = root / "bp_artifact"
+    art.mkdir()
+    (art / "decompose_config.json").write_text(json.dumps(config))
+    utils.save_state_dict_pt(utils.state_dict(model), str(art / "decompose_state_dict.pt"))
+    fresh, _ = builder.make_model_and_tokenizer(
+        {"bp_model_path": str(bp_dir), "hf_checkpoint_path": str(snap), "seed": seed,
+         "bp_load_state_dict": False})
+    fresh = trainer_builder.apply_decompose_config_and_state_dict(
+        fresh.to(dev), str(art / "decompose_config.json"), str(art / "decompose_state_dict.pt"))
+    with torch.no_grad():
+        y_pairs = model(probe)
+        artifact = logits_agree(fresh(probe), y_pairs, 0.0, 0.0, "bp_tinyllama_artifact")
+    del fresh
+    lap("artifact")
+
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        pnn.fuse_factor_pairs(model)
+        y_fused = model(probe)
+    torch.cuda.synchronize()
+    serve_counts = ops.launch_counts()
+    require_launches(serve_counts, ("lowrank_matmul", "flash_attention"), "bp_tinyllama serve")
+    serve = logits_agree(y_fused, y_pairs, FUSED_MAX_ABS, FUSED_RMS_REL, "bp_tinyllama_serve")
+    del y_pairs, y_fused
+    try:
+        serving.generate(model, probe["input_ids"][:, :16], 2)
+    except ValueError as e:
+        if "PrunedSublayer" not in str(e):
+            raise
+        refused = str(e)
+    else:
+        raise AssertionError("bp_tinyllama: the KV cache took a pruned attention")
+    lap("serve")
+
+    short = {"input_ids": probe["input_ids"][:, :128]}
+    with torch.no_grad():
+        y_card = model(short).float().cpu()
+        y_cpu = model.to("cpu", torch.float32)(utils.to_device(short, "cpu"))
+    ref = logits_agree(y_card, y_cpu, REF_MAX_ABS, REF_RMS_REL, "bp_tinyllama_reference")
+    lap("reference")
+    emit({"phase": "bp_tinyllama", "pruned": {"attn": BP_ATTN, "mlp": BP_MLP},
+          "sites": [n_sites_before, len(sites)], "decomposed": len(config), "wall_s": wall,
+          "ranks": {k: v["modules"]["0"]["out_features"] for k, v in config.items()},
+          "rebuilt": rebuilt, "artifact": artifact, "serve": serve, "reference": ref,
+          "cache_refusal": refused, "walk_launches": walk, "serve_launches": serve_counts,
+          "split_s": split, "phase_wall_s": time.perf_counter() - t_phase})
+    del model
+    torch.cuda.empty_cache()
+    return {"bp_tinyllama_decompose": walk, "bp_tinyllama_serve": serve_counts}
 
 
 class CardPipeline:
@@ -3945,6 +4230,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         # --- slice 10: phi-2 through the CLI, on the same prose ----------
         phi_counts = phi2_cli_decompose(dev, args.seed, pathlib.Path(tmp), data)
+        # --- slice 19: block pruning on the CLI's snapshot ----------------
+        bp_counts = bp_tinyllama(dev, args.seed, pathlib.Path(tmp), snap)
     torch.cuda.empty_cache()
     family_counts = {}
     for name in ("qwen2_1_5b", *FAMILY_CONFIGS):
@@ -3965,7 +4252,7 @@ def main() -> None:
                "decompose_ft": ft_counts, "decompose_ft_lora": lora_counts,
                "trainer_llm_decompose": cli_counts, "trainer_llm_finetune": cli_ft_counts,
                "trainer_llm_generate": cli_gen_counts, "serving_paths": paths_counts,
-               **phi_counts, **family_counts,
+               **phi_counts, **bp_counts, **family_counts,
                "dwain_mlp": mlp_counts, **resnet_counts, **vision_counts,
                **moe_serve(dev, args.seed)}
     emit({"phase": "kernels", "launches": by_path})

@@ -25,7 +25,10 @@ GPT-NeoX-Japanese's o_proj biases zero-filled but the last layer's), MPT's
 ``Wqkv`` cut in [q | k | v], VaultGemma's, Apertus's (its xIELU scalars
 too), HunYuan's, open-llama's, XGLM's, BioGPT's (its two offset rows
 dropped), CTRL's and XLM's names are renamed (the last two's head biases
-onto ``tied_head_bias``).  A translator takes numpy arrays or tensors.
+onto ``tied_head_bias``); doge's ``A`` is renamed, moshi's ``.linear``
+nesting unwrapped and its fused ``fc1`` split, and mllama's wrapper
+prefixes stripped with its vision tower and cross-attention layers
+dropped; diffllama keeps llama's names.  A translator takes numpy arrays or tensors.
 Shards are read from ``*.safetensors`` where that package is importable,
 else from ``pytorch_model*.bin`` with ``torch.load``.
 """
@@ -75,6 +78,9 @@ __all__ = [
     "translate_ctrl_state_dict",
     "translate_xlm_state_dict",
     "make_gpt_neox_japanese_translator",
+    "translate_doge_state_dict",
+    "translate_moshi_state_dict",
+    "make_mllama_translator",
     "translator_for",
 ]
 
@@ -751,12 +757,65 @@ def make_gpt_neox_japanese_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
     return translate
 
 
+def translate_doge_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """Doge's layout: the dynamic-mask parameter ``self_attn.A`` ->
+    ``self_attn.dyn_mask_A``; ``dt_proj``, the q/k norms and the residual
+    scales keep HF's names."""
+    return {(k[: -len(".self_attn.A")] + ".self_attn.dyn_mask_A"
+             if k.endswith(".self_attn.A") else k): v for k, v in sd.items()}
+
+
+def translate_moshi_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """Moshi's temporal transformer: the attention projections' ``.linear``
+    nesting unwrapped, the fused gating ``mlp.fc1`` split in halves into
+    [gate | up], ``mlp.fc2`` -> ``down_proj``; a full checkpoint's depth
+    decoder and audio encoder dropped."""
+    out: dict[str, Any] = {}
+    for k, v in sd.items():
+        if k.startswith(("depth_decoder.", "audio_encoder.")):
+            continue
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            k = k.replace(f".self_attn.{proj}.linear.", f".self_attn.{proj}.")
+        if ".mlp.fc1." in k:
+            stem, leaf = k.split(".mlp.fc1.")
+            half = v.shape[0] // 2
+            out[f"{stem}.mlp.gate_proj.{leaf}"] = v[:half]
+            out[f"{stem}.mlp.up_proj.{leaf}"] = v[half:]
+            continue
+        out[k.replace(".mlp.fc2.", ".mlp.down_proj.")] = v
+    return out
+
+
+def make_mllama_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
+    """Mllama's text path (a full mllama snapshot or its text model):
+    ``model.language_model.`` -> ``model.`` and a leading
+    ``language_model.`` stripped, the vision tower and projector dropped,
+    and every weight of a cross-attention layer dropped (those layers are
+    ``SkipBlock``s, which keep the numbering)."""
+    inner = dict(hf_cfg.get("text_config") or hf_cfg)
+    cross = {int(i) for i in inner.get("cross_attention_layers") or ()}
+
+    def translate(sd: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in sd.items():
+            if k.startswith(("vision_model.", "multi_modal_projector.")):
+                continue
+            k = k.replace("model.language_model.", "model.").removeprefix("language_model.")
+            parts = k.split(".")
+            if len(parts) > 2 and parts[:2] == ["model", "layers"] and int(parts[2]) in cross:
+                continue
+            out[k] = v
+        return out
+
+    return translate
+
+
 # model types whose HF names are the port model's own
 _SAME_NAMES = (
     "llama", "code_llama", "mistral", "ministral", "qwen2", "qwen3", "gemma", "gemma2",
     "gemma3_text", "olmo2", "olmo3", "smollm3", "phi", "stablelm", "granite", "cohere", "emu3",
     "emu3_text_model", "olmo", "nemotron", "ernie4_5", "arcee", "seed_oss", "exaone4", "helium",
-    "cohere2", "bitnet",
+    "cohere2", "bitnet", "diffllama",
 )
 
 
@@ -778,6 +837,8 @@ _TRANSLATORS = {
     "mpt": make_mpt_translator, "xglm": translate_xglm_state_dict,
     "biogpt": translate_biogpt_state_dict, "ctrl": translate_ctrl_state_dict,
     "xlm": translate_xlm_state_dict, "gpt_neox_japanese": make_gpt_neox_japanese_translator,
+    "doge": translate_doge_state_dict, "moshi": translate_moshi_state_dict,
+    "mllama": make_mllama_translator, "mllama_text_model": make_mllama_translator,
     "got_ocr2": make_multimodal_text_translator, "mixtral": translate_mixtral_state_dict,
     "phi3": _phi3_translator, "gemma3": make_multimodal_text_translator,
 }
@@ -785,7 +846,7 @@ _MADE_FROM_CONFIG = (_phi3_translator, make_gpt_neox_translator, make_falcon_tra
                      make_codegen_translator, make_gpt_bigcode_translator,
                      make_persimmon_translator, make_multimodal_text_translator,
                      make_bloom_translator, make_mpt_translator,
-                     make_gpt_neox_japanese_translator)
+                     make_gpt_neox_japanese_translator, make_mllama_translator)
 
 
 def translator_for(hf_cfg: dict[str, Any]) -> Optional[KeyTranslator]:

@@ -66,9 +66,13 @@ __all__ = [
     "RMSNorm",
     "LayerNorm",
     "Attention",
+    "DiffAttention",
     "MLP",
     "MoEMLP",
     "Block",
+    "SkipBlock",
+    "PrunedSublayer",
+    "prune_blocks",
     "Decoder",
     "CausalLM",
     "ce_loss",
@@ -80,9 +84,9 @@ logger = logging.getLogger(__name__)
 
 
 # the HF model types ``TransformerConfig.from_hf_config`` builds (gemma3,
-# got_ocr2, emu3 and fuyu are multimodal wrappers, whose text paths are
-# gemma3_text, qwen2, emu3_text_model (the llama graph over multimodal
-# tokens) and persimmon; code_llama and gpt-sw3 are llama's and gpt2's
+# got_ocr2, emu3, fuyu and mllama are multimodal wrappers, whose text paths
+# are gemma3_text, qwen2, emu3_text_model (the llama graph over multimodal
+# tokens), persimmon and mllama_text_model; code_llama and gpt-sw3 are llama's and gpt2's
 # graphs under other names, ``_ALIASES``; the types from gpt2 on build
 # through their own constructors, ``_BEYOND_LLAMA``)
 HF_FAMILIES = (
@@ -94,10 +98,11 @@ HF_FAMILIES = (
     "olmo", "nemotron", "persimmon", "fuyu", "ernie4_5", "arcee", "seed_oss", "exaone4",
     "vaultgemma", "apertus", "hunyuan_v1_dense", "helium", "open-llama",
     "cohere2", "gpt_neox_japanese", "biogpt", "xlm", "bitnet", "xglm", "ctrl", "bloom", "mpt",
+    "doge", "diffllama", "mllama", "mllama_text_model", "moshi",
 )
 # the text path's model type of each multimodal wrapper
 WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2", "emu3": "emu3_text_model",
-                      "fuyu": "persimmon"}
+                      "fuyu": "persimmon", "mllama": "mllama_text_model"}
 # model types that HF maps onto another type's config and model classes
 _ALIASES = {"code_llama": "llama", "gpt-sw3": "gpt2"}
 
@@ -212,6 +217,17 @@ class TransformerConfig:
     sinusoidal_pos: bool = False
     sinusoidal_offset: int = 2
     sinusoidal_kind: str = "fairseq"  # | "t2t"
+    # diffllama: differential attention (``DiffAttention``): one softmax
+    # over all heads, the two halves' value-weighted outputs subtracted with
+    # a learned, layer-indexed lambda over paired 2 * head_dim values
+    diff_attention: bool = False
+    # doge: the per-kv-head additive key bias exp(A * softplus(dt_proj(v)))
+    # on the scaled f32 logits, exact for sequences up to keep_window_size
+    # (its top-k masking beyond the window is refused)
+    dyn_mask_keep_window: Optional[int] = None
+    # doge: learned per-channel vectors scaling the residual term of each
+    # add (``Block.input_residual`` / ``post_attention_residual``)
+    residual_scales: bool = False
     dtype: torch.dtype = torch.float32
     # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
     # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
@@ -241,8 +257,9 @@ class TransformerConfig:
         gpt_bigcode, opt, openai-gpt, imagegpt, olmo, nemotron, persimmon
         (or the fuyu wrapper), ernie4_5, arcee, seed_oss, exaone4,
         vaultgemma, apertus, hunyuan_v1_dense, helium, open-llama, cohere2,
-        gpt_neox_japanese, biogpt, xlm, bitnet, xglm, ctrl, bloom or mpt
-        one through that family's own constructor, as the JAX package's
+        gpt_neox_japanese, biogpt, xlm, bitnet, xglm, ctrl, bloom, mpt, doge,
+        diffllama, mllama_text_model (or the mllama wrapper) or moshi one
+        through that family's own constructor, as the JAX package's
         ``beyond_llama`` table does.
         Raises ValueError on
         anything these families do not express here (rope types other than
@@ -1208,11 +1225,101 @@ def _hf_mpt(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
         tie_embeddings=True, remat=remat, dtype=dtype,
     )
 
+def _hf_doge(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Doge: the llama graph with per-head q/k RMSNorms, dynamic-mask
+    attention (the per-kv-head key bias exp(A * softplus(dt_proj(v))),
+    exact up to ``keep_window_size`` tokens) and learned residual scales;
+    tied unless told otherwise.  The CDMoE variant (``is_moe``) and rope
+    scalings other than the default are refused, as in the JAX package."""
+    if hf.get("is_moe"):
+        raise ValueError("doge CDMoE (is_moe=True) is not implemented, as in the JAX package")
+    rs = hf.get("rope_scaling")
+    if rs is not None and rs.get("rope_type", rs.get("type")) not in (None, "default"):
+        raise ValueError(f"doge rope_scaling {rs!r} is not implemented, as in the JAX package")
+    bias = bool(hf.get("attention_bias", False))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-6)),
+        head_dim_override=_explicit_head_dim(hf), qk_norm=True,
+        dyn_mask_keep_window=int(hf.get("keep_window_size", 2048)), residual_scales=True,
+        mlp_act=_hf_act(hf.get("hidden_act", "silu")), mlp_bias=bool(hf.get("mlp_bias", False)),
+        qkv_bias=bias, o_proj_bias=bias, tie_embeddings=bool(hf.get("tie_word_embeddings", True)),
+    )
+
+
+def _hf_diffllama(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """DiffLlama: the llama graph with differential attention
+    (``DiffAttention``); ``attention_bias`` biases all four projections.
+    An odd head count and ``rope_scaling`` are refused, as in the JAX
+    package."""
+    if hf.get("rope_scaling") is not None:
+        raise ValueError("diffllama rope_scaling is not implemented, as in the JAX package")
+    if int(hf["num_attention_heads"]) % 2:
+        raise ValueError("differential attention needs an even head count, as in the JAX package")
+    bias = bool(hf.get("attention_bias", False))
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        head_dim_override=_explicit_head_dim(hf), diff_attention=True,
+        mlp_act=_hf_act(hf.get("hidden_act", "silu")), qkv_bias=bias, o_proj_bias=bias,
+    )
+
+
+def _hf_mllama(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Mllama's text path (Llama-3.2-Vision): the llama graph (GQA, llama3
+    rope scaling, untied head) whose ``cross_attention_layers`` are
+    ``SkipBlock``s, as HF's text model skips them when no vision states
+    exist, so the layers keep HF's numbering; the embedding holds 8 more
+    rows than the head has outputs.  Activations other than silu and rope
+    types other than llama3 are refused, as in the JAX package."""
+    _silu_only(hf, "mllama")
+    cross = {int(i) for i in hf.get("cross_attention_layers") or ()}
+    rs = hf.get("rope_scaling")
+    rtype = None if rs is None else rs.get("rope_type", rs.get("type"))
+    if rtype not in (None, "default", "llama3"):
+        raise ValueError(f"mllama rope_type {rtype!r} is not implemented, as in the JAX package")
+    n_layers = int(hf["num_hidden_layers"])
+    return _llama_lineage(
+        hf, dtype, remat, norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        rope_theta=float(hf.get("rope_theta", 500000.0)),
+        rope_llama3_scaling=_llama3_scaling(rs) if rtype == "llama3" else None,
+        layer_types=tuple("skip" if i in cross else "full_attention" for i in range(n_layers)),
+        embed_vocab_size=int(hf["vocab_size"]) + 8,
+    )
+
+
+def _hf_moshi(hf: dict, dtype: torch.dtype, remat: bool) -> TransformerConfig:
+    """Moshi's temporal transformer (MoshiForCausalLM): the llama graph with
+    its fused gating ``fc1`` split into [gate | up] on load (so the MLP is
+    ``ffn_dim // 2`` wide), one more embedding row than the head has
+    outputs and rms eps 1e-8.  Its always-on sliding window is logged and
+    not applied: full causal attention, exact within it, as in the JAX
+    package.  Only silu is built."""
+    _silu_only(hf, "moshi")
+    dim, n_heads = int(hf["hidden_size"]), int(hf["num_attention_heads"])
+    if hf.get("sliding_window"):
+        logger.info(
+            "moshi sliding_window=%s: full causal attention is used; keep sequences within the "
+            "window for exactness", hf["sliding_window"],
+        )
+    head_dim = hf.get("head_dim")
+    return TransformerConfig(
+        vocab_size=int(hf["vocab_size"]), dim=dim, n_layers=int(hf["num_hidden_layers"]),
+        n_heads=n_heads, n_kv_heads=int(hf.get("num_key_value_heads") or n_heads),
+        hidden_dim=int(hf["ffn_dim"]) // 2,
+        head_dim_override=(
+            int(head_dim) if head_dim and int(head_dim) != dim // n_heads else None
+        ),
+        norm_eps=float(hf.get("rms_norm_eps", 1e-8)),
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        embed_vocab_size=int(hf["vocab_size"]) + 1,
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)), remat=remat, dtype=dtype,
+    )
+
 
 # the beyond-llama model types' constructors (JAX transformer.py:361-443:
 # the seven of its list of supported families, the GPT lineage, the llama
-# lineage with knobs of its own, then the dense decoders with a position or
-# norm knob of their own)
+# lineage with knobs of its own, the dense decoders with a position or norm
+# knob of their own, then those with a mixer of their own and the mllama
+# and moshi text paths)
 _BEYOND_LLAMA = {
     "gpt2": _hf_gpt2, "gpt_neox": _hf_gpt_neox, "falcon": _hf_falcon,
     "starcoder2": _hf_starcoder2, "stablelm": _hf_stablelm, "granite": _hf_granite,
@@ -1225,6 +1332,8 @@ _BEYOND_LLAMA = {
     "open-llama": _hf_open_llama, "cohere2": _hf_cohere2,
     "gpt_neox_japanese": _hf_gpt_neox_japanese, "biogpt": _hf_biogpt, "xlm": _hf_xlm,
     "bitnet": _hf_bitnet, "xglm": _hf_xglm, "ctrl": _hf_ctrl, "bloom": _hf_bloom, "mpt": _hf_mpt,
+    "doge": _hf_doge, "diffllama": _hf_diffllama, "mllama_text_model": _hf_mllama,
+    "moshi": _hf_moshi,
 }
 
 
@@ -1532,6 +1641,32 @@ class Attention(torch.nn.Module):
         self.attn_sub_norm = (
             RMSNorm(cfg.n_heads * hd, cfg.norm_eps, cfg.dtype, device) if cfg.sub_norms else None
         )
+        # doge: the dynamic-mask key bias's parameter (zeros, as HF and JAX
+        # initialise it) and its projection of the merged kv-head values
+        self.dyn_mask_keep_window = cfg.dyn_mask_keep_window
+        doge = cfg.dyn_mask_keep_window is not None
+        self.dyn_mask_A = (
+            torch.nn.Parameter(torch.zeros(cfg.n_kv_heads, **kw)) if doge else None
+        )
+        self.dt_proj = (
+            torch.nn.Linear(cfg.n_kv_heads * hd, cfg.n_kv_heads, bias=cfg.qkv_bias, **kw)
+            if doge else None
+        )
+
+    @property
+    def has_key_bias(self) -> bool:
+        """ALiBi or doge's key bias: the flash kernel has no logit bias, so
+        such a layer takes the plain paths (JAX transformer.py:4094-4096)."""
+        return self.use_alibi or self.dt_proj is not None
+
+    def dyn_mask_bias(self, v: torch.Tensor) -> torch.Tensor:
+        """Doge's additive key bias exp(A * softplus(dt_proj(v))) in f32,
+        (b, s, kv_heads), from the un-repeated values v (b, s, kv_heads,
+        hd): a key's bias depends on its own value only, so the cached
+        attention keeps it beside k and v."""
+        b, s = v.shape[:2]
+        dt = self.dt_proj(v.reshape(b, s, -1))
+        return torch.exp(self.dyn_mask_A.to(torch.float32) * F.softplus(dt.to(torch.float32)))
 
     def scale(self, hd: int) -> float:
         """The softmax scale at head dim ``hd``."""
@@ -1603,15 +1738,116 @@ class Attention(torch.nn.Module):
             * positions.to(torch.float32)[:, None, None, :]
             if self.use_alibi else None
         )
+        if self.dt_proj is not None:
+            # doge: each kv head's bias repeated over its group, in the
+            # order of JAX's jnp.repeat (transformer.py:4062-4078, :4121)
+            if self.dyn_mask_keep_window is not None and s > self.dyn_mask_keep_window:
+                raise ValueError(
+                    f"doge top-k dynamic masking (seqlen {s} > keep_window_size "
+                    f"{self.dyn_mask_keep_window}) is not implemented; keep calibration seqlen "
+                    "within the window"
+                )
+            bias = self.dyn_mask_bias(v.transpose(1, 2)).transpose(1, 2)  # (b, kv_heads, s)
+            key_bias = torch.repeat_interleave(bias, self.n_heads // self.n_kv_heads, dim=1)[
+                :, :, None, :]
         if self.logit_softcap is not None or self.sliding_window is not None:
             out = _capped_windowed_attention(
                 q, k, v, scale, attn_mask, self.logit_softcap, self.sliding_window, key_bias
             )
-        elif key_bias is None and _use_flash_kernel(q, attn_mask):
+        elif not self.has_key_bias and _use_flash_kernel(q, attn_mask):
             out = flash_attention(q, k, v, scale)
         else:
             out = causal_attention_plain(q, k, v, scale, attn_mask, key_bias)
         return self.finish(out.transpose(1, 2).reshape(b, s, -1))
+
+
+class DiffAttention(torch.nn.Module):
+    """DiffLlama's differential attention of layer ``layer_idx`` (the JAX
+    package's ``DiffAttention``, transformer.py:4273-4385): llama rope, one
+    f32 softmax over all heads, the values paired feature-wise to 2 *
+    head_dim after the group repeat; the first half of the heads' outputs
+    minus lambda times the second half's, lambda = exp(lq1 . lk1) - exp(lq2
+    . lk2) + lambda_init with lambda_init = 0.8 - 0.6 exp(-0.3 layer_idx),
+    then an RMS norm with no affine over each 2 * head_dim group, scaled by
+    1 - lambda_init, before o_proj.  The casts are JAX's: the
+    probabilities are cast to the activation dtype before the value
+    products, lambda is computed in f32 and cast, the norm runs in f32."""
+
+    def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
+        super().__init__()
+        hd = cfg.head_dim
+        kw = {"dtype": cfg.dtype, "device": device}
+        self.q_proj = torch.nn.Linear(cfg.dim, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.k_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.v_proj = torch.nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.o_proj = torch.nn.Linear(cfg.n_heads * hd, cfg.dim, bias=cfg.o_proj_bias, **kw)
+        # HF's lambda_std_dev 0.1 normals, drawn by ``init_weights``
+        for name in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
+            setattr(self, name, torch.nn.Parameter(torch.zeros(hd, **kw)))
+        self.n_heads = cfg.n_heads
+        self.n_kv_heads = cfg.n_kv_heads
+        self.head_dim = hd
+        self.rope_theta = cfg.rope_theta
+        self.lambda_init = 0.8 - 0.6 * math.exp(-0.3 * layer_idx)
+        self.norm_eps = cfg.norm_eps
+
+    def project_qkv(
+        self, x: torch.Tensor, positions: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q (b, s, heads, hd) and k, v (b, s, kv_heads, hd), q and k rotated
+        at ``positions``; the cached form (``serving.py``) reuses it."""
+        b, s, _ = x.shape
+        q = self.q_proj(x)
+        hd = q.shape[-1] // self.n_heads
+        k = self.k_proj(x).reshape(b, s, self.n_kv_heads, hd)
+        v = self.v_proj(x).reshape(b, s, self.n_kv_heads, hd)
+        q = q.reshape(b, s, self.n_heads, hd)
+        return _rope(q, positions, self.rope_theta), _rope(k, positions, self.rope_theta), v
+
+    def lam(self, dtype: torch.dtype) -> torch.Tensor:
+        """lambda, computed in f32 and cast to ``dtype``."""
+        f32 = torch.float32
+        lam1 = torch.exp(torch.sum(self.lambda_q1.to(f32) * self.lambda_k1.to(f32)))
+        lam2 = torch.exp(torch.sum(self.lambda_q2.to(f32) * self.lambda_k2.to(f32)))
+        return (lam1 - lam2 + self.lambda_init).to(dtype)
+
+    def attend(
+        self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor
+    ) -> torch.Tensor:
+        """The merged (b, s, heads * hd) output before o_proj of q (b, s,
+        heads, hd) against k, v (b, t, kv_heads, hd), where ``valid`` (b or 1,
+        s, t) marks the keys each query sees."""
+        b, s, _, hd = q.shape
+        dtype = q.dtype
+        rep = self.n_heads // self.n_kv_heads
+        if rep > 1:
+            k, v = (torch.repeat_interleave(t, rep, dim=2) for t in (k, v))
+        half = self.n_heads // 2
+        vp = torch.cat([v[:, :, :half], v[:, :, half:]], dim=-1).to(torch.float32)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32))
+        logits = logits * hd ** -0.5
+        logits = logits.masked_fill(~valid[:, None], torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, dim=-1).to(dtype).to(torch.float32)
+        o1 = torch.einsum("bhqk,bkhd->bqhd", probs[:, :half], vp).to(dtype)
+        o2 = torch.einsum("bhqk,bkhd->bqhd", probs[:, half:], vp).to(dtype)
+        of = (o1 - self.lam(dtype) * o2).to(torch.float32)
+        rms = torch.rsqrt(torch.mean(torch.square(of), dim=-1, keepdim=True) + self.norm_eps)
+        return ((of * rms) * (1.0 - self.lambda_init)).to(dtype).reshape(b, s, -1)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        b, s, _ = x.shape
+        if positions is None:
+            positions = _positions(b, s, 0, x.device)
+        q, k, v = self.project_qkv(x, positions)
+        valid = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()[None]
+        if attn_mask is not None:
+            valid = valid & attn_mask[:, None, :].to(torch.bool)
+        return self.o_proj(self.attend(q, k, v, valid))
 
 
 def _qk_norm(cfg: TransformerConfig, width: int, device: Any) -> torch.nn.Module:
@@ -1629,8 +1865,8 @@ def _use_flash_kernel(q: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> boo
     with no padding mask and a head_dim the kernel is built for (64, 96, 128
     or 256) takes the flash kernel (which reads the grouped k/v heads
     itself); everything else, an all-ones mask included, takes the einsum
-    path.  ``Attention.forward`` also sends a soft-capped, windowed or
-    ALiBi layer to the einsum path, as the JAX gate does (the kernel has
+    path.  ``Attention.forward`` also sends a soft-capped, windowed, ALiBi
+    or doge layer to the einsum path, as the JAX gate does (the kernel has
     no logit bias)."""
     return (
         q.is_cuda
@@ -1914,13 +2150,17 @@ class Block(torch.nn.Module):
     x's dtype (:5647-5650); with ``post_ln`` (GPT-1) attention reads the
     raw stream and each norm follows its residual add, h =
     ``input_layernorm``(x + attn(x)), then ``post_attention_layernorm``(h +
-    mlp(h)) (:5610-5613).  Norms are RMSNorm or LayerNorm by
+    mlp(h)) (:5610-5613); with ``residual_scales`` (doge) h =
+    ``input_residual`` * x + attn, then ``post_attention_residual`` * h +
+    mlp(norm(h)) (:5651-5655).  ``diff_attention`` (diffllama) makes the
+    mixer a ``DiffAttention``.  Norms are RMSNorm or LayerNorm by
     ``norm_type``."""
 
     def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
         super().__init__()
         self.input_layernorm = None if cfg.post_norm_only else _block_norm(cfg, device)
-        self.self_attn = Attention(cfg, device, layer_idx)
+        self.self_attn = (DiffAttention if cfg.diff_attention else Attention)(
+            cfg, device, layer_idx)
         self.post_attention_layernorm = (
             None if cfg.parallel_residual == "one_norm" else _block_norm(cfg, device)
         )
@@ -1934,6 +2174,10 @@ class Block(torch.nn.Module):
         self.parallel_residual = cfg.parallel_residual
         self.residual_multiplier = cfg.residual_multiplier
         self.post_ln = cfg.post_ln
+        # doge: ones-initialised vectors scaling each add's residual term
+        ones = (lambda: torch.nn.Parameter(torch.ones(cfg.dim, dtype=cfg.dtype, device=device)))
+        self.input_residual = ones() if cfg.residual_scales else None
+        self.post_attention_residual = ones() if cfg.residual_scales else None
 
     def forward(
         self,
@@ -1963,8 +2207,52 @@ class Block(torch.nn.Module):
             mult = _scalar(self.residual_multiplier, x.dtype)
             h = x + mult * attn_out
             return h + mult * self.mlp(self.post_attention_layernorm(h))
+        if self.input_residual is not None:  # doge
+            h = self.input_residual * x + attn_out
+            return self.post_attention_residual * h + self.mlp(self.post_attention_layernorm(h))
         h = x + attn_out
         return h + self.mlp(self.post_attention_layernorm(h))
+
+
+class SkipBlock(torch.nn.Module):
+    """Identity stand-in for a whole layer the causal LM never runs (the JAX
+    package's ``SkipBlock``): mllama's cross-attention layers, which HF's
+    text model skips when no vision states exist.  It keeps HF's layer
+    numbering, holds no parameter and no site, and has no cache entry."""
+
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None, self_attn: Any = None) -> torch.Tensor:
+        return x
+
+
+class PrunedSublayer(torch.nn.Module):
+    """Zero-output stand-in for a block-pruned attention or MLP sublayer (the
+    JAX package's ``PrunedSublayer``): with the residual add the block
+    passes its input through.  It holds no parameter and no site."""
+
+    def forward(self, x: torch.Tensor, *args: Any, **kwargs: Any) -> torch.Tensor:
+        return torch.zeros_like(x)
+
+
+def prune_blocks(model: "CausalLM", attn_indices: list[int], mlp_indices: list[int]) -> "CausalLM":
+    """Block pruning: the attention sublayer of each block in
+    ``attn_indices`` and the MLP of each in ``mlp_indices`` become
+    ``PrunedSublayer``s, in place; returns the model (the JAX package's
+    ``prune_blocks`` returns a new one).  Decomposition then walks the
+    surviving sublayers only.  Every index is checked before any change."""
+    layers = model.model.layers
+    n = len(layers)
+    for idx in list(attn_indices) + list(mlp_indices):
+        if not 0 <= idx < n:
+            raise ValueError(f"block index {idx} out of range [0, {n})")
+        if not isinstance(layers[idx], Block):
+            raise ValueError(f"block {idx} is a {type(layers[idx]).__name__}, which has no "
+                             "sublayers to prune")
+    for idx in attn_indices:
+        layers[idx].self_attn = PrunedSublayer()
+    for idx in mlp_indices:
+        layers[idx].mlp = PrunedSublayer()
+    return model
 
 
 class Decoder(torch.nn.Module):
@@ -1975,7 +2263,12 @@ class Decoder(torch.nn.Module):
         self.embed_tokens = torch.nn.Embedding(
             cfg.embed_vocab_size or cfg.vocab_size, cfg.dim, dtype=cfg.dtype, device=device
         )
-        self.layers = torch.nn.ModuleList(Block(cfg, device, i) for i in range(cfg.n_layers))
+        # mllama's cross-attention layers ("skip") are identities
+        self.layers = torch.nn.ModuleList(
+            SkipBlock() if i < len(cfg.layer_types) and cfg.layer_types[i] == "skip"
+            else Block(cfg, device, i)
+            for i in range(cfg.n_layers)
+        )
         # GPT-1 has no final norm (and no ``model.norm`` keys, as in JAX)
         self.norm = _block_norm(cfg, device) if cfg.final_norm else torch.nn.Identity()
         # gpt2's learned absolute positions (HF wpe)
@@ -2068,7 +2361,8 @@ def _checkpointed(layer: Block, x: torch.Tensor, attn_mask: Optional[torch.Tenso
 def init_weights(root: torch.nn.Module, gen: Optional[torch.Generator], device: Any) -> None:
     """The JAX package's initial distributions, drawn from ``gen`` (a fresh
     generator on ``device`` seeded 0 when None): Linear weights and biases
-    uniform in +-1/sqrt(in_features), embeddings normal with std 0.02."""
+    uniform in +-1/sqrt(in_features), embeddings normal with std 0.02,
+    diffllama's lambda vectors normal with std 0.1."""
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
     for m in root.modules():
@@ -2079,6 +2373,9 @@ def init_weights(root: torch.nn.Module, gen: Optional[torch.Generator], device: 
                 m.bias.uniform_(-bound, bound, generator=gen)
         elif isinstance(m, torch.nn.Embedding):
             m.weight.normal_(0.0, 0.02, generator=gen)
+        elif isinstance(m, DiffAttention):
+            for p in (m.lambda_q1, m.lambda_k1, m.lambda_q2, m.lambda_k2):
+                p.normal_(0.0, 0.1, generator=gen)
 
 
 class CausalLM(torch.nn.Module):

@@ -37,9 +37,16 @@ Counterpart of the llama-family part of ``ptdeco_tpu/serving.py``:
     analytic ``estimate_speculative_speedup``) times the loops the port
     runs, each timed window ending in ``torch.cuda.synchronize``.
 
-Not ported: the cached mixers of the other model families (MLA, state-space,
-differential and mixture-of-attention layers, which the port does not have),
-serving on a device mesh, and capturing the decode step in a CUDA graph.
+  * doge's layers cache their keys' f32 bias beside k and v, diffllama's
+    differential attention has a cached form of its own
+    (``CachedDiffAttention``), and mllama's skipped layers have no entry:
+    ``layer_cache_tensors`` is the one place that reads an entry's layout.
+    Neither doge nor diffllama takes flash, as in the JAX package; a
+    block-pruned attention is refused, as there.
+
+Not ported: the cached mixers of the other model families (MLA, state-space
+and mixture-of-attention layers, which the port does not have), serving on a
+device mesh, and capturing the decode step in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -51,11 +58,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .models.transformer import Attention, Block, CausalLM, _positions
+from .models.transformer import Attention, Block, CausalLM, DiffAttention, SkipBlock, _positions
 from .ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
 __all__ = [
     "KVCache",
+    "layer_cache_tensors",
+    "map_caches",
     "init_cache",
     "check_decode_supported",
     "forward_with_cache",
@@ -70,8 +79,34 @@ __all__ = [
 
 logger = logging.getLogger(__name__)
 
-# per layer: (k_cache, v_cache), each (b, max_len, n_kv_heads, head_dim)
+# per layer: (k_cache, v_cache), each (b, max_len, n_kv_heads, head_dim);
+# doge's layers add their keys' f32 bias (b, max_len, n_kv_heads) as a third
+# tensor; a SkipBlock's entry is None
 KVCache = tuple
+
+
+def layer_cache_tensors(entry: Any, idx: int) -> tuple:
+    """The tensors of one layer's cache entry: () for a SkipBlock's None,
+    else its (k, v) or doge's (k, v, key bias).  Every copy or reorder of
+    the caches (beams, the batcher's slots) goes through this, so a layout
+    the port does not wire is refused here, not mis-indexed."""
+    if entry is None:
+        return ()
+    if (isinstance(entry, tuple) and len(entry) in (2, 3)
+            and all(isinstance(t, torch.Tensor) for t in entry)):
+        return entry
+    raise ValueError(
+        f"layer {idx}'s cache entry is not (k, v), doge's (k, v, key bias) or None: the port "
+        "wires no other cache layout (ROADMAP.md)"
+    )
+
+
+def map_caches(caches: KVCache, fn: Any) -> KVCache:
+    """``caches`` with ``fn`` applied to every tensor, None entries kept."""
+    return tuple(
+        None if entry is None else tuple(fn(t) for t in layer_cache_tensors(entry, i))
+        for i, entry in enumerate(caches)
+    )
 
 
 def _valid_keys(
@@ -147,14 +182,16 @@ def _flash_prefill_ok(
 ) -> bool:
     """The gates of the flash-kernel cached prefill, with
     ``CachedAttention.prefill_causal`` (a static zero ``cache_pos``): those
-    of the uncached ``Attention.forward`` (no soft-cap, no window, no
-    ALiBi), a multi-token step, and no left-padding mask.  The TPU's ``s %
-    128`` rule is dropped: the kernel masks its ragged edge."""
+    of the uncached ``Attention.forward`` (no soft-cap, no window, no ALiBi
+    and no doge key bias, JAX serving.py:270-271), a multi-token step, and
+    no left-padding mask.  The TPU's ``s % 128`` rule is dropped: the
+    kernel masks its ragged edge."""
     return (
         s > 1
         and a.logit_softcap is None
         and a.sliding_window is None
         and not a.use_alibi
+        and getattr(a, "dt_proj", None) is None
         and kv_mask is None
         and q.is_cuda
         and q.dtype == torch.bfloat16
@@ -166,7 +203,9 @@ class CachedAttention:
     """Stands in for a block's ``Attention`` for one cached step: writes the
     step's k/v into the cache at ``cache_pos`` (int or per-row (b,)) and
     attends against it.  ``prefill_causal`` says the cache was empty before
-    this step (the caller's ``cache_pos`` was a static zero)."""
+    this step (the caller's ``cache_pos`` was a static zero).  A doge layer
+    writes its new keys' bias into ``dyn_cache`` (b, max_len, kv_heads) and
+    adds it per kv head (JAX serving.py:250-256, :298-301)."""
 
     def __init__(
         self,
@@ -176,6 +215,7 @@ class CachedAttention:
         cache_pos: Any,
         kv_mask: Optional[torch.Tensor] = None,
         prefill_causal: bool = False,
+        dyn_cache: Optional[torch.Tensor] = None,
     ) -> None:
         self.inner = inner
         self.k_cache = k_cache
@@ -183,6 +223,7 @@ class CachedAttention:
         self.cache_pos = cache_pos
         self.kv_mask = kv_mask
         self.prefill_causal = prefill_causal
+        self.dyn_cache = dyn_cache
 
     def __call__(
         self, x: torch.Tensor, attn_mask: Optional[torch.Tensor], positions: torch.Tensor
@@ -196,6 +237,8 @@ class CachedAttention:
         hd = q.shape[-1]
         _cache_write(self.k_cache, k_new, self.cache_pos)
         _cache_write(self.v_cache, v_new, self.cache_pos)
+        if self.dyn_cache is not None:
+            _cache_write(self.dyn_cache, a.dyn_mask_bias(v_new), self.cache_pos)
         g = a.n_kv_heads
         rep = a.n_heads // g
         scale = a.scale(hd)
@@ -208,6 +251,8 @@ class CachedAttention:
             return a.finish(out.reshape(b, s, -1))
         qg = q.reshape(b, s, g, rep, hd).to(torch.float32)
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, self.k_cache.to(torch.float32)) * scale
+        if self.dyn_cache is not None:  # doge: each key's bias, per kv head
+            logits = logits + self.dyn_cache.transpose(1, 2)[:, :, None, None, :]
         if a.use_alibi:
             # slope * the absolute cache index (JAX serving.py:302-310): a
             # key's slot, which equals its position, or differs from it by
@@ -226,42 +271,108 @@ class CachedAttention:
         return a.finish(out.reshape(b, s, -1))
 
 
+class CachedDiffAttention:
+    """Stands in for a block's ``DiffAttention`` for one cached step (JAX
+    serving.py:494-571): writes the step's k/v into the cache at
+    ``cache_pos`` and runs the differential attention against the cache,
+    the causal mask replaced by the absolute-slot validity mask.  It never
+    takes flash, as in the JAX package."""
+
+    def __init__(
+        self,
+        inner: DiffAttention,
+        k_cache: torch.Tensor,
+        v_cache: torch.Tensor,
+        cache_pos: Any,
+        kv_mask: Optional[torch.Tensor] = None,
+    ) -> None:
+        self.inner = inner
+        self.k_cache = k_cache
+        self.v_cache = v_cache
+        self.cache_pos = cache_pos
+        self.kv_mask = kv_mask
+
+    def __call__(
+        self, x: torch.Tensor, attn_mask: Optional[torch.Tensor], positions: torch.Tensor
+    ) -> torch.Tensor:
+        a = self.inner
+        s = x.shape[1]
+        q, k_new, v_new = a.project_qkv(x, positions)
+        _cache_write(self.k_cache, k_new, self.cache_pos)
+        _cache_write(self.v_cache, v_new, self.cache_pos)
+        valid = _valid_keys(positions, self.k_cache.shape[1], self.cache_pos, s, self.kv_mask)
+        return a.o_proj(a.attend(q, self.k_cache, self.v_cache, valid))
+
+
 def _model_layers(lm: CausalLM) -> Any:
     return lm.model.layers
+
+
+def _layer_attention(layer: Any, idx: int) -> Optional[Any]:
+    """The layer's cached mixer (``Attention`` or ``DiffAttention``), or None
+    for a ``SkipBlock``, which has no cache entry (JAX serving.py:644-689).
+    Raises for anything else, a ``PrunedSublayer`` attention included, as
+    the JAX package does."""
+    if isinstance(layer, SkipBlock):
+        return None
+    if not isinstance(layer, Block):
+        raise ValueError(
+            f"KV-cache decoding supports Block layer stacks; layer {idx} is "
+            f"{type(layer).__name__}"
+        )
+    if not isinstance(layer.self_attn, (Attention, DiffAttention)):
+        raise ValueError(
+            f"KV-cache decoding supports Attention and DiffAttention; layer {idx} uses "
+            f"{type(layer.self_attn).__name__} (its state caching is not implemented, as in the "
+            "JAX package; ROADMAP.md)"
+        )
+    return layer.self_attn
 
 
 def check_decode_supported(lm: CausalLM) -> None:
     """Raise with a clear message if ``lm``'s graph cannot be KV-cached."""
     for i, layer in enumerate(_model_layers(lm)):
-        if not isinstance(layer, Block):
-            raise ValueError(
-                f"KV-cache decoding supports Block layer stacks; layer {i} is "
-                f"{type(layer).__name__}"
-            )
-        if not isinstance(layer.self_attn, Attention):
-            raise ValueError(
-                f"KV-cache decoding supports Attention; layer {i} uses "
-                f"{type(layer.self_attn).__name__} (its state caching is not implemented)"
-            )
+        _layer_attention(layer, i)
 
 
 def init_cache(
     lm: CausalLM, batch_size: int, max_len: int, dtype: Optional[torch.dtype] = None
 ) -> KVCache:
     """Zero-filled per-layer KV cache on the model's device, in ``dtype``
-    (the embedding's when None)."""
-    check_decode_supported(lm)
+    (the embedding's when None); doge's key-bias tensor is f32, and a cache
+    longer than its ``keep_window_size`` is refused (JAX
+    serving.py:861-870)."""
     emb = lm.model.embed_tokens.weight
     dtype = emb.dtype if dtype is None else dtype
     caches = []
-    for layer in _model_layers(lm):
-        a = layer.self_attn
+    for i, layer in enumerate(_model_layers(lm)):
+        a = _layer_attention(layer, i)
+        if a is None:
+            caches.append(None)
+            continue
         shape = (batch_size, max_len, a.n_kv_heads, a.head_dim)
-        caches.append(
-            (torch.zeros(shape, dtype=dtype, device=emb.device),
-             torch.zeros(shape, dtype=dtype, device=emb.device))
-        )
+        entry = (torch.zeros(shape, dtype=dtype, device=emb.device),
+                 torch.zeros(shape, dtype=dtype, device=emb.device))
+        if getattr(a, "dt_proj", None) is not None:
+            win = a.dyn_mask_keep_window
+            if win is not None and max_len > win:
+                raise ValueError(
+                    f"doge top-k dynamic masking beyond keep_window_size ({win}) is not "
+                    f"implemented; cache length {max_len} exceeds it"
+                )
+            entry += (torch.zeros(shape[:3], dtype=torch.float32, device=emb.device),)
+        caches.append(entry)
     return tuple(caches)
+
+
+def _cached_mixer(mixer: Any, entry: tuple, cache_pos: Any, kv_mask: Optional[torch.Tensor],
+                  prefill_causal: bool) -> Any:
+    """The cached stand-in of a layer's mixer over its cache entry."""
+    if isinstance(mixer, DiffAttention):
+        return CachedDiffAttention(mixer, *entry, cache_pos, kv_mask=kv_mask)
+    k_cache, v_cache, *dyn = entry
+    return CachedAttention(mixer, k_cache, v_cache, cache_pos, kv_mask=kv_mask,
+                           prefill_causal=prefill_causal, dyn_cache=dyn[0] if dyn else None)
 
 
 @torch.no_grad()
@@ -284,12 +395,16 @@ def forward_with_cache(
     prefill0 = _is_static_zero(cache_pos)
     positions = _positions(b, s, cache_pos, input_ids.device)
     x = lm.model.embed_inputs(input_ids, positions)
-    for layer, (k_cache, v_cache) in zip(_model_layers(lm), caches):
-        cached = CachedAttention(
-            layer.self_attn, k_cache, v_cache, cache_pos, kv_mask=kv_mask,
-            prefill_causal=prefill0,
-        )
-        x = layer(x, positions=positions, self_attn=cached)
+    for i, (layer, entry) in enumerate(zip(_model_layers(lm), caches)):
+        mixer = _layer_attention(layer, i)
+        want = 0 if mixer is None else 3 if getattr(mixer, "dt_proj", None) is not None else 2
+        tensors = layer_cache_tensors(entry, i)
+        if len(tensors) != want:
+            raise ValueError(f"layer {i}'s cache entry does not fit its mixer (see init_cache)")
+        if mixer is None:  # a SkipBlock
+            continue
+        x = layer(x, positions=positions,
+                  self_attn=_cached_mixer(mixer, tensors, cache_pos, kv_mask, prefill0))
     if last_pos is not None:
         idx = torch.as_tensor(last_pos, device=x.device).to(torch.int64)
         x = torch.gather(x, 1, idx[:, None, None].expand(b, 1, x.shape[-1]))
@@ -502,7 +617,7 @@ def _beam_impl(
     scores, tok = torch.topk(torch.log_softmax(last.to(torch.float32), dim=-1), m, dim=-1)
     # fan the prefilled caches out over beams, row-major (row i's beams at
     # rows i*m .. i*m+m-1)
-    caches = tuple(tuple(c.repeat_interleave(m, dim=0) for c in layer) for layer in caches)
+    caches = map_caches(caches, lambda c: c.repeat_interleave(m, dim=0))
     done = tok == eos_id if eos_id is not None else torch.zeros_like(tok, dtype=torch.bool)
     hist = torch.zeros((b, m, max_new_tokens), dtype=torch.int64, device=dev)
     hist[:, :, 0] = tok
@@ -523,8 +638,8 @@ def _beam_impl(
         # reorder every beam-indexed carry to the surviving parents: a
         # gather of the batch axis into the cache tensors
         src = (row * m + beam).reshape(-1)
-        for layer in caches:
-            for c in layer:
+        for i, entry in enumerate(caches):
+            for c in layer_cache_tensors(entry, i):
                 c.copy_(c.index_select(0, src))
         hist = hist[row, beam]
         hist[:, :, t] = tok

@@ -37,7 +37,15 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .serving import KVCache, _sample, check_decode_supported, forward_with_cache, init_cache
+from .serving import (
+    KVCache,
+    _sample,
+    check_decode_supported,
+    forward_with_cache,
+    init_cache,
+    layer_cache_tensors,
+    map_caches,
+)
 
 __all__ = ["ContinuousBatcher", "FinishedRequest"]
 
@@ -80,15 +88,12 @@ def _prefill_impl(
     real position, and copy the new cache rows into pool rows ``slots``
     (g,).  Only the first ``bucket`` slots of a pool row are written; its
     tail keeps stale values, which the per-row position mask hides."""
-    fresh = tuple(
-        tuple(torch.zeros((rows.shape[0], bucket) + c.shape[2:], dtype=c.dtype, device=c.device)
-              for c in layer)
-        for layer in caches
-    )
+    fresh = map_caches(caches, lambda c: torch.zeros(
+        (rows.shape[0], bucket) + c.shape[2:], dtype=c.dtype, device=c.device))
     logits, fresh = forward_with_cache(lm, rows, fresh, 0, last_pos=lens - 1)
     toks = _sample(logits[:, 0], greedy, temperature, generator, top_p, top_k, min_p)
-    for pool_layer, new_layer in zip(caches, fresh):
-        for pool, new in zip(pool_layer, new_layer):
+    for i, (pool_layer, new_layer) in enumerate(zip(caches, fresh)):
+        for pool, new in zip(layer_cache_tensors(pool_layer, i), layer_cache_tensors(new_layer, i)):
             pool[slots, :bucket] = new
     return toks
 

@@ -33,7 +33,9 @@ def dev():
     + [(1024, 4096)]
     # rows split over blocks (TMA and cp.async panels, a ragged last split),
     # and one block a tile summing several 4096-row chunks
-    + [(5000, 512), (5000, 600), (70000, 130), (9000, 2048)],
+    + [(5000, 512), (5000, 600), (70000, 130), (9000, 2048)]
+    # Moshi's gated MLP (11264) and Mllama's (14336)
+    + [(1024, 11264), (1024, 14336)],
 )
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_syrk_gram(dev, n, d, dtype):
@@ -64,7 +66,10 @@ def test_syrk_gram(dev, n, d, dtype):
      (2, 32, 32, 300, 128), (1, 16, 1, 1024, 128), (3, 16, 1, 129, 128),
      # BitNet's 20 query heads over 5 kv heads of 128: the walk's 1 x 1024,
      # its cached generate's 4 x 128 prefill, and ragged
-     (1, 20, 5, 1024, 128), (4, 20, 5, 128, 128), (2, 20, 5, 301, 128)],
+     (1, 20, 5, 1024, 128), (4, 20, 5, 128, 128), (2, 20, 5, 301, 128),
+     # Mllama's text model's 32 query heads over 8 kv heads of 128: the walk's
+     # 1 x 1024, its cached generate's 4 x 128 prefill, and ragged
+     (1, 32, 8, 1024, 128), (4, 32, 8, 128, 128), (2, 32, 8, 301, 128)],
 )
 def test_flash_attention(dev, b, h, h_kv, s, d):
     q = torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16)
@@ -130,6 +135,47 @@ def test_alibi_attention_takes_no_flash(dev, n_heads, n_kv):
         torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == 1
     assert float((plain.float() - out.float()).abs().max()) > 0.1 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["doge", "diffllama"])
+def test_mixer_layers_take_no_flash(dev, kind):
+    """A bf16 one-layer doge model (its dynamic-mask key bias) and a
+    diffllama one (differential attention) on the card launch no flash
+    kernel, in the forward or in a cached prefill from an empty cache, and
+    equal their f32 twins on the card within bf16's rounding; the doge
+    layer without its bias takes flash and gives other logits."""
+    import dataclasses
+
+    from ptdeco_tpu_torch import models, serving
+
+    knobs = (dict(dyn_mask_keep_window=2048, residual_scales=True, qk_norm=True, n_kv_heads=4)
+             if kind == "doge" else dict(diff_attention=True, n_kv_heads=8))
+    cfg = models.TransformerConfig(vocab_size=64, dim=1024, n_layers=1, n_heads=8,
+                                   hidden_dim=256, dtype=torch.float32, **knobs)
+    twin = models.CausalLM(cfg, dev)
+    if kind == "doge":  # A off zeros (a constant bias the softmax drops)
+        with torch.no_grad():
+            twin.model.layers[0].self_attn.dyn_mask_A.normal_()
+    lm = models.CausalLM(dataclasses.replace(cfg, dtype=torch.bfloat16), dev)
+    lm.load_state_dict(twin.state_dict())
+    ids = torch.randint(0, 64, (2, 300), device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = lm(ids)
+        cached, _ = serving.forward_with_cache(lm, ids, serving.init_cache(lm, 2, 300), 0)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == 0
+        ref = twin(ids)
+        # bf16 inputs, weights, probabilities and output against f32
+        tol = 5e-2 * float(ref.abs().max())
+        torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+        torch.testing.assert_close(cached.float(), ref, rtol=0, atol=tol)
+        if kind == "doge":
+            lm.model.layers[0].self_attn.dt_proj = None
+            plain = lm(ids)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["flash_attention"] == 1
+            assert float((plain.float() - out.float()).abs().max()) > 0.1 * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("rep", [1, 4, 8])
@@ -217,7 +263,11 @@ def test_flash_attention_rejects_unsupported(dev):
     # GPT-J-6B's and OPT-6.7B's biased MLP pairs, StarCoderBase-1B's k/v
     # pairs with 128-wide outputs (a prefill and a decode step)
     + [(1024, 4096, 32, 16384, True), (1024, 16384, 32, 4096, True), (1024, 2048, 32, 128, True),
-       (4, 2048, 32, 128, True)],
+       (4, 2048, 32, 128, True)]
+    # Moshi's (4096 <-> 11264) and Mllama's (4096 <-> 14336) MLP pairs, a
+    # prefill and a decode step
+    + [(1024, 4096, 32, 11264, False), (1024, 11264, 32, 4096, False),
+       (1024, 4096, 32, 14336, False), (4, 14336, 32, 4096, False)],
 )
 def test_lowrank_matmul(dev, n, d_in, r, d_out, bias):
     x = torch.randn(n, d_in, device=dev, dtype=torch.bfloat16)

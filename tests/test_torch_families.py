@@ -134,6 +134,16 @@ REFUSED_BY_BOTH = {
                               causal=False),
     "xlm_asm": dict(model_type="xlm", vocab_size=128, emb_dim=32, n_layers=2, n_heads=4,
                     causal=True, asm=True),
+    # the mixer decoders' and the mllama and moshi text paths' own refusals
+    "doge_is_moe": tiny_hf("doge", is_moe=True),
+    "doge_yarn": tiny_hf("doge", rope_scaling={"rope_type": "yarn", "factor": 2.0}),
+    "diffllama_odd_heads": tiny_hf("diffllama", hidden_size=24, num_attention_heads=3,
+                                   num_key_value_heads=3),
+    "diffllama_rope_scaling": tiny_hf("diffllama",
+                                      rope_scaling={"rope_type": "linear", "factor": 2.0}),
+    "mllama_gelu": tiny_hf("mllama_text_model", hidden_act="gelu", cross_attention_layers=[1]),
+    "moshi_gelu": dict(model_type="moshi", vocab_size=128, hidden_size=32, ffn_dim=128,
+                       num_hidden_layers=2, num_attention_heads=4, hidden_act="gelu"),
 }
 REFUSED_BY_PORT = {
     "olmoe": tiny_hf("olmoe", num_experts=4, num_experts_per_tok=2),
@@ -144,10 +154,13 @@ REFUSED_BY_PORT = {
                            moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
                            qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8,
                            n_group=1, topk_group=1),
-    # dense types the port does not build yet, each with a mixer of its own:
-    # doge's dynamic-mask key bias, diffllama's differential attention
-    "doge": tiny_hf("doge"),
-    "diffllama": tiny_hf("diffllama"),
+    # dense types the port does not build yet: the bert lineage, as a causal
+    # decoder (post-LN blocks, learned positions) and ModernBERT's decoder
+    # (its first layer without an attention norm, a prediction head)
+    "bert": tiny_hf("bert", hidden_act="gelu", layer_norm_eps=1e-12),
+    "modernbert-decoder": tiny_hf("modernbert-decoder", hidden_activation="gelu", norm_eps=1e-5,
+                                  global_rope_theta=160000.0, local_rope_theta=10000.0,
+                                  sliding_window=8),
 }
 
 

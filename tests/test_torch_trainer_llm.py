@@ -699,8 +699,10 @@ def test_builder_paths(tmp_path, monkeypatch):
     model, tok = builder.make_model_and_tokenizer(
         model_name="tiny", enable_gradient_checkpointing=True, device="cpu")
     assert model.model.remat and isinstance(tok, builder.ByteTokenizer)
-    (tmp_path / "config.json").write_text(json.dumps({**TINY_HF, "model_type": "doge"}))
-    with pytest.raises(ValueError, match=r"model_type='doge': the port builds \['llama', "):
+    (tmp_path / "config.json").write_text(
+        json.dumps({**TINY_HF, "model_type": "modernbert-decoder"}))
+    with pytest.raises(ValueError,
+                       match=r"model_type='modernbert-decoder': the port builds \['llama', "):
         builder.make_model_and_tokenizer(model_name="x", checkpoint_path=str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
         builder.make_model_and_tokenizer(model_name="qwen2-7b", device="cpu")
@@ -717,7 +719,7 @@ def test_builder_paths(tmp_path, monkeypatch):
     assert set(unwrap({"model.language_model.norm.weight": 1, "model.vision_tower.x": 2,
                        "lm_head.weight": 3})) == {"model.norm.weight"}
     with pytest.raises(ValueError, match="mixtral, phi3 and gemma3 only"):
-        hf_loader.translator_for({"model_type": "doge"})
+        hf_loader.translator_for({"model_type": "modernbert-decoder"})
     assert isinstance(builder.make_tokenizer("tinyllama-1.1b", 32000), builder.ByteTokenizer)
 
 

@@ -42,7 +42,7 @@ def test_config_from_hf_llama():
         2048, 32, 4, 5632, 64,
     )
     with pytest.raises(ValueError):
-        tmodels.TransformerConfig.from_hf_config({**hf_cfg, "model_type": "doge"})
+        tmodels.TransformerConfig.from_hf_config({**hf_cfg, "model_type": "modernbert-decoder"})
 
 
 def test_parameter_names_follow_hf_llama():
