@@ -115,6 +115,18 @@ pruned, walked, its pruned weights and artifact round-tripped through the
 trainer's bp_checkpoint_builder directory, served fused, and refused by
 the KV cache.
 
+Slice 20 runs it on the llama graph's MoE decoders at their public
+config.json's widths: Qwen3-30B-A3B (128 experts of 768, top-8), OLMoE-1B-7B
+(64 experts of 1024, top-8, flat q/k norms) and Qwen1.5-MoE-A2.7B (60
+experts of 1408, top-4, a shared expert of 5632 under its sigmoid gate).
+The walk decomposes layer 0's attention, its shared expert and two of its
+experts, so layer 0 runs every expert on every token and layer 1 the
+grouped kernels, whose tensor-core routes take these expert counts since
+slice 20 (their kernel lines at the walk's and the decode step's rows, the
+bf16 walk rows on both routes); the fused model is then quantized and
+served through cached generate in int8 too, held against bf16 routed as
+the bf16 run was.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -138,9 +150,10 @@ llama3_2_1b, gemma2_2b, gemma3_1b, phi3_mini, olmo2_1b, glm4_9b, smollm3_3b,
 gpt2_xl, pythia_1_4b, falcon_7b, gptj_6b, opt_6_7b, starcoderbase_1b,
 persimmon_8b, nemotron_hf_default, arcee_hf_default, bloom_7b1,
 bitnet_hf_default, doge_hf_default, diffllama_hf_default,
-mllama_text_hf_default and moshi_hf_default (walk and phase
-wall and its split, cuts,
-ranks, artifact, fused serve, ``generate``, f32 tokens, reference),
+mllama_text_hf_default, moshi_hf_default, qwen3_moe_30b_a3b, olmoe_1b_7b
+and qwen1_5_moe_a2_7b (walk and phase wall and its split, cuts,
+ranks, artifact, fused serve, ``generate``, the MoE phases' int8
+``generate`` and int8 against bf16, f32 tokens, reference),
 bp_tinyllama (the pruned walk's sites and launches, the bp directory round
 trip, the fused serve, the cache's refusal), dwain_mlp,
 falor_resnet50 and falor_resnet50_mean (wall, eigh seconds, sites, artifact, fused serve),
@@ -521,6 +534,39 @@ MOSHI_HF_DEFAULT = dict(
     hidden_act="silu", rms_norm_eps=1e-8, rope_theta=10000.0, sliding_window=3000,
     tie_word_embeddings=False, max_position_embeddings=3000,
 )
+# Slice 20: the llama graph's MoE decoders at their public config.json's
+# widths (written as numbers; the keys the converter reads):
+# Qwen/Qwen3-30B-A3B (32 / 4 heads of 128 with q/k norms, 128 experts of
+# 768, top-8 renormalized, untied), allenai/OLMoE-1B-7B-0924 (16 / 16
+# heads of 128 with flat q/k norms, 64 experts of 1024, top-8 not
+# renormalized) and Qwen/Qwen1.5-MoE-A2.7B (16 / 16 heads of 128 with q/k/v
+# biases, 60 experts of 1408, top-4 not renormalized, a shared expert of
+# 5632 under its sigmoid gate); depth 48, 16 and 24 cut to 2
+QWEN3_MOE_30B_A3B = dict(
+    model_type="qwen3_moe", vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+    num_hidden_layers=48, num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+    hidden_act="silu", rms_norm_eps=1e-6, rope_theta=1000000.0, rope_scaling=None,
+    attention_bias=False, num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768,
+    norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[], sliding_window=None,
+    use_sliding_window=False, tie_word_embeddings=False, max_position_embeddings=40960,
+)
+OLMOE_1B_7B = dict(
+    model_type="olmoe", vocab_size=50304, hidden_size=2048, intermediate_size=1024,
+    num_hidden_layers=16, num_attention_heads=16, num_key_value_heads=16, hidden_act="silu",
+    rms_norm_eps=1e-5, rope_theta=10000.0, rope_scaling=None, attention_bias=False,
+    clip_qkv=None, num_experts=64, num_experts_per_tok=8, norm_topk_prob=False,
+    tie_word_embeddings=False, max_position_embeddings=4096,
+)
+QWEN1_5_MOE_A2_7B = dict(
+    model_type="qwen2_moe", vocab_size=151936, hidden_size=2048, intermediate_size=5632,
+    num_hidden_layers=24, num_attention_heads=16, num_key_value_heads=16, hidden_act="silu",
+    rms_norm_eps=1e-6, rope_theta=1000000.0, num_experts=60, num_experts_per_tok=4,
+    moe_intermediate_size=1408, shared_expert_intermediate_size=5632, norm_topk_prob=False,
+    decoder_sparse_step=1, sliding_window=32768, use_sliding_window=False,
+    tie_word_embeddings=False, max_position_embeddings=8192,
+)
+MOE_FAMILIES = {"qwen3_moe_30b_a3b": QWEN3_MOE_30B_A3B, "olmoe_1b_7b": OLMOE_1B_7B,
+                "qwen1_5_moe_a2_7b": QWEN1_5_MOE_A2_7B}
 FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b": GEMMA2_2B,
                   "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI, "olmo2_1b": OLMO2_1B,
                   "glm4_9b": GLM4_9B, "smollm3_3b": SMOLLM3_3B, "gpt2_xl": GPT2_XL,
@@ -531,7 +577,7 @@ FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b":
                   "bitnet_hf_default": BITNET_HF_DEFAULT, "doge_hf_default": DOGE_HF_DEFAULT,
                   "diffllama_hf_default": DIFFLLAMA_HF_DEFAULT,
                   "mllama_text_hf_default": MLLAMA_TEXT_HF_DEFAULT,
-                  "moshi_hf_default": MOSHI_HF_DEFAULT}
+                  "moshi_hf_default": MOSHI_HF_DEFAULT, **MOE_FAMILIES}
 # the first published layer each cut keeps (0 where not named): gemma3's
 # 5th and 6th (sliding, full), smollm3's 3rd and 4th (rope, NoPE), mllama's
 # 3rd and 4th (self-attention, cross-attention: skipped)
@@ -547,6 +593,23 @@ FAMILY_NO_FLASH = ("gemma2_2b", "bloom_7b1", "doge_hf_default", "diffllama_hf_de
 # softplus(dt) spans about one logit over the keys, and lq . lk (64 terms)
 # moves lambda by about 0.6
 DOGE_A_STD, DOGE_RESIDUAL_STD, DIFF_LAMBDA_STD = 0.5, 0.2, 0.3
+# An MoE family's walk decomposes layer 0's attention projections, its
+# shared expert and these two of its routed experts; every other site (the
+# routers, the shared-expert gate, the head, the other experts: 768 expert
+# sites would not fit the run) is blacklisted, so layer 0 takes the dense
+# route once its experts are hooked or decomposed and layer 1's whole
+# experts the grouped kernels, in the walk's forwards, the serve and
+# generate
+MOE_WALK_EXPERTS = (0, 1)
+# The family walks take the randomized EVD for output Grams 3072 or more
+# wide (``eigh_method="auto"``, the crossover tools/eigh_crossover.py
+# measured): their wide MLP Grams' exact f64 eighs were most of their walks
+# (Nemotron's 37.2 s against 12.5, Gemma-2B's 18.9 against 4.4, with the
+# same ranks and gate readings; PERF.md).  Slice 1's walk keeps the exact
+# eigh.  An MoE family's walk scores each candidate on one metric batch:
+# its metric forwards run every expert of layer 0 on every token.
+FAMILY_DECOMPOSE_ARGS = {**DECOMPOSE_ARGS, "eigh_method": "auto"}
+MOE_METRIC_STEPS = 1
 # gemma3's cached generate prompt, past its 512-token window
 GEMMA3_PROMPT = 640
 FAMILY_LAYERS = 2
@@ -622,6 +685,21 @@ FAMILY_GATES = {
     "diffllama_hf_default": {"serve": (0.125, 2e-2), "reference": (0.15, 2.5e-2)},
     "mllama_text_hf_default": {"serve": (0.09375, 6e-3), "reference": (0.06, 1e-2)},
     "moshi_hf_default": {"serve": (0.09375, 6e-3), "reference": (0.075, 1.1e-2)},
+    # slice 20, the larger reading of seeds 0 and 1 (the serve gate holds
+    # the fused serve and the bf16 and int8 generate checks): Qwen3-30B-A3B
+    # serve 0.031 / 4.3e-3, reference 0.032 / 5.1e-3, int8 against bf16
+    # 0.0625 / 1.16e-2; OLMoE-1B-7B 0.031 / 3.3e-3, 0.026 / 4.5e-3, 0.057 /
+    # 1.03e-2; Qwen1.5-MoE-A2.7B 0.031 / 4.6e-3, 0.030 / 4.9e-3, 0.069 /
+    # 1.20e-2.  "near_ties" limits the share of (layer, token) routings a
+    # check forced off the model's own, which grows as the gap between the
+    # k-th and next expert's logit shrinks with the expert count; the
+    # largest read 0.039 (Qwen3-30B-A3B's CPU reference), 0.021 and 0.023
+    "qwen3_moe_30b_a3b": {"serve": (0.09375, 1e-2), "reference": (0.075, 1.25e-2),
+                          "int8": (0.15, 3e-2), "near_ties": 0.1},
+    "olmoe_1b_7b": {"serve": (0.09375, 9e-3), "reference": (0.075, 1.1e-2),
+                    "int8": (0.15, 2.5e-2), "near_ties": 0.06},
+    "qwen1_5_moe_a2_7b": {"serve": (0.09375, 1.1e-2), "reference": (0.075, 1.2e-2),
+                          "int8": (0.175, 3e-2), "near_ties": 0.06},
 }
 
 # Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
@@ -1132,25 +1210,22 @@ def grouped_library(lhs, weights, group_sizes):
     return (lambda: lhs @ stack[0].t()), "torch.matmul (dense, same rows)"
 
 
-def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
-    """The MoE serving path's kernels at Mixtral-8x7B width: the bf16
-    grouped matmul at prefill and decode, the int8 grouped matmul at 8, 16,
-    512 and 4096 routed rows, and flash attention at the prefill's head_dim
-    128."""
-    g = torch.Generator(device=dev).manual_seed(2)
+def grouped_line(dev, g, recs: dict, sizes: np.ndarray, k: int, n: int, what: str,
+                 route: str | None = None) -> None:
+    """The bf16 grouped kernel against its plain version on ``sizes`` rows
+    (random lhs and weights), beside ``torch._grouped_mm``; ``route``
+    "mma_sync" forces the mma.sync route on a shape that takes wgmma (the
+    route it took before the experts' tensor maps moved into a table)."""
     bf = torch.bfloat16
-    dim, hidden = MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["intermediate_size"]
-    n_tokens = MOE_BATCH * MOE_PROMPT
-    for n_tok, (k, n), what in ((n_tokens, (dim, hidden), "prefill gate/up"),
-                                (n_tokens, (hidden, dim), "prefill down"),
-                                (8, (dim, hidden), "decode gate/up"),
-                                (8, (hidden, dim), "decode down")):
-        sizes = routed_group_sizes(n_tok, seed=100 + n_tok + k)
-        m, routed = int(sizes.sum()), int((sizes > 0).sum())
-        lhs = torch.randn(m, k, device=dev, generator=g).to(bf)
-        weights = [(torch.randn(n, k, device=dev, generator=g) / k ** 0.5).to(bf) for _ in sizes]
-        gs = torch.from_numpy(sizes).to(dev)
-        library_fn, library = grouped_library(lhs, weights, gs)
+    m, routed = int(sizes.sum()), int((sizes > 0).sum())
+    lhs = torch.randn(m, k, device=dev, generator=g).to(bf)
+    weights = [(torch.randn(n, k, device=dev, generator=g) / k ** 0.5).to(bf) for _ in sizes]
+    gs = torch.from_numpy(sizes).to(dev)
+    library_fn, library = grouped_library(lhs, weights, gs)
+    limit = gmm.MAX_TMA_EXPERTS
+    if route == "mma_sync":  # the old limit: 16 tensor maps as kernel parameters
+        gmm.MAX_TMA_EXPERTS = 16
+    try:
         recs["grouped_matmul"].append(check_kernel(
             "grouped_matmul",
             lambda: ops.grouped_matmul(lhs, weights, gs),
@@ -1166,56 +1241,97 @@ def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
             # the plain version reads the group sizes on the host
             graph=True, plain_graph=False, path=gmm.kernel_route(m, k, n, len(sizes)),
         ))
-        del lhs, weights, library_fn
-        torch.cuda.empty_cache()
+    finally:
+        gmm.MAX_TMA_EXPERTS = limit
+    del lhs, weights, library_fn
+    torch.cuda.empty_cache()
+
+
+def int8_line(dev, g, recs: dict, sizes: np.ndarray, k: int, n: int, what: str) -> None:
+    """The int8 grouped kernel against its plain version on ``sizes`` rows
+    (random lhs, grids and scales), beside the dequantize route that
+    ``MoEMLP._grouped`` takes (every grid dequantized to bf16, then the
+    bf16 grouped kernel)."""
+    bf = torch.bfloat16
+    m, e, routed = int(sizes.sum()), len(sizes), int((sizes > 0).sum())
+    gs = torch.from_numpy(sizes).to(dev)
+    xg = torch.randn(m, k, device=dev, generator=g).to(bf)
+    w_q = [torch.randint(-127, 128, (n, k), device=dev, generator=g, dtype=torch.int8)
+           for _ in sizes]
+    scales = [(0.5 + 0.5 * torch.rand(n, device=dev, generator=g)) / (127 * k ** 0.5)
+              for _ in sizes]
+
+    def dequant_route():
+        deq = [w.to(bf) * s.to(bf)[:, None] for w, s in zip(w_q, scales)]
+        return ops.grouped_matmul(xg, deq, gs)
+
+    route = gmm_int8.kernel_route(m, k, n, e)
+    tile = ({"bn": gmm_int8.batch_rows(m, e)} if route == "batch" else dict(zip(
+        ("k_split", "k_steps_a_split"),
+        gmm_int8.decode_split(m, k, n, e, gmm_int8._sm_count(dev.index or 0),
+                              gmm_int8.DECODE_BLOCK_K, gmm_int8.DECODE_COLS))))
+    recs["gmm_int8"].append(check_kernel(
+        "gmm_int8",
+        lambda: ops.grouped_matmul_int8(xg, w_q, scales, gs),
+        lambda: ops.grouped_matmul_int8_plain(xg, w_q, scales, gs),
+        None,
+        flops=2 * m * k * n,
+        nbytes=2 * m * k + routed * n * k + 4 * routed * n + 2 * m * n,
+        tol_fn=single_rounding_tol,
+        shape={"what": what, "M": m, "K": k, "N": n, "experts": e, "routed": routed,
+               "group_sizes": sizes.tolist(), **tile,
+               "dtype": "int8 weights, bf16 activations"},
+        # the plain version reads the group sizes on the host; the
+        # dequantize route allocates its copies each call: both by events
+        graph=True, plain_graph=False, path=route,
+        extra_fns={"dequant_route": dequant_route},
+    ))
+    del xg, w_q, scales
+    torch.cuda.empty_cache()
+
+
+def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
+    """The MoE serving path's kernels at Mixtral-8x7B width: the bf16
+    grouped matmul at prefill and decode, the int8 grouped matmul at 8, 16,
+    512 and 4096 routed rows, and flash attention at the prefill's head_dim
+    128; then both grouped kernels at the slice-20 families' expert counts
+    and widths (``MOE_FAMILIES``): the walk's 1 x 1024 tokens (the bf16
+    kernel there on both routes, wgmma and the mma.sync route it took
+    before) and the 4-prompt decode step."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    dim, hidden = MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["intermediate_size"]
+    n_tokens = MOE_BATCH * MOE_PROMPT
+    for n_tok, (k, n), what in ((n_tokens, (dim, hidden), "prefill gate/up"),
+                                (n_tokens, (hidden, dim), "prefill down"),
+                                (8, (dim, hidden), "decode gate/up"),
+                                (8, (hidden, dim), "decode down")):
+        grouped_line(dev, g, recs, routed_group_sizes(n_tok, seed=100 + n_tok + k), k, n, what)
 
     # the int8 kernel at the decode steps (8 and 16 rows), 512 rows and the
-    # prefill's 4096, beside the dequantize route that MoEMLP._grouped takes
-    # (every grid dequantized to bf16, then the bf16 grouped kernel)
+    # prefill's 4096
     for n_tok, (k, n), what in ((4, (dim, hidden), "decode gate/up, batch 4"),
                                 (4, (hidden, dim), "decode down, batch 4"),
                                 (8, (dim, hidden), "decode gate/up, batch 8"),
                                 (256, (dim, hidden), "256 tokens gate/up"),
                                 (n_tokens, (dim, hidden), "prefill gate/up"),
                                 (n_tokens, (hidden, dim), "prefill down")):
-        sizes = routed_group_sizes(n_tok, seed=200 + n_tok + k)
-        m, e, routed = int(sizes.sum()), len(sizes), int((sizes > 0).sum())
-        gs = torch.from_numpy(sizes).to(dev)
-        xg = torch.randn(m, k, device=dev, generator=g).to(bf)
-        w_q = [torch.randint(-127, 128, (n, k), device=dev, generator=g, dtype=torch.int8)
-               for _ in sizes]
-        scales = [(0.5 + 0.5 * torch.rand(n, device=dev, generator=g)) / (127 * k ** 0.5)
-                  for _ in sizes]
-
-        def dequant_route():  # what MoEMLP._grouped does with int8 experts
-            deq = [w.to(bf) * s.to(bf)[:, None] for w, s in zip(w_q, scales)]
-            return ops.grouped_matmul(xg, deq, gs)
-
-        route = gmm_int8.kernel_route(m, k, n, e)
-        tile = ({"bn": gmm_int8.batch_rows(m, e)} if route == "batch" else dict(zip(
-            ("k_split", "k_steps_a_split"),
-            gmm_int8.decode_split(m, k, n, e, gmm_int8._sm_count(dev.index or 0),
-                                  gmm_int8.DECODE_BLOCK_K, gmm_int8.DECODE_COLS))))
-        recs["gmm_int8"].append(check_kernel(
-            "gmm_int8",
-            lambda: ops.grouped_matmul_int8(xg, w_q, scales, gs),
-            lambda: ops.grouped_matmul_int8_plain(xg, w_q, scales, gs),
-            None,
-            flops=2 * m * k * n,
-            nbytes=2 * m * k + routed * n * k + 4 * routed * n + 2 * m * n,
-            tol_fn=single_rounding_tol,
-            shape={"what": what, "M": m, "K": k, "N": n, "experts": e, "routed": routed,
-                   "group_sizes": sizes.tolist(), **tile,
-                   "dtype": "int8 weights, bf16 activations"},
-            # the plain version reads the group sizes on the host; the
-            # dequantize route allocates its copies each call: both by events
-            graph=True, plain_graph=False, path=route,
-            extra_fns={"dequant_route": dequant_route},
-        ))
-        del xg, w_q, scales
-        torch.cuda.empty_cache()
+        int8_line(dev, g, recs, routed_group_sizes(n_tok, seed=200 + n_tok + k), k, n, what)
 
     flash_check(dev, g, recs, MOE_BATCH, MOE_PROMPT, h=32, h_kv=8, hd=128)
+
+    for family, hf in MOE_FAMILIES.items():
+        cfg = models.TransformerConfig.from_hf_config(hf, dtype=torch.bfloat16)
+        e, top_k, width = cfg.n_experts, cfg.n_experts_per_tok, cfg.moe_hidden_dim
+        for n_tok, (k, n), what in ((SEQ, (cfg.dim, width), "walk gate/up"),
+                                    (SEQ, (width, cfg.dim), "walk down"),
+                                    (FAMILY_PROMPTS, (cfg.dim, width), "decode gate/up"),
+                                    (FAMILY_PROMPTS, (width, cfg.dim), "decode down")):
+            sizes = routed_group_sizes(n_tok, seed=300 + n_tok + k + e, n_experts=e, top_k=top_k)
+            grouped_line(dev, g, recs, sizes, k, n, f"{family} {what}")
+            if n_tok == SEQ:
+                grouped_line(dev, g, recs, sizes, k, n, f"{family} {what}, mma_sync route",
+                             route="mma_sync")
+            int8_line(dev, g, recs, sizes, k, n, f"{family} {what}")
 
 
 def tinyllama_2_layer() -> models.TransformerConfig:
@@ -1246,11 +1362,30 @@ class _Draws:
         return w
 
 
+def planted_moe_weights(cfg: models.TransformerConfig, p: str, draws: "_Draws") -> dict:
+    """An MoE layer's weights under prefix ``p``: every expert (and the
+    shared expert) planted at rank 256 like a dense MLP, the router and the
+    shared expert's gate unit-gain normals (logits of RMS 1 over RMS-1
+    inputs)."""
+    sd = {p + "gate.weight": draws.normal(cfg.n_experts, cfg.dim) / math.sqrt(cfg.dim)}
+    widths = {f"experts.{e}.": cfg.moe_hidden_dim or cfg.hidden_dim
+              for e in range(cfg.n_experts)}
+    if cfg.shared_expert_hidden_dim is not None:
+        widths["shared_expert."] = cfg.shared_expert_hidden_dim
+        if cfg.shared_expert_gated:
+            sd[p + "shared_expert_gate.weight"] = draws.normal(1, cfg.dim) / math.sqrt(cfg.dim)
+    for name, width in widths.items():
+        sd[p + name + "gate_proj.weight"] = draws.planted(width, cfg.dim)
+        sd[p + name + "up_proj.weight"] = draws.planted(width, cfg.dim)
+        sd[p + name + "down_proj.weight"] = draws.planted(cfg.dim, width)
+    return sd
+
+
 def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev) -> dict:
     """Random weights in HF names, drawn on ``dev`` (``_Draws``); every
     decomposable projection is planted at rank 256 (``_Draws.planted``), a
     non-gated MLP (GPT-2, GPT-NeoX, Falcon, Nemotron) without
-    ``gate_proj``.  Projection biases (Qwen2's and GLM-4's q/k/v, GPT-2's and
+    ``gate_proj``, an MoE layer as ``planted_moe_weights`` draws it.  Projection biases (Qwen2's and GLM-4's q/k/v, GPT-2's and
     GPT-NeoX's q/k/v/o and MLP, GPT-J's head) are 0.1-scale noise; norms
     (the sandwich norms, OLMo-2's post norms and flat q/k norms too) are the
     identity (zeros for gemma's and Nemotron's (1 + w) norms, none for
@@ -1291,10 +1426,13 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev) -> dict:
         sd[p + "self_attn.k_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
         sd[p + "self_attn.v_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
         sd[p + "self_attn.o_proj.weight"] = planted(cfg.dim, cfg.n_heads * hd)
-        if cfg.mlp_gated:
-            sd[p + "mlp.gate_proj.weight"] = planted(cfg.hidden_dim, cfg.dim)
-        sd[p + "mlp.up_proj.weight"] = planted(cfg.hidden_dim, cfg.dim)
-        sd[p + "mlp.down_proj.weight"] = planted(cfg.dim, cfg.hidden_dim)
+        if cfg.layer_is_sparse(i):
+            sd.update(planted_moe_weights(cfg, p + "mlp.", draws))
+        else:
+            if cfg.mlp_gated:
+                sd[p + "mlp.gate_proj.weight"] = planted(cfg.hidden_dim, cfg.dim)
+            sd[p + "mlp.up_proj.weight"] = planted(cfg.hidden_dim, cfg.dim)
+            sd[p + "mlp.down_proj.weight"] = planted(cfg.dim, cfg.hidden_dim)
         if cfg.qkv_bias:
             for proj, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)):
                 sd[p + f"self_attn.{proj}_proj.bias"] = bias(heads * hd)
@@ -1379,8 +1517,8 @@ class Routing(contextlib.ContextDecorator):
 
     With ``forced`` (per layer, (b, tokens, k) as ``per_layer`` gives them,
     the tokens of successive calls joined in order) each token is routed to
-    those experts instead, weighted by the layer's own renormalized router
-    probabilities for them.  A reference routed as the run it checks has no
+    those experts instead, weighted by the layer's own router probabilities
+    for them (renormalized where the layer renormalizes).  A reference routed as the run it checks has no
     routing flips: a near-tie between the k-th and next expert can break one
     way in one run and the other way in the other, which changes that
     token's output by O(1) and, through attention, every later token's.
@@ -1412,8 +1550,9 @@ class Routing(contextlib.ContextDecorator):
                 self.near_ties += int((idx.sort(dim=-1).values != ids).any(dim=-1).sum())
                 self.routed += ids.numel() // moe.top_k
                 scores = torch.softmax(moe.gate(x).to(torch.float32), dim=-1)
-                vals = torch.gather(scores, -1, ids)
-                vals, idx = vals / vals.sum(dim=-1, keepdim=True), ids
+                vals, idx = torch.gather(scores, -1, ids), ids
+                if moe.norm_topk:
+                    vals = vals / vals.sum(dim=-1, keepdim=True)
             self.calls.append((i, idx.sort(dim=-1).values.reshape(self.batch, -1, moe.top_k)))
             return vals, idx
 
@@ -1432,22 +1571,24 @@ class Routing(contextlib.ContextDecorator):
             out.setdefault(i, []).append(ids)
         return {i: torch.cat(v, dim=1) for i, v in out.items()}
 
-    def gate(self, what: str) -> dict:
-        """The near-tie reading, gated at ``MAX_NEAR_TIE_SHARE``."""
+    def gate(self, what: str, limit: float = MAX_NEAR_TIE_SHARE) -> dict:
+        """The near-tie reading, gated at ``limit``."""
         share = self.near_ties / max(self.routed, 1)
         got = {"near_ties": self.near_ties, "routed": self.routed, "near_tie_share": share,
-               "limit_near_tie_share": MAX_NEAR_TIE_SHARE}
-        if share > MAX_NEAR_TIE_SHARE:
+               "limit_near_tie_share": limit}
+        if share > limit:
             emit({"phase": what, **got, "ok": False})
             raise AssertionError(f"{what}: {got}")
         return got
 
 
 def cached_generate(model, prompt, new_tokens: int, what: str,
-                    max_abs: float = CACHED_MAX_ABS, rms_rel: float = CACHED_RMS_REL) -> dict:
+                    max_abs: float = CACHED_MAX_ABS, rms_rel: float = CACHED_RMS_REL,
+                    near_ties: float = MAX_NEAR_TIE_SHARE) -> dict:
     """Greedy ``generate`` from a zero launch count, then each step's logits
     held against the uncached forward of the same tokens, routed as the
-    cached run was (for an MoE model)."""
+    cached run was (for an MoE model; ``near_ties`` limits the share of
+    routings that overrode the uncached forward's own)."""
     b, s_p = prompt.shape
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1464,7 +1605,7 @@ def cached_generate(model, prompt, new_tokens: int, what: str,
     with torch.no_grad(), Routing(model, b, forced=routes) as forced:
         uncached = model({"input_ids": full})[:, s_p - 1:]
     got = logits_agree(step_logits, uncached, max_abs, rms_rel, what)
-    got.update(forced.gate(what))
+    got.update(forced.gate(what, near_ties))
     # the prefill's row alone: the same tokens through the same kernels
     got["prefill_max_abs_diff"] = float((step_logits[:, 0].float() - uncached[:, 0].float()).abs().max())
     return {"tokens": toks, "full": full, "uncached": uncached, "counts": counts,
@@ -3247,6 +3388,41 @@ def flash_as_jax(counts: dict[str, int], name: str, what: str) -> None:
         raise AssertionError(f"{name} {what}: flash launches against the JAX gate: {counts}")
 
 
+def moe_walk_sites(model) -> list[str]:
+    """The sites an MoE family's walk decomposes: layer 0's attention
+    projections, its shared expert and its experts ``MOE_WALK_EXPERTS``."""
+    p = "model.layers.0."
+    keep = (p + "self_attn.", p + "mlp.shared_expert.",
+            *(f"{p}mlp.experts.{e}." for e in MOE_WALK_EXPERTS))
+    return [n for n in engine.get_decomposeable_submodule_names(model, ["lm_head"])
+            if n.startswith(keep)]
+
+
+def moe_int8_serve(model, prompt, gen: dict, name: str, gates: dict, near_ties: float) -> dict:
+    """An MoE family's fused model quantized (a copy: ``quant.
+    quantize_for_serving``), served through cached ``generate`` (gmm_int8's
+    batch route at the prefill and decode route at the decode steps, no
+    expert dequantized for the bf16 grouped kernel), then held against the
+    bf16 model on the bf16 run's tokens, routed as that run was."""
+    qmodel = copy.deepcopy(model)
+    quant.quantize_for_serving(qmodel)
+    int8 = cached_generate(qmodel, prompt, TINY_NEW, f"{name}_generate_int8", *gates["serve"],
+                           near_ties)
+    require_launches(int8["counts"], ("gmm_int8", "lowrank_matmul"), f"{name} generate int8")
+    require_launches(int8["int8_routes"], ("batch", "decode"), f"{name} generate int8 routes")
+    if int8["counts"]["grouped_matmul"]:
+        raise AssertionError(f"{name} int8 dequantized its experts: {int8['counts']}")
+    with torch.no_grad(), Routing(qmodel, prompt.shape[0], forced=gen["routes"]) as forced:
+        y_int8 = qmodel({"input_ids": gen["full"]})[:, prompt.shape[1] - 1:]
+    vs_bf16 = {**logits_agree(y_int8, gen["uncached"], *gates["int8"], f"{name}_int8_vs_bf16"),
+               **forced.gate(f"{name}_int8_vs_bf16", near_ties)}
+    del qmodel
+    torch.cuda.empty_cache()
+    return {"wall_s": int8["wall_s"], **int8["gate"], "int8_vs_bf16": vs_bf16,
+            "tokens_equal_to_bf16": float((int8["tokens"] == gen["tokens"]).float().mean()),
+            "int8_routes": int8["int8_routes"], "launches": int8["counts"]}
+
+
 def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     """Slice 1's path on a 2-layer family model (``FAMILY_CONFIGS``, or
     ``qwen2_1_5b``): ``dwain.decompose`` (SYRK, and flash where the JAX
@@ -3254,8 +3430,13 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     against its pairs (low-rank launched), greedy cached ``generate`` of 4 x
     128 tokens (640 past gemma3's window) against the uncached forward,
     ragged f32 token checks, and the served model against itself on the
-    CPU in f32 on a short input.  Returns each part's launch counts; the
-    phase's record splits its wall by part (``split_s``)."""
+    CPU in f32 on a short input.  An MoE family (``MOE_FAMILIES``) walks
+    ``moe_walk_sites`` only, must launch the bf16 grouped kernel (on its
+    wgmma route at the prefill), is compared routed as the run it checks
+    (``Routing``; the share of overridden routings gated by its
+    ``near_ties``), and is served in int8 too (``moe_int8_serve``).
+    Returns each part's launch counts; the phase's record splits its wall
+    by part (``split_s``)."""
     t_phase = time.perf_counter()
     split = {}
 
@@ -3264,13 +3445,25 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
         split[part] = time.perf_counter() - t_phase - sum(split.values())
 
     cfg, full_layers = family_2_layer(name)
+    gates = FAMILY_GATES[name]
+    moe = cfg.n_experts > 0
+    near_ties = gates.get("near_ties", MAX_NEAR_TIE_SHARE)
     weights = family_weights(cfg, name, seed, dev)
     lap("planted")
     model = utils.load_state_dict(models.CausalLM(cfg, device=dev), weights)
     del weights
-    n_sites = len(engine.get_decomposeable_submodule_names(model, ["lm_head"]))
+    sites = engine.get_decomposeable_submodule_names(model, ["lm_head"])
+    walk_args = FAMILY_DECOMPOSE_ARGS
+    if moe:
+        walked = moe_walk_sites(model)
+        walk_args = {**FAMILY_DECOMPOSE_ARGS, "num_metric_steps": MOE_METRIC_STEPS,
+                     "blacklisted_module_names": [
+                         "lm_head", *(n for n in sites if n not in walked)]}
     params_before = utils.get_num_params(model)
     probe = utils.to_device(next(token_batches(cfg.vocab_size, seed + 3)), dev)
+    if moe:  # every MoE layer on the grouped route, before the walk sends layer 0 dense
+        with torch.no_grad():
+            pristine_ms = time_ms(lambda: model(probe), reps=10)
     ops.reset_launch_counts()
     lap("weights")
     t0 = time.perf_counter()
@@ -3280,13 +3473,14 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
         metric_iterator=token_batches(cfg.vocab_size, seed + 2),
         loss_fn=models.ce_loss,
         device=dev,
-        **DECOMPOSE_ARGS,
+        **walk_args,
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     lap("walk")
     walk = ops.launch_counts()
-    require_launches(walk, ("syrk_gram",), f"{name} decompose")
+    require_launches(walk, ("syrk_gram", *(("grouped_matmul",) if moe else ())),
+                     f"{name} decompose")
     flash_as_jax(walk, name, "decompose")
     if not config:
         raise AssertionError(f"{name}: no site decomposed")
@@ -3294,17 +3488,20 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     skipped = skip_layers_checked(model, config, cfg, name)
     lap("artifact")
 
-    with torch.no_grad():
+    with torch.no_grad(), Routing(model, 1) as routed:
         y_pairs = model(probe)
-        ops.reset_launch_counts()
-        pnn.fuse_factor_pairs(model)
+    ops.reset_launch_counts()
+    pnn.fuse_factor_pairs(model)
+    with torch.no_grad(), Routing(model, 1, forced=routed.per_layer()) as forced:
         y_fused = model(probe)
     torch.cuda.synchronize()
     serve_counts = ops.launch_counts()
-    require_launches(serve_counts, ("lowrank_matmul",), f"{name} serve")
+    require_launches(serve_counts, ("lowrank_matmul", *(("grouped_matmul",) if moe else ())),
+                     f"{name} serve")
     flash_as_jax(serve_counts, name, "serve")
-    gates = FAMILY_GATES[name]
     serve = logits_agree(y_fused, y_pairs, *gates["serve"], f"{name}_serve")
+    if moe:
+        serve.update(forced.gate(f"{name}_serve", near_ties))
     with torch.no_grad():
         fused_ms = time_ms(lambda: model(probe), reps=10)
     del y_pairs, y_fused
@@ -3315,22 +3512,37 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     if cfg.sliding_window is not None:  # past the window: the cached window mask binds
         prompt = torch.from_numpy(np.random.default_rng(seed + 4).integers(
             0, cfg.vocab_size, (FAMILY_PROMPTS, GEMMA3_PROMPT))).to(dev)
-    gen = cached_generate(model, prompt, TINY_NEW, f"{name}_generate", *gates["serve"])
-    require_launches(gen["counts"], ("lowrank_matmul",), f"{name} generate")
+    gen = cached_generate(model, prompt, TINY_NEW, f"{name}_generate", *gates["serve"],
+                          near_ties)
+    require_launches(gen["counts"], ("lowrank_matmul", *(("grouped_matmul",) if moe else ())),
+                     f"{name} generate")
     flash_as_jax(gen["counts"], name, "generate")
+    if moe:
+        # the prefill's mean group of 32-64 rows takes the wgmma route
+        require_launches(gen["grouped_routes"], ("wgmma",), f"{name} generate routes")
     lap("generate")
+    int8 = moe_int8_serve(model, prompt, gen, name, gates, near_ties) if moe else None
+    gen_wall, gen_gate, gen_counts = gen["wall_s"], gen["gate"], gen["counts"]
+    gen_routes = gen["grouped_routes"]
+    del gen
+    if moe:
+        lap("int8")
     tokens = f32_token_checks(model, cfg.vocab_size, seed + 5, dev, f"{name}_ragged_vs_alone")
     lap("f32_tokens")
 
     short = {"input_ids": probe["input_ids"][:, :128]}
-    with torch.no_grad():
+    with torch.no_grad(), Routing(model, 1) as routed:
         y_card = model(short).float().cpu()
+    with torch.no_grad(), Routing(model, 1, forced={
+            i: r.cpu() for i, r in routed.per_layer().items()}) as forced:
         short = utils.to_device(short, "cpu")
         y_cpu = model.to("cpu", torch.float32)(short)
     ref = logits_agree(y_card, y_cpu, *gates["reference"], f"{name}_reference")
+    if moe:
+        ref.update(forced.gate(f"{name}_reference", near_ties))
     lap("reference")
     emit({"phase": name, "layers": cfg.n_layers, "head_dim": cfg.head_dim,
-          "heads": [cfg.n_heads, cfg.n_kv_heads], "wall_s": wall, "sites": n_sites,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "wall_s": wall, "sites": len(sites),
           "decomposed": len(config), "params_before": params_before,
           "param_fraction": utils.get_num_params(model) / params_before,
           "ranks": {k: v["modules"]["0"]["out_features"] for k, v in config.items()},
@@ -3340,12 +3552,16 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
                    "rope_layers": cfg.rope_layers,
                    "weights": f"planted rank {PLANTED_RANK}, seed {seed}", "dtype": "bf16"},
           "generate": {"batch": FAMILY_PROMPTS, "prompt": prompt.shape[1],
-                       "new_tokens": TINY_NEW, "wall_s": gen["wall_s"], **gen["gate"]},
+                       "new_tokens": TINY_NEW, "wall_s": gen_wall, **gen_gate,
+                       **({"grouped_routes": gen_routes} if moe else {})},
+          **({"experts": [cfg.n_experts, cfg.n_experts_per_tok], "walk_sites": len(walked),
+              "pristine_ms": pristine_ms, "int8": int8} if moe else {}),
           "f32_tokens": tokens, "reference": ref, "walk_launches": walk,
-          "serve_launches": serve_counts, "generate_launches": gen["counts"],
+          "serve_launches": serve_counts, "generate_launches": gen_counts,
           "split_s": split, "phase_wall_s": time.perf_counter() - t_phase})
     return {f"{name}_decompose": walk, f"{name}_serve": serve_counts,
-            f"{name}_generate": gen["counts"]}
+            f"{name}_generate": gen_counts,
+            **({f"{name}_generate_int8": int8["launches"]} if moe else {})}
 
 
 def phi2_2_layer() -> models.PhiConfig:

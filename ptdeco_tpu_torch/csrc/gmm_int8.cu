@@ -75,15 +75,20 @@
 //     64-row m-tile.  The transposed accumulator tile is scaled, staged in
 //     the freed ring and written row by row, 16 bytes a store, rows
 //     [r0, r1) only: a lhs box may run into the next expert's rows, which
-//     are multiplied but never stored.  Tensor maps are kernel parameters:
-//     at most 16 experts, K a multiple of 16 and N of 8 (TMA's and the
-//     16-byte stores' rules); other shapes take the decode route.
+//     are multiplied but never stored.  The lhs map is a kernel parameter;
+//     the experts' maps lie in a 64-byte aligned table in device memory,
+//     which the wrapper encodes once for a set of grids and keeps
+//     (ops/gmm_int8.py), so the route takes up to kMaxExperts experts (a
+//     kernel's parameters would hold 16 maps).  K must be a multiple of 16
+//     and N of 8 (TMA's and the 16-byte stores' rules); other shapes take
+//     the decode route.
 // Activations are not quantized: int8 tensor-core math would compute
 // another function.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "gmm_tile.cuh"
 #include "mma_bf16.cuh"
@@ -388,12 +393,9 @@ constexpr int kBatCols = 128;     // weight rows a CTA takes: 64 a consumer warp
 constexpr int kBatK = 64;         // k a stage: one swizzle atom of the lhs box
 constexpr int kBatThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;
-constexpr int kMaxExperts = 16;   // tensor maps passed by value (2.2 KB of parameters)
-
-struct BatchMaps {
-  CUtensorMap lhs;              // (M, K) bf16, boxes of BN rows x 64
-  CUtensorMap w[kMaxExperts];   // (N, K) int8 each, boxes of 128 rows x 64 bytes
-};
+// the grids' tensor maps (boxes of kBatCols rows x 64 bytes) lie in a
+// device table (ops/gmm.py:MAX_TMA_EXPERTS)
+constexpr int kMaxExperts = 256;
 
 // BN group rows a tile (the wgmma's N: 128 or 256; 64 rows re-read a
 // 64-row group's weights for its neighbours too often), STAGES stages
@@ -484,7 +486,8 @@ __device__ __forceinline__ void batch_step(float (&acc)[T::kAcc], const unsigned
 
 template <class T>
 __global__ void __launch_bounds__(kBatThreads, 1)
-    batch_kernel(const __grid_constant__ BatchMaps maps, const float* const* __restrict__ scales,
+    batch_kernel(const __grid_constant__ CUtensorMap lhs_map,
+                 const CUtensorMap* __restrict__ weight_maps, const float* const* __restrict__ scales,
                  const int* __restrict__ group_sizes, int n_experts, bf16* __restrict__ out,
                  int m, int k, int n) {
   int e, r0, r1;
@@ -513,13 +516,14 @@ __global__ void __launch_bounds__(kBatThreads, 1)
     // producer: one thread keeps the ring full; stage = [lhs box][weight box]
     ptdeco::wgmma::regs_dec<40>();
     if (warp == 0 && lane == 0) {
-      const CUtensorMap* wmap = &maps.w[e];
+      const CUtensorMap* wmap = weight_maps + e;
+      ptdeco::tensor_map_acquire(wmap);
       for (int kt = 0; kt < n_k; ++kt) {
         const int st = kt % T::STAGES, ph = (kt / T::STAGES) & 1;
         unsigned char* s = smem + st * T::kStage;
         ptdeco::mbar_wait(&empty[st], ph ^ 1);
         ptdeco::mbar_expect(&full[st], T::kStage);
-        ptdeco::tma_box(s, &maps.lhs, kt * kBatK, r0, &full[st]);
+        ptdeco::tma_box(s, &lhs_map, kt * kBatK, r0, &full[st]);
         ptdeco::tma_box(s + T::kABytes, wmap, kt * kBatK, n0, &full[st]);
       }
     }
@@ -566,7 +570,7 @@ __global__ void __launch_bounds__(kBatThreads, 1)
 }
 
 template <class T>
-int launch_batch(const void* lhs, const unsigned long long* weight_ptrs, const void* scales,
+int launch_batch(const void* lhs, const void* weight_maps, const void* scales,
                  const void* group_sizes, int n_experts, void* out, int m, int k, int n,
                  cudaStream_t stream) {
   static unsigned opted_in = 0;  // once per device
@@ -579,18 +583,13 @@ int launch_batch(const void* lhs, const unsigned long long* weight_ptrs, const v
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 32) opted_in |= 1u << dev;
   }
-  BatchMaps maps = {};
-  int rc = ptdeco::encode_rows(&maps.lhs, lhs, m, k, T::BN);
-  // an expert with no grid (a null pointer) must have no rows: its map is
-  // never used
-  for (int i = 0; i < n_experts && rc == 0; ++i)
-    if (weight_ptrs[i] != 0)
-      rc = ptdeco::encode_int8_rows(&maps.w[i], reinterpret_cast<const void*>(weight_ptrs[i]),
-                                    n, k, kBatCols);
+  CUtensorMap lhs_map;
+  const int rc = ptdeco::encode_rows(&lhs_map, lhs, m, k, T::BN);
   if (rc != 0) return rc;
   const dim3 grid((m + T::BN - 1) / T::BN + n_experts, (n + kBatCols - 1) / kBatCols);
   batch_kernel<T><<<grid, kBatThreads, T::kSmemBytes, stream>>>(
-      maps, static_cast<const float* const*>(scales), static_cast<const int*>(group_sizes),
+      lhs_map, static_cast<const CUtensorMap*>(weight_maps),
+      static_cast<const float* const*>(scales), static_cast<const int*>(group_sizes),
       n_experts, static_cast<bf16*>(out), m, k, n);
   return static_cast<int>(cudaGetLastError());
 }
@@ -618,28 +617,56 @@ extern "C" int ptdeco_gmm_int8_decode(const void* lhs, const void* weights, cons
                                    ks, steps_per_split, static_cast<cudaStream_t>(stream));
 }
 
-// The batch route.  lhs: (m, k) bf16; weight_ptrs: a HOST array of
-// n_experts device pointers, each to an (n, k) int8 grid; scales: a device
-// array of n_experts pointers to (n,) f32 scales; group_sizes: (n_experts,)
+// The batch route's grid maps: into `maps`, a HOST buffer of n_experts
+// CUtensorMaps (128 bytes each), the map of each (n, k) int8 grid at
+// weight_ptrs[i] (a host array of device pointers), read in boxes of
+// kBatCols rows x 64 bytes; a null pointer (an expert with no grid, which
+// must have no rows) leaves its map zero.  The caller copies the buffer to
+// a 64-byte aligned device table for ptdeco_gmm_int8_batch, once for a set
+// of grids.  Returns a CUDA error code.
+extern "C" int ptdeco_gmm_int8_encode_weights(const unsigned long long* weight_ptrs,
+                                              int n_experts, int n, int k, void* maps) {
+  if (n_experts < 1 || n_experts > kMaxExperts || k < 16 || k % 16 != 0 || n % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < n_experts; ++i) {
+    CUtensorMap map = {};  // aligned here, then copied into the caller's buffer
+    if (weight_ptrs[i] != 0) {
+      const int rc = ptdeco::encode_int8_rows(
+          &map, reinterpret_cast<const void*>(weight_ptrs[i]), n, k, kBatCols);
+      if (rc != 0) return rc;
+    }
+    memcpy(static_cast<unsigned char*>(maps) + sizeof(CUtensorMap) * i, &map, sizeof(map));
+  }
+  return 0;
+}
+
+// The batch route.  lhs: (m, k) bf16; weight_maps: a DEVICE table of
+// n_experts tensor maps, 64-byte aligned, from
+// ptdeco_gmm_int8_encode_weights at these n and k; scales: a device array
+// of n_experts pointers to (n,) f32 scales; group_sizes: (n_experts,)
 // int32 on the device; out: (m, n) bf16.  All contiguous, 16-byte aligned,
-// k a multiple of 16, n of 8, 1 <= n_experts <= 16, bn (the tile's group
-// rows) 128 or 256.  Launches on `stream`, allocates nothing, returns
-// cudaGetLastError() (cudaErrorInvalidValue for what the route does not
-// take).
-extern "C" int ptdeco_gmm_int8_batch(const void* lhs, const unsigned long long* weight_ptrs,
+// k a multiple of 16, n of 8, 1 <= n_experts <= kMaxExperts, bn (the
+// tile's group rows) 128 or 256.  Launches on `stream`, allocates nothing,
+// returns cudaGetLastError() (cudaErrorInvalidValue for what the route
+// does not take).
+extern "C" int ptdeco_gmm_int8_batch(const void* lhs, const void* weight_maps,
                                      const void* scales, const void* group_sizes, int n_experts,
                                      void* out, int m, int k, int n, int bn, void* stream) {
-  if (n_experts < 1 || n_experts > kMaxExperts || k < 16 || k % 16 != 0 || n % 8 != 0)
+  if (n_experts < 1 || n_experts > kMaxExperts || k < 16 || k % 16 != 0 || n % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(weight_maps) % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn) {
     case 128:
-      return launch_batch<Bat128>(lhs, weight_ptrs, scales, group_sizes, n_experts, out, m, k,
+      return launch_batch<Bat128>(lhs, weight_maps, scales, group_sizes, n_experts, out, m, k,
                                   n, s);
     case 256:
-      return launch_batch<Bat256>(lhs, weight_ptrs, scales, group_sizes, n_experts, out, m, k,
+      return launch_batch<Bat256>(lhs, weight_maps, scales, group_sizes, n_experts, out, m, k,
                                   n, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// the most experts the batch route takes
+extern "C" int ptdeco_gmm_int8_batch_max_experts() { return kMaxExperts; }

@@ -43,9 +43,12 @@
 //       BM x 256.  A producer warpgroup (registers handed over with
 //       setmaxnreg) has one thread keep a 4-stage ring of BK = 64 (one
 //       128-byte swizzle atom) full with TMA boxes of lhs and of the
-//       expert's weight, through one tensor map over lhs (M, K) and one per
-//       expert weight (N, K), passed by value in a __grid_constant__
-//       struct; both are K-major, wgmma's natural A and B.  Two consumer
+//       expert's weight, through one tensor map over lhs (M, K), a
+//       __grid_constant__ parameter, and one per expert weight (N, K), read
+//       from a 64-byte aligned table in device memory (a kernel's
+//       parameters hold at most 16 maps; the table holds any number, and
+//       the wrapper encodes it once for a set of weights and keeps it,
+//       ops/gmm.py); both are K-major, wgmma's natural A and B.  Two consumer
 //       warpgroups run wgmma m64n256k16 (BM 128: 64 rows each) or m64n128k16
 //       (BM 64: 128 columns each) with one group of products in flight, and
 //       release a stage as soon as the products that read it are done.  A
@@ -73,6 +76,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "gmm_tile.cuh"
 #include "tma.cuh"
@@ -124,14 +128,10 @@ int launch(const void* lhs, const void* weights, const void* group_sizes,
 
 // ---- the wgmma route -------------------------------------------------------
 
-constexpr int kMaxExperts = 16;  // tensor maps passed by value (2.2 KB of parameters)
+// the weights' tensor maps lie in a device table (ops/gmm.py:MAX_TMA_EXPERTS)
+constexpr int kMaxExperts = 256;
 constexpr int kWgThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;
-
-struct TmaMaps {
-  CUtensorMap lhs;                // (M, K), boxes of BM rows x 64
-  CUtensorMap w[kMaxExperts];     // (N, K) each, boxes of 256 rows x 64
-};
 
 // BM x BN output tile, BK = 64, a STAGES-deep ring, one CTA an SM.  BM 128:
 // warpgroup w takes rows 64 w .. and all BN columns; BM 64: the 64 rows and
@@ -166,7 +166,8 @@ __device__ __forceinline__ void consumer_sync(int id, int threads) {
 
 template <class T>
 __global__ void __launch_bounds__(kWgThreads, 1)
-    grouped_wgmma_kernel(const __grid_constant__ TmaMaps maps,
+    grouped_wgmma_kernel(const __grid_constant__ CUtensorMap lhs_map,
+                         const CUtensorMap* __restrict__ weight_maps,
                          const int* __restrict__ group_sizes, int n_experts,
                          bf16* __restrict__ out, int m, int k, int n) {
   int e, r0, r1;
@@ -197,13 +198,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // would need the others
     ptdeco::wgmma::regs_dec<40>();
     if (warp == 0 && lane == 0) {
-      const CUtensorMap* wmap = &maps.w[e];
+      const CUtensorMap* wmap = weight_maps + e;
+      ptdeco::tensor_map_acquire(wmap);
       for (int kt = 0; kt < n_k; ++kt) {
         const int st = kt % T::STAGES, ph = (kt / T::STAGES) & 1;
         bf16* a = ring + st * T::kStage;
         ptdeco::mbar_wait(&empty[st], ph ^ 1);
         ptdeco::mbar_expect(&full[st], T::kStage * 2);
-        ptdeco::tma_box(a, &maps.lhs, kt * T::BK, r0, &full[st]);
+        ptdeco::tma_box(a, &lhs_map, kt * T::BK, r0, &full[st]);
         ptdeco::tma_box(a + T::kA, wmap, kt * T::BK, n0, &full[st]);
       }
     }
@@ -270,7 +272,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 template <class T>
-int launch_wgmma(const void* lhs, const unsigned long long* weight_ptrs, const void* group_sizes,
+int launch_wgmma(const void* lhs, const void* weight_maps, const void* group_sizes,
                  int n_experts, void* out, int m, int k, int n, cudaStream_t stream) {
   static unsigned opted_in = 0;  // once per device
   int dev = 0;
@@ -282,15 +284,13 @@ int launch_wgmma(const void* lhs, const unsigned long long* weight_ptrs, const v
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 32) opted_in |= 1u << dev;
   }
-  TmaMaps maps = {};
-  int rc = ptdeco::encode_rows(&maps.lhs, lhs, m, k, T::BM);
-  for (int i = 0; i < n_experts && rc == 0; ++i)
-    rc = ptdeco::encode_rows(&maps.w[i], reinterpret_cast<const void*>(weight_ptrs[i]), n, k,
-                             T::BN);
+  CUtensorMap lhs_map;
+  const int rc = ptdeco::encode_rows(&lhs_map, lhs, m, k, T::BM);
   if (rc != 0) return rc;
   const dim3 grid((m + T::BM - 1) / T::BM + n_experts, (n + T::BN - 1) / T::BN);
   grouped_wgmma_kernel<T><<<grid, kWgThreads, T::kSmemBytes, stream>>>(
-      maps, static_cast<const int*>(group_sizes), n_experts, static_cast<bf16*>(out), m, k, n);
+      lhs_map, static_cast<const CUtensorMap*>(weight_maps),
+      static_cast<const int*>(group_sizes), n_experts, static_cast<bf16*>(out), m, k, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -318,23 +318,48 @@ extern "C" int ptdeco_grouped_matmul(const void* lhs, const void* weights,
   }
 }
 
-// The wgmma route.  lhs: (m, k) bf16; weight_ptrs: a HOST array of
-// n_experts device pointers, each to an (n, k) bf16 matrix; group_sizes:
+// The wgmma route's weight maps for m-tile bm: into `maps`, a HOST buffer
+// of n_experts CUtensorMaps (128 bytes each), the map of each (n, k) bf16
+// matrix at weight_ptrs[i] (a host array of device pointers), read in boxes
+// of the tile's BN rows x 64.  The caller copies the buffer to a 64-byte
+// aligned device table for ptdeco_grouped_matmul_wgmma at the same bm, once
+// for a set of weights.  Returns a CUDA error code.
+extern "C" int ptdeco_grouped_wgmma_encode_weights(const unsigned long long* weight_ptrs,
+                                                   int n_experts, int n, int k, int bm,
+                                                   void* maps) {
+  const int box_rows = bm == 64 ? WgMedium::BN : bm == 128 ? WgPrefill::BN : 0;
+  if (n_experts < 1 || n_experts > kMaxExperts || k % 8 != 0 || n % 8 != 0 || box_rows == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < n_experts; ++i) {
+    CUtensorMap map;  // aligned here, then copied into the caller's buffer
+    const int rc = ptdeco::encode_rows(&map, reinterpret_cast<const void*>(weight_ptrs[i]), n, k,
+                                       box_rows);
+    if (rc != 0) return rc;
+    memcpy(static_cast<unsigned char*>(maps) + sizeof(CUtensorMap) * i, &map, sizeof(map));
+  }
+  return 0;
+}
+
+// The wgmma route.  lhs: (m, k) bf16; weight_maps: a DEVICE table of
+// n_experts tensor maps, 64-byte aligned, from
+// ptdeco_grouped_wgmma_encode_weights at these n, k and bm; group_sizes:
 // (n_experts,) int32 on the device; out: (m, n) bf16.  All contiguous,
-// 16-byte aligned, k and n multiples of 8, 1 <= n_experts <= 16, bm 64 or
-// 128.  Launches on `stream`, allocates nothing, returns cudaGetLastError()
-// (cudaErrorInvalidValue for what the route does not take).
-extern "C" int ptdeco_grouped_matmul_wgmma(const void* lhs, const unsigned long long* weight_ptrs,
+// 16-byte aligned, k and n multiples of 8, 1 <= n_experts <= kMaxExperts,
+// bm 64 or 128.  Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() (cudaErrorInvalidValue for what the route does not
+// take).
+extern "C" int ptdeco_grouped_matmul_wgmma(const void* lhs, const void* weight_maps,
                                            const void* group_sizes, int n_experts, void* out,
                                            int m, int k, int n, int bm, void* stream) {
-  if (n_experts < 1 || n_experts > kMaxExperts || k % 8 != 0 || n % 8 != 0)
+  if (n_experts < 1 || n_experts > kMaxExperts || k % 8 != 0 || n % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(weight_maps) % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bm) {
     case 64:
-      return launch_wgmma<WgMedium>(lhs, weight_ptrs, group_sizes, n_experts, out, m, k, n, s);
+      return launch_wgmma<WgMedium>(lhs, weight_maps, group_sizes, n_experts, out, m, k, n, s);
     case 128:
-      return launch_wgmma<WgPrefill>(lhs, weight_ptrs, group_sizes, n_experts, out, m, k, n, s);
+      return launch_wgmma<WgPrefill>(lhs, weight_maps, group_sizes, n_experts, out, m, k, n, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -134,6 +134,16 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int c
       : "memory");
 }
 
+// A tensor map read from device memory (not a __grid_constant__
+// parameter) that a host copy wrote: make the copy visible to the
+// tensor-map proxy that TMA reads it through, before the map's first use.
+// The map must be 64-byte aligned.
+__device__ __forceinline__ void tensor_map_acquire(const CUtensorMap* map) {
+#if (__CUDACC_VER_MAJOR__ > 12) || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 3)
+  asm volatile("fence.proxy.tensormap::generic.acquire.sys [%0], 128;\n" ::"l"(map) : "memory");
+#endif
+}
+
 // the box at (c0, c1, c2, c3) of a 4D `map` into dst; completion on `bar`
 __device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
                                          int c3, uint64_t* bar) {

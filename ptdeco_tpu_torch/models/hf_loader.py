@@ -815,7 +815,7 @@ _SAME_NAMES = (
     "llama", "code_llama", "mistral", "ministral", "qwen2", "qwen3", "gemma", "gemma2",
     "gemma3_text", "olmo2", "olmo3", "smollm3", "phi", "stablelm", "granite", "cohere", "emu3",
     "emu3_text_model", "olmo", "nemotron", "ernie4_5", "arcee", "seed_oss", "exaone4", "helium",
-    "cohere2", "bitnet", "diffllama",
+    "cohere2", "bitnet", "diffllama", "qwen2_moe", "qwen3_moe", "olmoe", "flex_olmo",
 )
 
 

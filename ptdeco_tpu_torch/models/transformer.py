@@ -1,7 +1,8 @@
-"""Decoder-only causal LM, llama family, Mixtral and the families beyond
-the llama graph that the port has, in PyTorch.
+"""Decoder-only causal LM, llama family, its MoE decoders and the families
+beyond the llama graph that the port has, in PyTorch.
 
-Counterpart of the llama-family, Mixtral and gpt2 / gpt_neox / falcon /
+Counterpart of the llama-family, Mixtral, Qwen2-/Qwen3-MoE, OLMoE,
+FlexOlmo and gpt2 / gpt_neox / falcon /
 starcoder2 / stablelm / granite / cohere / gptj / codegen / gpt_neo /
 gpt_bigcode / opt / openai-gpt / imagegpt / olmo / nemotron / persimmon /
 ernie4_5 / arcee / seed_oss / exaone4 / vaultgemma / apertus /
@@ -24,7 +25,8 @@ merged heads), a gated MLP (SwiGLU, or gemma's tanh-GELU) or a
 non-gated one (exact or tanh GELU, relu, relu^2, Apertus's xIELU with its
 learned scalars; BitNet's RMSNorm over the activation product), the
 top-k routed mixture
-of SwiGLU experts (``MoEMLP``), pre-norm blocks (the sandwich norms of
+of SwiGLU experts (``MoEMLP``, on the sparse layers; Qwen2-MoE's
+sigmoid-gated shared expert beside it), pre-norm blocks (the sandwich norms of
 Gemma-2, Gemma-3 and GLM-4, OLMo-2's post-norm-only blocks, the one-norm
 and two-norm parallel residuals of GPT-NeoX, Falcon, Cohere and GPT-J,
 Granite's scaled residuals, GPT-1's post-LN blocks; optionally each under
@@ -99,6 +101,7 @@ HF_FAMILIES = (
     "vaultgemma", "apertus", "hunyuan_v1_dense", "helium", "open-llama",
     "cohere2", "gpt_neox_japanese", "biogpt", "xlm", "bitnet", "xglm", "ctrl", "bloom", "mpt",
     "doge", "diffllama", "mllama", "mllama_text_model", "moshi",
+    "qwen2_moe", "qwen3_moe", "olmoe", "flex_olmo",
 )
 # the text path's model type of each multimodal wrapper
 WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2", "emu3": "emu3_text_model",
@@ -229,11 +232,23 @@ class TransformerConfig:
     # add (``Block.input_residual`` / ``post_attention_residual``)
     residual_scales: bool = False
     dtype: torch.dtype = torch.float32
-    # Mixture of experts (Mixtral): n_experts > 0 replaces every block's MLP
-    # with a top-k routed MoEMLP of SwiGLU experts of width hidden_dim, the
-    # top-k weights always renormalized
+    # Mixture of experts (Mixtral, Qwen2-MoE, Qwen3-MoE, OLMoE, FlexOlmo):
+    # n_experts > 0 replaces the MLP of each sparse layer with a top-k
+    # routed MoEMLP of SwiGLU experts of width moe_hidden_dim (hidden_dim
+    # where None); layer i is sparse iff i is not in mlp_only_layers and
+    # (i + 1) % decoder_sparse_step == 0 (HF Qwen3-MoE's rule; Mixtral's
+    # every layer), the others keep the dense MLP at hidden_dim.  The top-k
+    # weights are renormalized with norm_topk_prob.  Qwen2-MoE adds an
+    # always-on shared expert of width shared_expert_hidden_dim, scaled by
+    # sigmoid(shared_expert_gate(x)) where shared_expert_gated
     n_experts: int = 0
     n_experts_per_tok: int = 2
+    norm_topk_prob: bool = True
+    moe_hidden_dim: Optional[int] = None
+    mlp_only_layers: tuple = ()
+    decoder_sparse_step: int = 1
+    shared_expert_hidden_dim: Optional[int] = None
+    shared_expert_gated: bool = True
     # per-block gradient checkpointing (the JAX package's remat): each
     # block's activations are recomputed in the backward pass
     remat: bool = False
@@ -244,13 +259,20 @@ class TransformerConfig:
             return self.head_dim_override
         return self.dim // self.n_heads
 
+    def layer_is_sparse(self, layer_idx: int) -> bool:
+        """Whether layer ``layer_idx``'s MLP is a ``MoEMLP`` (the JAX
+        package's ``_layer_is_sparse``)."""
+        return (self.n_experts > 0 and layer_idx not in self.mlp_only_layers
+                and (layer_idx + 1) % self.decoder_sparse_step == 0)
+
     @staticmethod
     def from_hf_config(
         hf: dict[str, Any], dtype: torch.dtype = torch.bfloat16, remat: bool = False
     ) -> "TransformerConfig":
         """HF ``config.json`` of a llama (or code_llama), mistral, qwen2,
         qwen3, gemma, gemma2, gemma3_text, phi3, olmo2, olmo3, smollm3, glm,
-        glm4, ministral or mixtral checkpoint, or of the gemma3, got_ocr2 or
+        glm4, ministral, mixtral, qwen2_moe, qwen3_moe, olmoe or flex_olmo
+        checkpoint, or of the gemma3, got_ocr2 or
         emu3 wrapper (its text_config) -> config, as the JAX package's
         family branch builds it; a gpt2 (or gpt-sw3), gpt_neox, falcon,
         starcoder2, stablelm, granite, cohere, gptj, codegen, gpt_neo,
@@ -369,10 +391,37 @@ class TransformerConfig:
                 "sequences within the window for exactness", sliding,
             )
         gemma_like = mt in ("gemma", "gemma2", "gemma3_text")
-        olmo = mt in ("olmo2", "olmo3")
 
         def opt_float(key: str) -> Optional[float]:
             return float(hf[key]) if hf.get(key) is not None else None
+
+        # the MoE fields, as the JAX package's branch reads them: Mixtral
+        # (HF MixtralSparseMoeBlock) always renormalizes and runs experts at
+        # intermediate_size on every layer; Qwen2-/Qwen3-MoE renormalize by
+        # norm_topk_prob, size experts by moe_intermediate_size and choose
+        # sparse layers by decoder_sparse_step / mlp_only_layers, Qwen2-MoE
+        # with its gated shared expert; OLMoE and FlexOlmo route as Mixtral
+        # but renormalize by norm_topk_prob, every layer sparse
+        moe: dict[str, Any] = {}
+        if mt == "mixtral":
+            moe = dict(n_experts=int(hf["num_local_experts"]),
+                       n_experts_per_tok=int(hf.get("num_experts_per_tok", 2)))
+        elif mt in ("qwen2_moe", "qwen3_moe"):
+            moe = dict(
+                n_experts=int(hf["num_experts"]),
+                n_experts_per_tok=int(hf.get("num_experts_per_tok", 8)),
+                norm_topk_prob=bool(hf.get("norm_topk_prob", False)),
+                moe_hidden_dim=int(hf["moe_intermediate_size"]),
+                mlp_only_layers=tuple(hf.get("mlp_only_layers") or ()),
+                decoder_sparse_step=int(hf.get("decoder_sparse_step", 1)),
+                shared_expert_hidden_dim=(
+                    int(hf["shared_expert_intermediate_size"]) if mt == "qwen2_moe" else None),
+            )
+        elif mt in ("olmoe", "flex_olmo"):
+            moe = dict(n_experts=int(hf["num_experts"]),
+                       n_experts_per_tok=int(hf.get("num_experts_per_tok", 8)),
+                       norm_topk_prob=bool(hf.get("norm_topk_prob", False)),
+                       moe_hidden_dim=int(hf["intermediate_size"]))
 
         return TransformerConfig(
             vocab_size=int(hf["vocab_size"]),
@@ -383,15 +432,18 @@ class TransformerConfig:
             hidden_dim=int(hf["intermediate_size"]),
             norm_eps=float(hf.get("rms_norm_eps", 1e-6)),
             rope_theta=theta,
-            qkv_bias=bool(hf.get("attention_bias", mt in qkv_bias_types)),
+            # qwen2_moe names its q/k/v-bias knob qkv_bias (its
+            # attention_bias is present but null)
+            qkv_bias=(bool(hf.get("qkv_bias", True)) if mt == "qwen2_moe"
+                      else bool(hf.get("attention_bias", mt in qkv_bias_types))),
             tie_embeddings=bool(hf.get("tie_word_embeddings", gemma_like)),
             head_dim_override=_explicit_head_dim(hf),
             mlp_act=act_map[act],
             scale_embeddings=gemma_like,
             norm_plus_one=gemma_like,
-            qk_norm=mt in ("qwen3", "gemma3_text"),
-            qk_norm_flat=olmo,
-            post_norm_only=olmo,
+            qk_norm=mt in ("qwen3", "qwen3_moe", "gemma3_text"),
+            qk_norm_flat=mt in ("olmo2", "olmo3", "olmoe", "flex_olmo"),
+            post_norm_only=mt in ("olmo2", "olmo3", "flex_olmo"),
             # glm4's block is gemma2's sandwich wiring under other checkpoint
             # names (hf_loader.translate_glm4_state_dict)
             sandwich_norms=mt in ("gemma2", "gemma3_text", "glm4"),
@@ -418,10 +470,7 @@ class TransformerConfig:
             rope_interleaved=mt in ("glm", "glm4"),
             clip_qkv=opt_float("clip_qkv"),
             dtype=dtype,
-            # HF MixtralSparseMoeBlock: softmax over all experts, top-k,
-            # always renormalized; experts at intermediate_size
-            n_experts=int(hf["num_local_experts"]) if mt == "mixtral" else 0,
-            n_experts_per_tok=int(hf.get("num_experts_per_tok", 2)),
+            **moe,
             remat=remat,
         )
 
@@ -2003,20 +2052,28 @@ def _use_int8_kernel(x: torch.Tensor) -> bool:
 
 
 def _moe_routing(
-    gate: torch.nn.Module, x: torch.Tensor, top_k: int
+    mod: "MoEMLP", x: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k expert weights (f32) and ids: router logits in f32, softmax over
-    all experts, top-k, renormalized (HF Mixtral)."""
-    scores = torch.softmax(gate(x).to(torch.float32), dim=-1)
-    top_vals, top_idx = torch.topk(scores, top_k, dim=-1)
-    return top_vals / torch.sum(top_vals, dim=-1, keepdim=True), top_idx
+    """Top-k expert weights (f32) and ids (the JAX package's ``_moe_routing``,
+    its softmax branch): router logits in f32, softmax over all experts,
+    top-k, renormalized where the layer's ``norm_topk`` is set (Mixtral;
+    Qwen-MoE and OLMoE by ``norm_topk_prob``)."""
+    scores = torch.softmax(mod.gate(x).to(torch.float32), dim=-1)
+    top_vals, top_idx = torch.topk(scores, mod.top_k, dim=-1)
+    if mod.norm_topk:
+        top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
+    return top_vals, top_idx
 
 
 class MoEMLP(torch.nn.Module):
-    """Top-k routed mixture of SwiGLU experts (Mixtral), with the router at
-    ``gate`` and experts at ``experts.E.{gate,up,down}_proj``.
+    """Top-k routed mixture of SwiGLU experts (Mixtral, Qwen2-/Qwen3-MoE,
+    OLMoE), with the router at ``gate`` and experts at
+    ``experts.E.{gate,up,down}_proj``; Qwen2-MoE's always-on
+    ``shared_expert`` (an ``MLP``) adds its output scaled by
+    sigmoid(``shared_expert_gate``(x)), a Linear from dim to 1, on every
+    route.
 
-    Three dispatch routes, as in the JAX package:
+    Three dispatch routes for the routed experts, as in the JAX package:
 
     * **grouped**: when every expert is a plain ``MLP`` of exact-type,
       bias-free ``nn.Linear`` (or uniformly ``QuantLinear``) projections
@@ -2031,15 +2088,26 @@ class MoEMLP(torch.nn.Module):
       unrouted ones zeroed, so a capture hook sees exactly the routed rows.
 
     The grouped routes never call the expert modules, so hooks on them would
-    not fire: a hooked expert makes the layer take the dense route."""
+    not fire: a hooked expert makes the layer take the dense route.  The
+    shared expert is always called as a module, so its hooks fire on any
+    route and leave the routed experts' route as it is."""
 
     def __init__(self, cfg: TransformerConfig, device: Any) -> None:
         super().__init__()
         self.gate = torch.nn.Linear(
             cfg.dim, cfg.n_experts, bias=False, dtype=cfg.dtype, device=device
         )
-        self.experts = torch.nn.ModuleList(MLP(cfg, device) for _ in range(cfg.n_experts))
+        expert_cfg = dataclasses.replace(cfg, hidden_dim=cfg.moe_hidden_dim or cfg.hidden_dim)
+        self.experts = torch.nn.ModuleList(MLP(expert_cfg, device) for _ in range(cfg.n_experts))
+        self.shared_expert = self.shared_expert_gate = None
+        if cfg.shared_expert_hidden_dim is not None:
+            self.shared_expert = MLP(
+                dataclasses.replace(cfg, hidden_dim=cfg.shared_expert_hidden_dim), device)
+            if cfg.shared_expert_gated:
+                self.shared_expert_gate = torch.nn.Linear(
+                    cfg.dim, 1, bias=False, dtype=cfg.dtype, device=device)
         self.top_k = cfg.n_experts_per_tok
+        self.norm_topk = cfg.norm_topk_prob
 
     def _experts_are_pristine(self) -> bool:
         ok = (torch.nn.Linear, QuantLinear)
@@ -2060,29 +2128,34 @@ class MoEMLP(torch.nn.Module):
         return True
 
     def _routing(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return _moe_routing(self.gate, x, self.top_k)
+        return _moe_routing(self, x)
 
     def _sort_by_expert(self, x: torch.Tensor):
         """Route, then sort the (token, slot) rows by expert with a stable
-        sort.  Returns (xg, w_sorted, tok_sorted, group_sizes); nothing here
-        waits for the card."""
+        sort.  Returns (xg, w_sorted, order, group_sizes), ``order`` the
+        sorted rows' (token, slot) positions; nothing here waits for the
+        card."""
         n_experts = len(self.experts)
         xf = x.reshape(-1, x.shape[-1])
         top_vals, top_idx = self._routing(xf)
         expert_ids = top_idx.reshape(-1)  # row-major by token
         order = torch.argsort(expert_ids, stable=True)
-        tok_sorted = order // self.top_k
         group_sizes = torch.zeros(n_experts, dtype=torch.int32, device=x.device)
         group_sizes.scatter_add_(0, expert_ids, torch.ones_like(expert_ids, dtype=torch.int32))
         w_sorted = top_vals.reshape(-1)[order].to(x.dtype)
-        return xf[tok_sorted], w_sorted, tok_sorted, group_sizes
+        return xf[order // self.top_k], w_sorted, order, group_sizes
 
     def _combine(
-        self, x: torch.Tensor, y: torch.Tensor, w_sorted: torch.Tensor, tok_sorted: torch.Tensor
+        self, x: torch.Tensor, y: torch.Tensor, w_sorted: torch.Tensor, order: torch.Tensor
     ) -> torch.Tensor:
-        out = torch.zeros((tok_sorted.shape[0] // self.top_k, x.shape[-1]),
-                          dtype=x.dtype, device=x.device)
-        return out.index_add_(0, tok_sorted, y * w_sorted[:, None]).reshape(x.shape)
+        """Each token's sum of its top-k weighted expert rows.  The rows go
+        back to (token, slot) order and each token's k rows are summed in
+        slot order, so the sum is the same every run; an atomic scatter-add
+        (``index_add_`` on the card) adds three or more rows in a varying
+        order, and in bf16 their roundings then vary."""
+        yw = torch.empty_like(y)
+        yw[order] = y * w_sorted[:, None]
+        return yw.view(-1, self.top_k, y.shape[-1]).sum(dim=1).reshape(x.shape)
 
     def _expert_weights(self, proj: str, dtype: torch.dtype) -> list[torch.Tensor]:
         ws = []
@@ -2092,19 +2165,19 @@ class MoEMLP(torch.nn.Module):
         return ws
 
     def _grouped(self, x: torch.Tensor) -> torch.Tensor:
-        xg, w_sorted, tok_sorted, group_sizes = self._sort_by_expert(x)
+        xg, w_sorted, order, group_sizes = self._sort_by_expert(x)
         # the JAX dtype rule (transformer.py:5201-5205): bf16 takes the
         # kernel (on a CUDA tensor), f32 the plain grouped product
         gdot = grouped_matmul if xg.dtype == torch.bfloat16 else grouped_matmul_plain
         g = gdot(xg, self._expert_weights("gate_proj", x.dtype), group_sizes)
         u = gdot(xg, self._expert_weights("up_proj", x.dtype), group_sizes)
         y = gdot(F.silu(g) * u, self._expert_weights("down_proj", x.dtype), group_sizes)
-        return self._combine(x, y, w_sorted, tok_sorted)
+        return self._combine(x, y, w_sorted, order)
 
     def _grouped_int8(self, x: torch.Tensor) -> torch.Tensor:
         """The int8 kernel on each projection, reading the int8 grids of the
         sorted rows' experts directly (no dequantized copy)."""
-        xg, w_sorted, tok_sorted, group_sizes = self._sort_by_expert(x)
+        xg, w_sorted, order, group_sizes = self._sort_by_expert(x)
 
         def gdot(a: torch.Tensor, proj: str) -> torch.Tensor:
             ps = [getattr(e, proj) for e in self.experts]
@@ -2113,7 +2186,7 @@ class MoEMLP(torch.nn.Module):
             )
 
         h = F.silu(gdot(xg, "gate_proj")) * gdot(xg, "up_proj")
-        return self._combine(x, gdot(h, "down_proj"), w_sorted, tok_sorted)
+        return self._combine(x, gdot(h, "down_proj"), w_sorted, order)
 
     def _dense_masked(self, x: torch.Tensor) -> torch.Tensor:
         top_vals, top_idx = self._routing(x)
@@ -2126,13 +2199,25 @@ class MoEMLP(torch.nn.Module):
             out = out + expert(x_e) * w_e
         return out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _routed(self, x: torch.Tensor) -> torch.Tensor:
         if not self._experts_are_pristine():
             return self._dense_masked(x)
         quant = type(self.experts[0].gate_proj) is QuantLinear
         if quant and _use_int8_kernel(x):
             return self._grouped_int8(x)
         return self._grouped(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self._routed(x)
+        if self.shared_expert is None:
+            return out
+        shared = self.shared_expert(x)
+        if self.shared_expert_gate is not None:
+            # the gate's Linear in x's dtype, its sigmoid in f32, cast back
+            # (JAX transformer.py:5414-5417)
+            shared = shared * torch.sigmoid(self.shared_expert_gate(x).to(torch.float32)).to(
+                x.dtype)
+        return out + shared
 
 
 class Block(torch.nn.Module):
@@ -2168,7 +2253,7 @@ class Block(torch.nn.Module):
         self.post_feedforward_layernorm = (
             _block_norm(cfg, device) if cfg.sandwich_norms or cfg.post_norm_only else None
         )
-        self.mlp = MoEMLP(cfg, device) if cfg.n_experts > 0 else MLP(cfg, device)
+        self.mlp = MoEMLP(cfg, device) if cfg.layer_is_sparse(layer_idx) else MLP(cfg, device)
         if cfg.parallel_residual not in ("none", "one_norm", "two_norm"):
             raise ValueError(f"parallel_residual={cfg.parallel_residual!r}")
         self.parallel_residual = cfg.parallel_residual

@@ -30,7 +30,7 @@ __all__ = [
     "kernel_function",
     "launch",
     "pointer_table",
-    "host_pointers",
+    "tensor_map_table",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -189,20 +189,44 @@ def pointer_table(tensors: "list[torch.Tensor]") -> "torch.Tensor":
         return table
 
 
-_host_arrays: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
+_map_tables: "collections.OrderedDict[tuple, torch.Tensor]" = collections.OrderedDict()
+# a CUtensorMap's bytes and the alignment a kernel reads one at
+TENSOR_MAP_BYTES, TENSOR_MAP_ALIGN = 128, 64
 
 
-def host_pointers(tensors: "list[torch.Tensor]") -> ctypes.Array:
-    """A host array of the tensors' data pointers (uint64), for kernels that
-    encode a TMA tensor map per matrix at launch; cached by the pointers."""
-    key = tuple(t.data_ptr() for t in tensors)
+def tensor_map_table(name: str, symbol: str, tensors: "list[torch.Tensor]",
+                     *shape: int) -> "torch.Tensor":
+    """A device table of TMA tensor maps, one per matrix, for kernels that
+    read one matrix per expert through TMA: kernel ``name``'s C entry
+    ``symbol(host pointers, count, *shape, host buffer)`` encodes them on
+    the host (``shape``: the matrices' rows and columns, and whatever else
+    sets the entry's boxes), and the table is copied to the device (64-byte
+    aligned, as TMA reads a map there).  Tables are cached by kernel, entry,
+    device, pointers and shape, so a model's unchanged weights are encoded
+    once (a table's maps describe nothing but those addresses and shapes,
+    so a cached table is never stale); the copy goes from pinned memory
+    without a host sync."""
+    import torch
+
+    device = tensors[0].device
+    ptrs = tuple(t.data_ptr() for t in tensors)
+    key = (name, symbol, device.index, ptrs, *shape)
     with _lock:
-        arr = _host_arrays.get(key)
-        if arr is None:
-            arr = (ctypes.c_uint64 * len(key))(*key)
-            _host_arrays[key] = arr
-            if len(_host_arrays) > _MAX_TABLES:
-                _host_arrays.popitem(last=False)
-        else:
-            _host_arrays.move_to_end(key)
-        return arr
+        table = _map_tables.get(key)
+        if table is not None:
+            _map_tables.move_to_end(key)
+            return table
+    fn = kernel_function(name, symbol,
+                         [ctypes.c_void_p] + [ctypes.c_int] * (1 + len(shape)) + [ctypes.c_void_p])
+    host = torch.empty(len(ptrs) * TENSOR_MAP_BYTES, dtype=torch.uint8, pin_memory=True)
+    rc = fn((ctypes.c_uint64 * len(ptrs))(*ptrs), len(ptrs), *shape, host.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"{name}: encoding {len(ptrs)} tensor maps failed: cudaError {rc}")
+    table = host.to(device, non_blocking=True)
+    if table.data_ptr() % TENSOR_MAP_ALIGN:
+        raise RuntimeError(f"{name}: the tensor-map table is not {TENSOR_MAP_ALIGN}-byte aligned")
+    with _lock:
+        _map_tables[key] = table
+        if len(_map_tables) > _MAX_TABLES:
+            _map_tables.popitem(last=False)
+    return table

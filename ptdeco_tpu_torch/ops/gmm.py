@@ -63,19 +63,21 @@ def block_rows(m: int, n_experts: int, sizes: Sequence[int] = KERNEL_BLOCK_ROWS)
 
 
 # the wgmma route's tile: BM (64 or 128) x 256 columns, BK 64, 4 stages
-# (csrc/grouped_matmul.cu:WgTile); its tensor maps are kernel parameters,
-# at most MAX_TMA_EXPERTS of them
+# (csrc/grouped_matmul.cu:WgTile).  Its experts' tensor maps lie in a device
+# table (``_build.tensor_map_table``), at most MAX_TMA_EXPERTS of them (the
+# int8 kernel's batch route's too): DeepSeek-V3's 256 routed experts, twice
+# the 128 of Qwen3-MoE, the most of the models the port builds
 WGMMA_BLOCK_COLS = 256
 WGMMA_BLOCK_K = 64
 WGMMA_STAGES = 4
-MAX_TMA_EXPERTS = 16
+MAX_TMA_EXPERTS = 256
 
 
 def kernel_route(m: int, k: int, n: int, n_experts: int) -> str:
     """The grouped kernel's route for ``m`` rows of ``k`` over ``n_experts``
     (n, k) weights: ``"wgmma"`` (TMA + wgmma) for the 64- and 128-row
     m-tiles when both row pitches are multiples of 16 bytes (TMA's rule)
-    and the experts' tensor maps fit the kernel's parameters; otherwise
+    and there are at most MAX_TMA_EXPERTS experts; otherwise
     ``"mma_sync"``: the 16-row decode tile (already near its byte bound)
     and the shapes TMA cannot address."""
     if block_rows(m, n_experts) == 16:
@@ -152,15 +154,17 @@ def grouped_matmul(
     weights = [_build.aligned(w) for w in weights]
     sizes = group_sizes.to(torch.int32).contiguous()
     route = kernel_route(m, k, n, e)
+    bm = block_rows(m, e)
     if route == "wgmma":
-        # the kernel encodes one tensor map per expert from host pointers
-        ptrs = _build.host_pointers(weights)
+        # the experts' tensor maps, encoded once for these weights and tile
+        ptrs = _build.tensor_map_table("grouped_matmul", "ptdeco_grouped_wgmma_encode_weights",
+                                       weights, n, k, bm).data_ptr()
         fn = _build.kernel_function("grouped_matmul", "ptdeco_grouped_matmul_wgmma", _ARGTYPES)
     else:
         ptrs = _build.pointer_table(weights).data_ptr()
         fn = _build.kernel_function("grouped_matmul", "ptdeco_grouped_matmul", _ARGTYPES)
     _build.launch("grouped_matmul", fn, lhs.device, lhs.data_ptr(), ptrs, sizes.data_ptr(), e,
-                  out.data_ptr(), m, k, n, block_rows(m, e))
+                  out.data_ptr(), m, k, n, bm)
     grouped_matmul.launches += 1
     grouped_matmul.route_launches[route] += 1
     return out

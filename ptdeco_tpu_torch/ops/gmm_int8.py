@@ -81,8 +81,8 @@ def kernel_route(m: int, k: int, n: int, n_experts: int) -> str:
     (n, k) grids: ``"decode"`` when a mean group fits one 16-row slot (the
     decode steps), and for every shape the batch route cannot take (K not a
     multiple of 16 or N of 8, which TMA's 16-byte pitch and the 16-byte
-    row stores need, or more experts than its tensor-map parameters hold);
-    otherwise ``"batch"``."""
+    row stores need, or more than MAX_TMA_EXPERTS experts); otherwise
+    ``"batch"``."""
     if block_rows(m, n_experts, (DECODE_ROWS, *BATCH_TILE_ROWS)) == DECODE_ROWS:
         return "decode"
     if k == 0 or k % 16 or n % 8 or not 1 <= n_experts <= MAX_TMA_EXPERTS:
@@ -196,11 +196,12 @@ def grouped_matmul_int8(
     sizes = group_sizes.to(torch.int32).contiguous()
     route = kernel_route(m, k, n, e)
     if route == "batch":
-        # the kernel encodes one tensor map per grid from host pointers
+        # the grids' tensor maps, encoded once for these grids
+        maps = _build.tensor_map_table("gmm_int8", "ptdeco_gmm_int8_encode_weights", w_q, n, k)
         fn = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_batch", _BATCH_ARGTYPES)
-        _build.launch("grouped_matmul_int8", fn, lhs.device, lhs.data_ptr(),
-                      _build.host_pointers(w_q), s_table.data_ptr(), sizes.data_ptr(), e,
-                      out.data_ptr(), m, k, n, batch_rows(m, e))
+        _build.launch("grouped_matmul_int8", fn, lhs.device, lhs.data_ptr(), maps.data_ptr(),
+                      s_table.data_ptr(), sizes.data_ptr(), e, out.data_ptr(), m, k, n,
+                      batch_rows(m, e))
     else:
         index = lhs.device.index if lhs.device.index is not None else torch.cuda.current_device()
         ks, steps = decode_split(m, k, n, e, _sm_count(index), DECODE_BLOCK_K, DECODE_COLS)

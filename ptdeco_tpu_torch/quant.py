@@ -88,29 +88,36 @@ def dequantize_linear(q: QuantLinear, dtype: torch.dtype = torch.float32) -> tor
 
 
 def _router_gate_names(root: torch.nn.Module) -> set:
-    """Dotted paths of MoE router gates: small, routing-critical matmuls that
-    stay in full precision."""
+    """Dotted paths of MoE router gates and shared-expert gates: small,
+    routing-critical matmuls that stay in full precision."""
     from .models.transformer import MoEMLP
 
-    return {
-        f"{name}.gate" if name else "gate"
-        for name, m in root.named_modules()
-        if type(m) is MoEMLP
-    }
+    out = set()
+    for name, m in root.named_modules():
+        if type(m) is MoEMLP:
+            prefix = f"{name}." if name else ""
+            out.add(prefix + "gate")
+            if m.shared_expert_gate is not None:
+                out.add(prefix + "shared_expert_gate")
+    return out
 
 
 def quantize_for_serving(
-    root: torch.nn.Module, *, skip_names: Collection[str] = ()
+    root: torch.nn.Module, *, skip_names: Collection[str] = (), min_features: int = 1
 ) -> torch.nn.Module:
     """Replace every exact-type ``nn.Linear`` under ``root`` with its
-    ``QuantLinear`` (in place; returns ``root``).  MoE router gates and
-    ``skip_names`` are skipped."""
+    ``QuantLinear`` (in place; returns ``root``).  MoE router and
+    shared-expert gates, ``skip_names`` and Linears with fewer than
+    ``min_features`` inputs or outputs (too small to be bound by reading
+    their weights) are skipped."""
     from .nn import replace_submodule
 
     skip = set(skip_names) | _router_gate_names(root)
     n = 0
     for name, m in list(root.named_modules()):
         if name in skip or type(m) is not torch.nn.Linear:
+            continue
+        if min(m.in_features, m.out_features) < min_features:
             continue
         q = quantize_linear(m)
         if not name:

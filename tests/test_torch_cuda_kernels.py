@@ -522,7 +522,8 @@ def test_grouped_matmul_wgmma_keeps_to_its_group(dev, sizes):
         ([2, 3, 1, 2], 256, 512, "mma_sync"),  # the 16-row decode tile
         ([300, 200, 100, 400], 100, 512, "mma_sync"),  # K * 2 not a multiple of 16 bytes
         ([300, 200, 100, 400], 256, 333, "mma_sync"),  # N * 2 not a multiple of 16 bytes
-        ([40] * 17, 256, 512, "mma_sync"),  # more experts than tensor-map slots
+        ([40] * 17, 256, 512, "wgmma"),  # past the 16 maps a kernel's parameters held
+        ([40] * 257, 256, 512, "mma_sync"),  # more experts than the map table takes
     ],
 )
 def test_grouped_matmul_route_rule(dev, sizes, k, n, route):
@@ -553,6 +554,46 @@ def test_grouped_wgmma_smem_bytes_agree(dev):
     assert fn(16) == 0
     most = _build.kernel_function("grouped_matmul", "ptdeco_grouped_wgmma_max_experts", [])
     assert most() == gmm.MAX_TMA_EXPERTS
+    most = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_batch_max_experts", [])
+    assert most() == gmm.MAX_TMA_EXPERTS
+
+
+@pytest.mark.parametrize("e,k,n", [(60, 2048, 1408), (64, 1024, 2048), (128, 2048, 768)])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_many_experts_take_the_tensor_core_routes(dev, e, k, n, kind):
+    """Qwen1.5-MoE's 60, OLMoE's 64 and Qwen3-MoE's 128 experts at a
+    prefill's mean group of 32-64 rows (some experts unrouted): the bf16
+    kernel's wgmma route and the int8 kernel's batch route, each reading
+    its experts' tensor maps from a device table.  A second call finds the
+    table encoded already and gives the same bits."""
+    from ptdeco_tpu_torch.ops import gmm, gmm_int8
+
+    g = torch.Generator().manual_seed(e)
+    sizes = (torch.randint(0, 97, (e,), generator=g) * (torch.rand(e, generator=g) > 0.1)).tolist()
+    m = sum(sizes)
+    group_sizes = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    lhs = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    if kind == "bf16":
+        assert gmm.kernel_route(m, k, n, e) == "wgmma"
+        w = [(torch.randn(n, k, device=dev) / k ** 0.5).to(torch.bfloat16) for _ in sizes]
+        run = lambda: ops.grouped_matmul(lhs, w, group_sizes)  # noqa: E731
+        plain = ops.grouped_matmul_plain(lhs, w, group_sizes)
+        routes, route = ops.grouped_matmul.route_launches, "wgmma"
+    else:
+        assert gmm_int8.kernel_route(m, k, n, e) == "batch"
+        w_q, scales, _ = _int8_case(dev, sizes, k, n)[1:]
+        run = lambda: ops.grouped_matmul_int8(lhs, w_q, scales, group_sizes)  # noqa: E731
+        plain = ops.grouped_matmul_int8_plain(lhs, w_q, scales, group_sizes)
+        routes, route = ops.grouped_matmul_int8.route_launches, "batch"
+    before = routes[route]
+    first = run()
+    tables = dict(_build._map_tables)
+    second = run()
+    torch.cuda.synchronize()
+    assert routes[route] == before + 2
+    assert _build._map_tables.keys() == tables.keys()  # the second call encoded nothing
+    assert torch.equal(first, second)
+    _assert_within(first, plain)
 
 
 def test_grouped_matmul_rejects_unsupported(dev):
@@ -589,7 +630,9 @@ _INT8_CASES = [
 
 
 def _batch_takes(k, n, e):
-    return k % 16 == 0 and n % 8 == 0 and e <= 16
+    from ptdeco_tpu_torch.ops import gmm
+
+    return k % 16 == 0 and n % 8 == 0 and e <= gmm.MAX_TMA_EXPERTS
 
 
 @pytest.mark.parametrize(
@@ -636,8 +679,8 @@ def test_gmm_int8_split_k_is_deterministic(dev, k, n):
 def test_gmm_int8_reads_no_weight_for_an_empty_tile(dev, route):
     """An unrouted expert's pointers are null: any read of them (by its own
     tile slot or by a trailing empty slot) faults, so a clean run shows that
-    empty slots read no weight.  The batch route encodes no tensor map for
-    a null grid."""
+    empty slots read no weight.  The batch route's table holds a zero map
+    for a null grid."""
     from ptdeco_tpu_torch.ops import _build, gmm_int8
 
     sizes, k, n = ([3, 0, 5, 0], 256, 384) if route == "decode" else ([90, 0, 70, 0], 256, 384)
@@ -657,17 +700,29 @@ def test_gmm_int8_reads_no_weight_for_an_empty_tile(dev, route):
                 out.data_ptr(), m, k, n, ks, steps, gmm_int8.DECODE_COLS,
                 gmm_int8.DECODE_BLOCK_K, stream)
     else:
-        ptrs = (ctypes.c_uint64 * e)(*[w.data_ptr() if ok else 0 for w, ok in zip(w_q, live)])
+        table = _int8_map_table([w.data_ptr() if ok else 0 for w, ok in zip(w_q, live)], n, k, dev)
         fn = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_batch", gmm_int8._BATCH_ARGTYPES)
-        rc = fn(lhs.data_ptr(), ptrs, sptrs.data_ptr(), group_sizes.data_ptr(), e,
+        rc = fn(lhs.data_ptr(), table.data_ptr(), sptrs.data_ptr(), group_sizes.data_ptr(), e,
                 out.data_ptr(), m, k, n, gmm_int8.batch_rows(m, e), stream)
     assert rc == 0
     torch.cuda.synchronize()
     _assert_within(out, ops.grouped_matmul_int8_plain(lhs, w_q, scales, group_sizes))
 
 
+def _int8_map_table(ptrs, n, k, dev, offset=0):
+    """The batch route's device table of grid maps for raw pointers (null
+    ones included), ``offset`` bytes into its allocation."""
+    encode = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_encode_weights",
+                                    [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    host = torch.zeros(len(ptrs) * _build.TENSOR_MAP_BYTES, dtype=torch.uint8)
+    assert encode((ctypes.c_uint64 * len(ptrs))(*ptrs), len(ptrs), n, k, host.data_ptr()) == 0
+    table = torch.zeros(offset + host.numel(), dtype=torch.uint8, device=dev)
+    table[offset:] = host.to(dev)
+    return table[offset:]
+
+
 def test_gmm_int8_rejects_unsupported(dev):
-    from ptdeco_tpu_torch.ops import _build, gmm_int8
+    from ptdeco_tpu_torch.ops import _build, gmm, gmm_int8
 
     lhs, w_q, scales, group_sizes = _int8_case(dev, [4, 4], 64, 32)
     with pytest.raises(ValueError):
@@ -679,11 +734,13 @@ def test_gmm_int8_rejects_unsupported(dev):
     stream = torch.cuda.current_stream().cuda_stream
     table = _build.pointer_table(scales).data_ptr()
     batch = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_batch", gmm_int8._BATCH_ARGTYPES)
-    host = _build.host_pointers(w_q)
-    for m, k, n, e, bn in ((8, 60, 32, 2, 128), (8, 64, 30, 2, 128), (8, 64, 32, 17, 128),
-                           (8, 64, 32, 2, 64)):
-        assert batch(lhs.data_ptr(), host, table, group_sizes.data_ptr(), e, out.data_ptr(),
-                     m, k, n, bn, stream) != 0
+    maps = _int8_map_table([w.data_ptr() for w in w_q], 32, 64, dev)
+    unaligned = _int8_map_table([w.data_ptr() for w in w_q], 32, 64, dev, offset=16)
+    for m, k, n, e, bn, t in ((8, 60, 32, 2, 128, maps), (8, 64, 30, 2, 128, maps),
+                              (8, 64, 32, gmm.MAX_TMA_EXPERTS + 1, 128, maps),
+                              (8, 64, 32, 2, 64, maps), (8, 64, 32, 2, 128, unaligned)):
+        assert batch(lhs.data_ptr(), t.data_ptr(), table, group_sizes.data_ptr(), e,
+                     out.data_ptr(), m, k, n, bn, stream) != 0
     decode = _build.kernel_function("gmm_int8", "ptdeco_gmm_int8_decode",
                                     gmm_int8._DECODE_ARGTYPES)
     wt = _build.pointer_table(w_q).data_ptr()
@@ -715,6 +772,28 @@ def test_moe_layer_routes_through_the_kernels(dev):
     assert ops.launch_counts()["gmm_int8"] == 3
     assert ops.grouped_matmul_int8.route_launches["decode"] == 3
     torch.testing.assert_close(y8.float(), y.float(), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_moe_layer_is_deterministic_at_top_8(dev, quantized):
+    """Eight expert rows a token (Qwen3-MoE's and OLMoE's top-8), on the
+    grouped and grouped int8 routes: each token's rows are summed in slot
+    order, so two calls give the same bits (an atomic scatter-add of three
+    or more bf16 rows does not)."""
+    from ptdeco_tpu_torch import models, quant
+
+    cfg = models.TransformerConfig(
+        vocab_size=64, dim=256, n_layers=1, n_heads=4, n_kv_heads=2, hidden_dim=128,
+        n_experts=64, n_experts_per_tok=8, norm_topk_prob=False, dtype=torch.bfloat16,
+    )
+    moe = models.CausalLM(cfg, device=dev).model.layers[0].mlp
+    if quantized:
+        quant.quantize_for_serving(moe)
+    x = torch.randn(4, 256, 256, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        first, second = moe(x), moe(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # --- ResNet-50's shapes (falor's Grams, the fused 1x1-conv pairs) ---------

@@ -41,6 +41,10 @@ FAMILIES = {
     # head_dim * heads != hidden_size (gemma-7b's layout), one kv head, the
     # older snapshots' hidden_act "gelu"
     "gemma": tiny_hf("gemma", head_dim=16, num_key_value_heads=1, hidden_act="gelu"),
+    # the MoE decoders (tests/test_torch_moe_families.py has their routes)
+    "olmoe": tiny_hf("olmoe", num_experts=4, num_experts_per_tok=2),
+    "qwen3_moe": tiny_hf("qwen3_moe", head_dim=8, num_experts=4, num_experts_per_tok=2,
+                         moe_intermediate_size=16),
 }
 
 
@@ -146,14 +150,18 @@ REFUSED_BY_BOTH = {
                        num_hidden_layers=2, num_attention_heads=4, hidden_act="gelu"),
 }
 REFUSED_BY_PORT = {
-    "olmoe": tiny_hf("olmoe", num_experts=4, num_experts_per_tok=2),
+    # the MoE and latent-attention types still to come (ROADMAP.md Queue 1
+    # item 6): attention sinks and biased experts, latent attention with
+    # grouped routing, granite's MoE
     "gpt_oss": tiny_hf("gpt_oss", head_dim=8, num_local_experts=4, num_experts_per_tok=2),
-    "qwen3_moe": tiny_hf("qwen3_moe", head_dim=8, num_experts=4, num_experts_per_tok=2,
-                         moe_intermediate_size=16),
+    "deepseek_v2": tiny_hf("deepseek_v2", n_routed_experts=4, num_experts_per_tok=2,
+                           moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
+                           qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8),
     "deepseek_v3": tiny_hf("deepseek_v3", n_routed_experts=4, num_experts_per_tok=2,
                            moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
                            qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8,
                            n_group=1, topk_group=1),
+    "granitemoe": tiny_hf("granitemoe", num_local_experts=4, num_experts_per_tok=2),
     # dense types the port does not build yet: the bert lineage, as a causal
     # decoder (post-LN blocks, learned positions) and ModernBERT's decoder
     # (its first layer without an attention norm, a prediction head)

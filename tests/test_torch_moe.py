@@ -84,7 +84,7 @@ def test_config_from_hf_mixtral():
     # at hidden_dim: the JAX package's Mixtral arm says the same
     jcfg = jmodels.TransformerConfig.from_hf_config(MIXTRAL_HF)
     assert jcfg.norm_topk_prob and (jcfg.moe_hidden_dim or jcfg.hidden_dim) == cfg.hidden_dim
-    for mt in ("qwen3_moe", "deepseek_v3", "olmoe"):
+    for mt in ("deepseek_v2", "deepseek_v3", "gpt_oss"):
         with pytest.raises(ValueError):
             tmodels.TransformerConfig.from_hf_config({**MIXTRAL_HF, "model_type": mt})
 

@@ -291,7 +291,9 @@ def test_grouped_route_rule():
     assert kernel_route(4096, 100, 512, 8) == "mma_sync"  # K * 2 not a multiple of 16 bytes
     assert kernel_route(4096, 256, 333, 8) == "mma_sync"  # N * 2 not a multiple of 16 bytes
     assert kernel_route(4096, 0, 512, 8) == "mma_sync"
-    assert kernel_route(40 * 17, 256, 512, MAX_TMA_EXPERTS + 1) == "mma_sync"
+    # 40-row mean groups: past the expert limit only the count refuses
+    assert kernel_route(40 * MAX_TMA_EXPERTS, 256, 512, MAX_TMA_EXPERTS) == "wgmma"
+    assert kernel_route(40 * (MAX_TMA_EXPERTS + 1), 256, 512, MAX_TMA_EXPERTS + 1) == "mma_sync"
     assert all(wgmma_smem_bytes(bm) <= 232448 for bm in (64, 128))
 
 
@@ -311,8 +313,8 @@ def test_int8_route_rule():
     assert kernel_route(4096, 4104, 512, 8) == "decode"
     assert kernel_route(4096, 256, 333, 8) == "decode"  # N not a multiple of 8
     assert kernel_route(4096, 0, 512, 8) == "decode"
-    assert kernel_route(40 * 17, 256, 512, MAX_TMA_EXPERTS + 1) == "decode"
-    assert kernel_route(40 * 16, 256, 512, MAX_TMA_EXPERTS) == "batch"
+    assert kernel_route(40 * (MAX_TMA_EXPERTS + 1), 256, 512, MAX_TMA_EXPERTS + 1) == "decode"
+    assert kernel_route(40 * MAX_TMA_EXPERTS, 256, 512, MAX_TMA_EXPERTS) == "batch"
 
 
 @pytest.mark.parametrize(

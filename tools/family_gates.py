@@ -1,6 +1,6 @@
 """Read ``chip_smoke.py``'s model-level gates again.
 
-    python3 tools/family_gates.py [--kernels] [--seeds 0 1] [--only NAME ...]
+    python3 tools/family_gates.py [--kernels] [--moe-kernels] [--seeds 0 1] [--only NAME ...]
     python3 tools/family_gates.py --whole [--seeds 0 1]
     (from the repo root, on a CUDA machine)
 
@@ -8,7 +8,8 @@ Every model-level gate of ``chip_smoke.py`` is a ``logits_agree`` call;
 this tool opens them all (but the bit-equal ones, whose limit is 0), so
 that no reading stops the run, and records each call's readings beside
 the limit the call asked for.  By default it runs ``chip_smoke.py``'s
-kernel lines (with ``--kernels``), then its ``family_serve`` phase of every
+kernel lines (with ``--kernels``; the MoE serving path's with
+``--moe-kernels``), then its ``family_serve`` phase of every
 family (``qwen2_1_5b`` and ``FAMILY_CONFIGS``, or the ``--only`` ones) at
 each seed; with ``--whole`` all of ``chip_smoke.main`` at each seed (slice
 1's model, its trainer CLI and phi-2 included).  Each phase's JSON line is
@@ -38,6 +39,8 @@ OPEN = 1e9
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels", action="store_true", help="run the kernel lines first")
+    parser.add_argument("--moe-kernels", action="store_true",
+                        help="run the MoE serving path's kernel lines first")
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     parser.add_argument("--only", nargs="+", help="these families only")
     parser.add_argument("--whole", action="store_true", help="all of chip_smoke.main a seed")
@@ -75,6 +78,8 @@ def main() -> None:
         _build.build_all()
         if args.kernels:
             cs.kernel_checks(dev)
+        if args.moe_kernels:
+            cs.moe_kernel_checks(dev, {k: [] for k in cs.KERNEL_INFO})
         names = args.only or ["qwen2_1_5b", *cs.FAMILY_CONFIGS]
         for seed in args.seeds:
             for name in names:
