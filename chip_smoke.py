@@ -127,6 +127,17 @@ bf16 walk rows on both routes); the fused model is then quantized and
 served through cached generate in int8 too, held against bf16 routed as
 the bf16 run was.
 
+Slice 21 adds DeepSeek-V2-Lite and DeepSeek-V3 at their public widths
+(DeepSeek-V3 from its third layer, its experts 256 -> 64 in 8 groups):
+multi-head latent attention (plain, so flash launches 0 times; the cached
+form keeps the normed latent and the shared rope head, kv_b_proj absorbed)
+and DeepSeek's routing (V3: sigmoid scores, a planted correction bias,
+top-2-sum groups, routed scaling).  The walk takes every site but
+kv_b_proj, the routers and the routed experts, so layer 1's experts take
+the grouped kernels throughout; the int8 serve keeps kv_b_proj in bf16.
+The grouped kernels' lines run at the published 256 and 64 experts, and
+the SYRK and low-rank lines at the walks' Gram widths and chosen ranks.
+
 Phases, one JSON line each: device, build (the five CUDA kernels, one nvcc
 each, started together), one kernel line per kernel and shape (the kernel
 against its plain PyTorch version at the main paths' shapes, with timings),
@@ -150,9 +161,10 @@ llama3_2_1b, gemma2_2b, gemma3_1b, phi3_mini, olmo2_1b, glm4_9b, smollm3_3b,
 gpt2_xl, pythia_1_4b, falcon_7b, gptj_6b, opt_6_7b, starcoderbase_1b,
 persimmon_8b, nemotron_hf_default, arcee_hf_default, bloom_7b1,
 bitnet_hf_default, doge_hf_default, diffllama_hf_default,
-mllama_text_hf_default, moshi_hf_default, qwen3_moe_30b_a3b, olmoe_1b_7b
-and qwen1_5_moe_a2_7b (walk and phase wall and its split, cuts,
-ranks, artifact, fused serve, ``generate``, the MoE phases' int8
+mllama_text_hf_default, moshi_hf_default, qwen3_moe_30b_a3b, olmoe_1b_7b,
+qwen1_5_moe_a2_7b, deepseek_v2_lite and deepseek_v3 (walk and phase wall
+and its split, cuts, ranks, artifact, fused serve, ``generate``, DeepSeek's
+absorbed-pair cost, the MoE phases' int8
 ``generate`` and int8 against bf16, f32 tokens, reference),
 bp_tinyllama (the pruned walk's sites and launches, the bp directory round
 trip, the fused serve, the cache's refusal), dwain_mlp,
@@ -565,8 +577,50 @@ QWEN1_5_MOE_A2_7B = dict(
     decoder_sparse_step=1, sliding_window=32768, use_sliding_window=False,
     tie_word_embeddings=False, max_position_embeddings=8192,
 )
+# Slice 21: DeepSeek's latent-attention MoE decoders at their public
+# config.json's widths (written as numbers): deepseek-ai/DeepSeek-V2-Lite
+# (16 heads, a direct q_proj, latent 512, qk 128 + 64, v 128; a dense MLP of
+# 10944 in layer 0 by first_k_dense_replace; 64 experts of 1408, top-6
+# greedy softmax not renormalized, 2 shared experts, no group limit; yarn
+# factor 40, mscale 0.707) and deepseek-ai/DeepSeek-V3 (128 heads, a q
+# bottleneck of 1536, latent 512; dense MLP 18432 in layers 0-2; 256
+# experts of 2048 in 8 groups, 4 kept, top-8 by sigmoid scores plus the
+# correction bias, renormalized and scaled by 2.5, 1 shared expert; yarn
+# factor 40, mscale 1.0); depth 27 and 61 cut to 2, DeepSeek-V3's from its
+# third layer (one dense, one sparse) and its experts 256 -> 64
+# (``FAMILY_EXPERTS``: 8 groups of 8, so the group limit still binds)
+YARN_40 = {"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096,
+           "beta_fast": 32, "beta_slow": 1}
+DEEPSEEK_V2_LITE = dict(
+    model_type="deepseek_v2", vocab_size=102400, hidden_size=2048, intermediate_size=10944,
+    moe_intermediate_size=1408, num_hidden_layers=27, num_attention_heads=16,
+    num_key_value_heads=16, q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128,
+    qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=64, n_shared_experts=2,
+    num_experts_per_tok=6, norm_topk_prob=False, routed_scaling_factor=1.0, topk_method="greedy",
+    n_group=1, topk_group=1, first_k_dense_replace=1, moe_layer_freq=1, hidden_act="silu",
+    rms_norm_eps=1e-6, rope_theta=10000.0, attention_bias=False, tie_word_embeddings=False,
+    max_position_embeddings=163840, rope_scaling={**YARN_40, "mscale": 0.707,
+                                                  "mscale_all_dim": 0.707},
+)
+DEEPSEEK_V3 = dict(
+    model_type="deepseek_v3", vocab_size=129280, hidden_size=7168, intermediate_size=18432,
+    moe_intermediate_size=2048, num_hidden_layers=61, num_attention_heads=128,
+    num_key_value_heads=128, q_lora_rank=1536, kv_lora_rank=512, qk_nope_head_dim=128,
+    qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=256, n_shared_experts=1,
+    num_experts_per_tok=8, norm_topk_prob=True, routed_scaling_factor=2.5, n_group=8,
+    topk_group=4, scoring_func="sigmoid", topk_method="noaux_tc", first_k_dense_replace=3,
+    moe_layer_freq=1, hidden_act="silu", rms_norm_eps=1e-6, rope_theta=10000.0,
+    attention_bias=False, tie_word_embeddings=False, max_position_embeddings=163840,
+    rope_scaling={**YARN_40, "mscale": 1.0, "mscale_all_dim": 1.0},
+)
 MOE_FAMILIES = {"qwen3_moe_30b_a3b": QWEN3_MOE_30B_A3B, "olmoe_1b_7b": OLMOE_1B_7B,
-                "qwen1_5_moe_a2_7b": QWEN1_5_MOE_A2_7B}
+                "qwen1_5_moe_a2_7b": QWEN1_5_MOE_A2_7B, "deepseek_v2_lite": DEEPSEEK_V2_LITE,
+                "deepseek_v3": DEEPSEEK_V3}
+# the routed experts a cut keeps (all where not named)
+FAMILY_EXPERTS = {"deepseek_v3": 64}
+# DeepSeek-V3's planted correction bias: large enough to change the
+# selection (JAX tests/test_hf_config_family.py:553-555 draws it so)
+DEEPSEEK_BIAS_STD = 0.5
 FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b": GEMMA2_2B,
                   "gemma3_1b": GEMMA3_1B, "phi3_mini": PHI3_MINI, "olmo2_1b": OLMO2_1B,
                   "glm4_9b": GLM4_9B, "smollm3_3b": SMOLLM3_3B, "gpt2_xl": GPT2_XL,
@@ -581,12 +635,15 @@ FAMILY_CONFIGS = {"gemma_2b": GEMMA_2B, "llama3_2_1b": LLAMA3_2_1B, "gemma2_2b":
 # the first published layer each cut keeps (0 where not named): gemma3's
 # 5th and 6th (sliding, full), smollm3's 3rd and 4th (rope, NoPE), mllama's
 # 3rd and 4th (self-attention, cross-attention: skipped)
-FAMILY_FIRST_LAYER = {"gemma3_1b": 4, "smollm3_3b": 2, "mllama_text_hf_default": 2}
+FAMILY_FIRST_LAYER = {"gemma3_1b": 4, "smollm3_3b": 2, "mllama_text_hf_default": 2,
+                      "deepseek_v3": 2}
 # the families whose attention takes flash in the JAX package: Gemma-2's
 # soft-capped attention, BLOOM's ALiBi and Doge's dynamic-mask bias are
 # plain there (the kernel has no logit bias), and DiffLlama's differential
-# attention has no flash path, so flash must launch 0 times
-FAMILY_NO_FLASH = ("gemma2_2b", "bloom_7b1", "doge_hf_default", "diffllama_hf_default")
+# attention and DeepSeek's latent attention (qk head 192, v head 128) have
+# no flash path, so flash must launch 0 times
+FAMILY_NO_FLASH = ("gemma2_2b", "bloom_7b1", "doge_hf_default", "diffllama_hf_default",
+                   "deepseek_v2_lite", "deepseek_v3")
 # Doge's planted dynamic-mask parameter A and residual scales, DiffLlama's
 # lambda vectors: each drawn off its neutral value (A 0, scales 1, lambda
 # pairs equal) by these standard deviations, so that each binds: A *
@@ -700,6 +757,18 @@ FAMILY_GATES = {
                     "int8": (0.15, 2.5e-2), "near_ties": 0.06},
     "qwen1_5_moe_a2_7b": {"serve": (0.09375, 1.1e-2), "reference": (0.075, 1.2e-2),
                           "int8": (0.175, 3e-2), "near_ties": 0.06},
+    # slice 21, the larger reading of seeds 0 and 1: DeepSeek-V2-Lite serve
+    # 0.031 / 3.6e-3, reference 0.026 / 4.3e-3, int8 against bf16 0.055 /
+    # 9.3e-3, near-ties 4.7% (the CPU reference at seed 1); DeepSeek-V3
+    # 0.031 / 5.2e-3, 0.035 / 5.4e-3, 0.070 / 1.29e-2, near-ties 1.0%.  Each
+    # V3 knob neutral on the card alone fails its reference gate: the bias
+    # zeroed or the group limit lifted move 100% and 97% of its routings,
+    # routed scaling 1.0 reads 1.50 / 0.278, the MLA scale multiplier 1.0
+    # 0.714 / 0.105 (tools/family_gates.py --neutral)
+    "deepseek_v2_lite": {"serve": (0.09375, 1e-2), "reference": (0.075, 1.1e-2),
+                         "int8": (0.15, 2.5e-2), "near_ties": 0.1},
+    "deepseek_v3": {"serve": (0.09375, 1.25e-2), "reference": (0.09, 1.3e-2),
+                    "int8": (0.175, 3e-2), "near_ties": 0.03},
 }
 
 # Slice 11: the vision trainer CLI (ptdeco_tpu_torch.apps.trainer_vision.run,
@@ -985,9 +1054,14 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
     # (2560; Persimmon's 4096 and 16384 are above); slice 18's: BitNet's MLP
     # (6912; BLOOM-7B1's 4096 and 16384 are above); slice 19's: Moshi's
     # gated MLP (11264) and Mllama's (14336; Doge's 1024 and 2048 and
-    # DiffLlama's 2048 and 8192 are above or too narrow to matter)
+    # DiffLlama's 2048 and 8192 are above or too narrow to matter); slice
+    # 21's: DeepSeek-V3's width (7168) and q_lora (1536), DeepSeek-V2-Lite's
+    # dense MLP (10944, off the 128 grid), shared experts (2816), q_proj
+    # (16 heads of 192: 3072) and both models' kv_a_proj_with_mqa (512 + 64;
+    # V3's 24576 and 18432 are Nemotron's and Arcee's above)
     for d in (5632, 2048, 10240, 16384, 9216, 13696, 1600, 4544, 6400, 8192, 18176, 4096,
-              24576, 6144, 18432, 2560, 6912, 11264, 14336):
+              24576, 6144, 18432, 2560, 6912, 11264, 14336, 7168, 10944, 1536, 2816, 3072,
+              576):
         y = torch.randn(SEQ, d, device=dev, generator=g).to(bf)
         recs["syrk_gram"].append(check_kernel(
             "syrk_gram",
@@ -1111,7 +1185,24 @@ def kernel_checks(dev) -> dict[str, list[dict]]:
               # slice 19's MLP pairs: Moshi's (4096 <-> 11264) and Mllama's
               # (4096 <-> 14336), unbiased
               (SEQ, 4096, 32, 11264, False), (SEQ, 11264, 32, 4096, False),
-              (SEQ, 4096, 32, 14336, False), (SEQ, 14336, 32, 4096, False))
+              (SEQ, 4096, 32, 14336, False), (SEQ, 14336, 32, 4096, False),
+              # slice 21's pairs at the ranks DeepSeek's walks chose at seeds
+              # 0 and 1 (the same at both), no bias: V3's q_a_proj and
+              # q_b_proj at 24 (7168 -> 1536 -> 128 heads of 192),
+              # kv_a_proj_with_mqa at 18 (-> 512 + 64), o_proj at 28 (128
+              # heads of 128 -> 7168), dense MLP at 28 (7168 <-> 18432) and
+              # shared expert at 32 (7168 <-> 2048); V2-Lite's q_proj at 32
+              # (-> 16 heads of 192), kv_a_proj_with_mqa at 18, o_proj at 32,
+              # dense MLP at 32 (2048 <-> 10944, off the 128 grid) and shared
+              # experts at 32 (2048 <-> 2816)
+              (SEQ, 7168, 24, 1536, False), (SEQ, 1536, 24, 24576, False),
+              (SEQ, 7168, 18, 576, False), (SEQ, 16384, 28, 7168, False),
+              (SEQ, 7168, 28, 18432, False), (SEQ, 18432, 28, 7168, False),
+              (SEQ, 7168, 32, 2048, False), (SEQ, 2048, 32, 7168, False),
+              (SEQ, 2048, 32, 3072, False), (SEQ, 2048, 18, 576, False),
+              (SEQ, 2048, 32, 2048, False),
+              (SEQ, 2048, 32, 10944, False), (SEQ, 10944, 32, 2048, False),
+              (SEQ, 2048, 32, 2816, False), (SEQ, 2816, 32, 2048, False))
     for n, d_in, r, d_out, with_bias in shapes:
         x = torch.randn(n, d_in, device=dev, generator=g).to(bf)
         bias = torch.randn(d_out, device=dev, generator=g).to(bf) if with_bias else None
@@ -1295,9 +1386,11 @@ def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
     grouped matmul at prefill and decode, the int8 grouped matmul at 8, 16,
     512 and 4096 routed rows, and flash attention at the prefill's head_dim
     128; then both grouped kernels at the slice-20 families' expert counts
-    and widths (``MOE_FAMILIES``): the walk's 1 x 1024 tokens (the bf16
-    kernel there on both routes, wgmma and the mma.sync route it took
-    before) and the 4-prompt decode step."""
+    and widths (``MOE_FAMILIES``, at their published expert counts:
+    DeepSeek-V3's 256 is ``gmm.MAX_TMA_EXPERTS``): the walk's 1 x 1024
+    tokens (the bf16 kernel there on both routes, wgmma and the mma.sync
+    route it took before, for the slice-20 families) and the 4-prompt
+    decode step."""
     g = torch.Generator(device=dev).manual_seed(2)
     dim, hidden = MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["intermediate_size"]
     n_tokens = MOE_BATCH * MOE_PROMPT
@@ -1328,7 +1421,7 @@ def moe_kernel_checks(dev, recs: dict[str, list[dict]]) -> None:
                                     (FAMILY_PROMPTS, (width, cfg.dim), "decode down")):
             sizes = routed_group_sizes(n_tok, seed=300 + n_tok + k + e, n_experts=e, top_k=top_k)
             grouped_line(dev, g, recs, sizes, k, n, f"{family} {what}")
-            if n_tok == SEQ:
+            if n_tok == SEQ and cfg.kv_lora_rank is None:
                 grouped_line(dev, g, recs, sizes, k, n, f"{family} {what}, mma_sync route",
                              route="mma_sync")
             int8_line(dev, g, recs, sizes, k, n, f"{family} {what}")
@@ -1366,7 +1459,7 @@ def planted_moe_weights(cfg: models.TransformerConfig, p: str, draws: "_Draws") 
     """An MoE layer's weights under prefix ``p``: every expert (and the
     shared expert) planted at rank 256 like a dense MLP, the router and the
     shared expert's gate unit-gain normals (logits of RMS 1 over RMS-1
-    inputs)."""
+    inputs), DeepSeek-V3's correction bias normal at ``DEEPSEEK_BIAS_STD``."""
     sd = {p + "gate.weight": draws.normal(cfg.n_experts, cfg.dim) / math.sqrt(cfg.dim)}
     widths = {f"experts.{e}.": cfg.moe_hidden_dim or cfg.hidden_dim
               for e in range(cfg.n_experts)}
@@ -1378,6 +1471,26 @@ def planted_moe_weights(cfg: models.TransformerConfig, p: str, draws: "_Draws") 
         sd[p + name + "gate_proj.weight"] = draws.planted(width, cfg.dim)
         sd[p + name + "up_proj.weight"] = draws.planted(width, cfg.dim)
         sd[p + name + "down_proj.weight"] = draws.planted(cfg.dim, width)
+    if cfg.router_correction_bias:
+        sd[p + "gate_correction_bias"] = DEEPSEEK_BIAS_STD * draws.normal(cfg.n_experts)
+    return sd
+
+
+def planted_mla_weights(cfg: models.TransformerConfig, p: str, draws: "_Draws") -> dict:
+    """A latent attention's weights under prefix ``p``: every projection
+    planted at rank 256, the lora norms the identity."""
+    h, lat = cfg.n_heads, cfg.kv_lora_rank
+    qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    sd = {p + "kv_a_proj_with_mqa.weight": draws.planted(lat + cfg.qk_rope_head_dim, cfg.dim),
+          p + "kv_a_layernorm.weight": draws.full(lat, 1.0),
+          p + "kv_b_proj.weight": draws.planted(h * (cfg.qk_nope_head_dim + cfg.v_head_dim), lat),
+          p + "o_proj.weight": draws.planted(cfg.dim, h * cfg.v_head_dim)}
+    if cfg.q_lora_rank is None:
+        sd[p + "q_proj.weight"] = draws.planted(h * qk_head, cfg.dim)
+    else:
+        sd[p + "q_a_proj.weight"] = draws.planted(cfg.q_lora_rank, cfg.dim)
+        sd[p + "q_a_layernorm.weight"] = draws.full(cfg.q_lora_rank, 1.0)
+        sd[p + "q_b_proj.weight"] = draws.planted(h * qk_head, cfg.q_lora_rank)
     return sd
 
 
@@ -1422,10 +1535,13 @@ def planted_rank_weights(cfg: models.TransformerConfig, seed: int, dev) -> dict:
         p = f"model.layers.{i}."
         if i < len(cfg.layer_types) and cfg.layer_types[i] == "skip":
             continue  # mllama's cross-attention layer: a SkipBlock
-        sd[p + "self_attn.q_proj.weight"] = planted(cfg.n_heads * hd, cfg.dim)
-        sd[p + "self_attn.k_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
-        sd[p + "self_attn.v_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
-        sd[p + "self_attn.o_proj.weight"] = planted(cfg.dim, cfg.n_heads * hd)
+        if cfg.kv_lora_rank is not None:
+            sd.update(planted_mla_weights(cfg, p + "self_attn.", draws))
+        else:
+            sd[p + "self_attn.q_proj.weight"] = planted(cfg.n_heads * hd, cfg.dim)
+            sd[p + "self_attn.k_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
+            sd[p + "self_attn.v_proj.weight"] = planted(cfg.n_kv_heads * hd, cfg.dim)
+            sd[p + "self_attn.o_proj.weight"] = planted(cfg.dim, cfg.n_heads * hd)
         if cfg.layer_is_sparse(i):
             sd.update(planted_moe_weights(cfg, p + "mlp.", draws))
         else:
@@ -1517,8 +1633,9 @@ class Routing(contextlib.ContextDecorator):
 
     With ``forced`` (per layer, (b, tokens, k) as ``per_layer`` gives them,
     the tokens of successive calls joined in order) each token is routed to
-    those experts instead, weighted by the layer's own router probabilities
-    for them (renormalized where the layer renormalizes).  A reference routed as the run it checks has no
+    those experts instead, weighted as the layer weights them
+    (``moe_combine_weights`` of its own scores: renormalized, and scaled,
+    where the layer does so).  A reference routed as the run it checks has no
     routing flips: a near-tie between the k-th and next expert can break one
     way in one run and the other way in the other, which changes that
     token's output by O(1) and, through attention, every later token's.
@@ -1549,10 +1666,8 @@ class Routing(contextlib.ContextDecorator):
                 done[0] += s
                 self.near_ties += int((idx.sort(dim=-1).values != ids).any(dim=-1).sum())
                 self.routed += ids.numel() // moe.top_k
-                scores = torch.softmax(moe.gate(x).to(torch.float32), dim=-1)
-                vals, idx = torch.gather(scores, -1, ids), ids
-                if moe.norm_topk:
-                    vals = vals / vals.sum(dim=-1, keepdim=True)
+                scores = models.transformer.router_scores(moe, x)
+                vals, idx = models.transformer.moe_combine_weights(moe, scores, ids), ids
             self.calls.append((i, idx.sort(dim=-1).values.reshape(self.batch, -1, moe.top_k)))
             return vals, idx
 
@@ -3107,18 +3222,22 @@ def f32_token_checks(model, vocab: int, seed: int, dev, what: str) -> dict:
     return {"prompt_lens": lens.tolist(), "new_tokens": PATH_NEW, **got}
 
 
-def family_2_layer(name: str) -> tuple[models.TransformerConfig, int]:
-    """The family's config cut to ``FAMILY_LAYERS``, and its published depth."""
+def family_2_layer(name: str) -> tuple[models.TransformerConfig, models.TransformerConfig]:
+    """The family's config cut to ``FAMILY_LAYERS`` (and its routed experts
+    to ``FAMILY_EXPERTS``), and its published config."""
     if name == "qwen2_1_5b":
         full = models.TransformerConfig.qwen2_1_5b(dtype=torch.bfloat16)
     else:
         full = models.TransformerConfig.from_hf_config(FAMILY_CONFIGS[name], dtype=torch.bfloat16)
-    # the kept layers' types and rope flags (FAMILY_FIRST_LAYER)
+    # the kept layers' types, rope flags and dense layers (FAMILY_FIRST_LAYER)
     lo = FAMILY_FIRST_LAYER.get(name, 0)
     kept = slice(lo, lo + FAMILY_LAYERS)
-    cut = dataclasses.replace(full, n_layers=FAMILY_LAYERS, layer_types=full.layer_types[kept],
-                              rope_layers=full.rope_layers[kept])
-    return cut, full.n_layers
+    cut = dataclasses.replace(
+        full, n_layers=FAMILY_LAYERS, layer_types=full.layer_types[kept],
+        rope_layers=full.rope_layers[kept],
+        mlp_only_layers=tuple(i - lo for i in full.mlp_only_layers if lo <= i < lo + FAMILY_LAYERS),
+        n_experts=FAMILY_EXPERTS.get(name, full.n_experts))
+    return cut, full
 
 
 def fused_layout(sd: dict[str, torch.Tensor], qkv: bool) -> dict[str, torch.Tensor]:
@@ -3388,14 +3507,35 @@ def flash_as_jax(counts: dict[str, int], name: str, what: str) -> None:
         raise AssertionError(f"{name} {what}: flash launches against the JAX gate: {counts}")
 
 
-def moe_walk_sites(model) -> list[str]:
+def moe_walk_sites(model, cfg: models.TransformerConfig) -> list[str]:
     """The sites an MoE family's walk decomposes: layer 0's attention
-    projections, its shared expert and its experts ``MOE_WALK_EXPERTS``."""
+    projections, its shared expert and its experts ``MOE_WALK_EXPERTS``.
+    A DeepSeek model's layer 0 is dense: its walk takes every latent
+    attention site but ``kv_b_proj`` (a fused one cannot be absorbed into
+    the cache), layer 0's MLP and layer 1's shared expert, and no routed
+    expert, so layer 1 takes the grouped kernels throughout."""
+    names = engine.get_decomposeable_submodule_names(model, ["lm_head"])
+    if cfg.kv_lora_rank is not None:
+        return [n for n in names if not n.endswith((".kv_b_proj", ".mlp.gate"))
+                and ".mlp.experts." not in n]
     p = "model.layers.0."
     keep = (p + "self_attn.", p + "mlp.shared_expert.",
             *(f"{p}mlp.experts.{e}." for e in MOE_WALK_EXPERTS))
-    return [n for n in engine.get_decomposeable_submodule_names(model, ["lm_head"])
-            if n.startswith(keep)]
+    return [n for n in names if n.startswith(keep)]
+
+
+def absorbed_pair_cost(cfg: models.TransformerConfig, dev) -> dict:
+    """The cost a cached step pays for a decomposed ``kv_b_proj``:
+    ``serving._dense_linear_kernel`` multiplies its factor pair out at every
+    step (the JAX package once per compiled program); timed on a bf16 pair
+    of ``kv_b_proj``'s shape at rank ``PLANTED_RANK``.  The phases' own
+    ``kv_b_proj``s stay whole, so their steps do not pay it."""
+    out = cfg.n_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+    pair = torch.nn.Sequential(
+        torch.nn.Linear(cfg.kv_lora_rank, PLANTED_RANK, bias=False),
+        torch.nn.Linear(PLANTED_RANK, out, bias=False)).to(dev, torch.bfloat16)
+    ms = time_ms(lambda: serving._dense_linear_kernel(pair, "kv_b_proj"))
+    return {"rank": PLANTED_RANK, "in_out": [cfg.kv_lora_rank, out], "ms_per_step_per_layer": ms}
 
 
 def moe_int8_serve(model, prompt, gen: dict, name: str, gates: dict, near_ties: float) -> dict:
@@ -3403,9 +3543,12 @@ def moe_int8_serve(model, prompt, gen: dict, name: str, gates: dict, near_ties: 
     quantize_for_serving``), served through cached ``generate`` (gmm_int8's
     batch route at the prefill and decode route at the decode steps, no
     expert dequantized for the bf16 grouped kernel), then held against the
-    bf16 model on the bf16 run's tokens, routed as that run was."""
+    bf16 model on the bf16 run's tokens, routed as that run was.  A
+    DeepSeek model's ``kv_b_proj``s stay bf16 (``skip_names``, as a JAX
+    user must pass them): an int8 one cannot be absorbed into the cache."""
     qmodel = copy.deepcopy(model)
-    quant.quantize_for_serving(qmodel)
+    quant.quantize_for_serving(qmodel, skip_names=[
+        n for n, _ in qmodel.named_modules() if n.endswith(".kv_b_proj")])
     int8 = cached_generate(qmodel, prompt, TINY_NEW, f"{name}_generate_int8", *gates["serve"],
                            near_ties)
     require_launches(int8["counts"], ("gmm_int8", "lowrank_matmul"), f"{name} generate int8")
@@ -3444,7 +3587,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
         torch.cuda.synchronize()
         split[part] = time.perf_counter() - t_phase - sum(split.values())
 
-    cfg, full_layers = family_2_layer(name)
+    cfg, full = family_2_layer(name)
     gates = FAMILY_GATES[name]
     moe = cfg.n_experts > 0
     near_ties = gates.get("near_ties", MAX_NEAR_TIE_SHARE)
@@ -3455,7 +3598,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
     sites = engine.get_decomposeable_submodule_names(model, ["lm_head"])
     walk_args = FAMILY_DECOMPOSE_ARGS
     if moe:
-        walked = moe_walk_sites(model)
+        walked = moe_walk_sites(model, cfg)
         walk_args = {**FAMILY_DECOMPOSE_ARGS, "num_metric_steps": MOE_METRIC_STEPS,
                      "blacklisted_module_names": [
                          "lm_head", *(n for n in sites if n not in walked)]}
@@ -3521,6 +3664,7 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
         # the prefill's mean group of 32-64 rows takes the wgmma route
         require_launches(gen["grouped_routes"], ("wgmma",), f"{name} generate routes")
     lap("generate")
+    absorb = absorbed_pair_cost(cfg, dev) if cfg.kv_lora_rank is not None else None
     int8 = moe_int8_serve(model, prompt, gen, name, gates, near_ties) if moe else None
     gen_wall, gen_gate, gen_counts = gen["wall_s"], gen["gate"], gen["counts"]
     gen_routes = gen["grouped_routes"]
@@ -3548,7 +3692,10 @@ def family_serve(dev, name: str, seed: int) -> dict[str, dict[str, int]]:
           "ranks": {k: v["modules"]["0"]["out_features"] for k, v in config.items()},
           "artifact": artifact, "serve": serve, "fused_ms": fused_ms,
           **({"skipped_layers": skipped} if skipped else {}),
-          "cuts": {"layers": [full_layers, cfg.n_layers], "layer_types": cfg.layer_types,
+          **({"absorbed_pair": absorb} if absorb else {}),
+          "cuts": {"layers": [full.n_layers, cfg.n_layers], "layer_types": cfg.layer_types,
+                   **({"experts": [full.n_experts, cfg.n_experts]}
+                      if cfg.n_experts != full.n_experts else {}),
                    "rope_layers": cfg.rope_layers,
                    "weights": f"planted rank {PLANTED_RANK}, seed {seed}", "dtype": "bf16"},
           "generate": {"batch": FAMILY_PROMPTS, "prompt": prompt.shape[1],

@@ -28,7 +28,8 @@ dropped), CTRL's and XLM's names are renamed (the last two's head biases
 onto ``tied_head_bias``); doge's ``A`` is renamed, moshi's ``.linear``
 nesting unwrapped and its fused ``fc1`` split, and mllama's wrapper
 prefixes stripped with its vision tower and cross-attention layers
-dropped; diffllama keeps llama's names.  A translator takes numpy arrays or tensors.
+dropped; diffllama keeps llama's names; DeepSeek's plural shared experts
+and its router's correction bias are renamed.  A translator takes numpy arrays or tensors.
 Shards are read from ``*.safetensors`` where that package is importable,
 else from ``pytorch_model*.bin`` with ``torch.load``.
 """
@@ -81,6 +82,7 @@ __all__ = [
     "translate_doge_state_dict",
     "translate_moshi_state_dict",
     "make_mllama_translator",
+    "translate_deepseek_state_dict",
     "translator_for",
 ]
 
@@ -810,6 +812,22 @@ def make_mllama_translator(hf_cfg: dict[str, Any]) -> KeyTranslator:
     return translate
 
 
+def translate_deepseek_state_dict(sd: dict[str, Any]) -> dict[str, Any]:
+    """HF DeepSeek-V2 / V3 (JAX hf_loader.py:147-170): the ungated shared
+    experts ``mlp.shared_experts.`` -> ``mlp.shared_expert.`` and the V3
+    router's selection bias ``mlp.gate.e_score_correction_bias`` -> the
+    ``mlp.gate_correction_bias`` leaf; the latent-attention projections and
+    the experts keep their names."""
+    out = {}
+    for k, v in sd.items():
+        if ".mlp.shared_experts." in k:
+            k = k.replace(".mlp.shared_experts.", ".mlp.shared_expert.")
+        elif k.endswith(".mlp.gate.e_score_correction_bias"):
+            k = k.replace(".mlp.gate.e_score_correction_bias", ".mlp.gate_correction_bias")
+        out[k] = v
+    return out
+
+
 # model types whose HF names are the port model's own
 _SAME_NAMES = (
     "llama", "code_llama", "mistral", "ministral", "qwen2", "qwen3", "gemma", "gemma2",
@@ -839,6 +857,7 @@ _TRANSLATORS = {
     "xlm": translate_xlm_state_dict, "gpt_neox_japanese": make_gpt_neox_japanese_translator,
     "doge": translate_doge_state_dict, "moshi": translate_moshi_state_dict,
     "mllama": make_mllama_translator, "mllama_text_model": make_mllama_translator,
+    "deepseek_v2": translate_deepseek_state_dict, "deepseek_v3": translate_deepseek_state_dict,
     "got_ocr2": make_multimodal_text_translator, "mixtral": translate_mixtral_state_dict,
     "phi3": _phi3_translator, "gemma3": make_multimodal_text_translator,
 }

@@ -2,7 +2,7 @@
 beyond the llama graph that the port has, in PyTorch.
 
 Counterpart of the llama-family, Mixtral, Qwen2-/Qwen3-MoE, OLMoE,
-FlexOlmo and gpt2 / gpt_neox / falcon /
+FlexOlmo, DeepSeek-V2 / V3 and gpt2 / gpt_neox / falcon /
 starcoder2 / stablelm / granite / cohere / gptj / codegen / gpt_neo /
 gpt_bigcode / opt / openai-gpt / imagegpt / olmo / nemotron / persimmon /
 ernie4_5 / arcee / seed_oss / exaone4 / vaultgemma / apertus /
@@ -26,7 +26,9 @@ non-gated one (exact or tanh GELU, relu, relu^2, Apertus's xIELU with its
 learned scalars; BitNet's RMSNorm over the activation product), the
 top-k routed mixture
 of SwiGLU experts (``MoEMLP``, on the sparse layers; Qwen2-MoE's
-sigmoid-gated shared expert beside it), pre-norm blocks (the sandwich norms of
+sigmoid-gated shared expert beside it, DeepSeek's sigmoid, bias-corrected,
+group-limited and scaled routing with its ungated shared expert),
+DeepSeek's multi-head latent attention (``MLAttention``), pre-norm blocks (the sandwich norms of
 Gemma-2, Gemma-3 and GLM-4, OLMo-2's post-norm-only blocks, the one-norm
 and two-norm parallel residuals of GPT-NeoX, Falcon, Cohere and GPT-J,
 Granite's scaled residuals, GPT-1's post-LN blocks; optionally each under
@@ -69,6 +71,7 @@ __all__ = [
     "LayerNorm",
     "Attention",
     "DiffAttention",
+    "MLAttention",
     "MLP",
     "MoEMLP",
     "Block",
@@ -78,6 +81,8 @@ __all__ = [
     "Decoder",
     "CausalLM",
     "ce_loss",
+    "router_scores",
+    "moe_combine_weights",
     "HF_FAMILIES",
     "WRAPPED_TEXT_TYPES",
 ]
@@ -101,7 +106,7 @@ HF_FAMILIES = (
     "vaultgemma", "apertus", "hunyuan_v1_dense", "helium", "open-llama",
     "cohere2", "gpt_neox_japanese", "biogpt", "xlm", "bitnet", "xglm", "ctrl", "bloom", "mpt",
     "doge", "diffllama", "mllama", "mllama_text_model", "moshi",
-    "qwen2_moe", "qwen3_moe", "olmoe", "flex_olmo",
+    "qwen2_moe", "qwen3_moe", "olmoe", "flex_olmo", "deepseek_v2", "deepseek_v3",
 )
 # the text path's model type of each multimodal wrapper
 WRAPPED_TEXT_TYPES = {"gemma3": "gemma3_text", "got_ocr2": "qwen2", "emu3": "emu3_text_model",
@@ -249,6 +254,28 @@ class TransformerConfig:
     decoder_sparse_step: int = 1
     shared_expert_hidden_dim: Optional[int] = None
     shared_expert_gated: bool = True
+    # DeepSeek-V2 / V3 multi-head latent attention: kv_lora_rank set makes
+    # every block's mixer an ``MLAttention`` (a kv_lora_rank latent and one
+    # shared rope head per token, expanded per head by kv_b_proj);
+    # q_lora_rank None is a direct q_proj (V2-Lite).  mla_softmax_scale
+    # multiplies qk_head^-0.5 (yarn's mscale^2)
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: Optional[int] = None
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
+    mla_softmax_scale: Optional[float] = None
+    # DeepSeek's routing on the MoE fields above: sigmoid or softmax scores,
+    # a selection-only correction bias (``MoEMLP.gate_correction_bias``),
+    # group-limited choice (the best router_topk_group of router_n_group
+    # groups, scored by their max or, router_group_top2_sum, their top-2
+    # sum) and a scale on the combine weights
+    router_score_func: str = "softmax"  # | "sigmoid"
+    router_n_group: int = 0  # 0: no group limit
+    router_topk_group: int = 0
+    router_group_top2_sum: bool = False
+    router_correction_bias: bool = False
+    routed_scaling_factor: float = 1.0
     # per-block gradient checkpointing (the JAX package's remat): each
     # block's activations are recomputed in the backward pass
     remat: bool = False
@@ -271,8 +298,8 @@ class TransformerConfig:
     ) -> "TransformerConfig":
         """HF ``config.json`` of a llama (or code_llama), mistral, qwen2,
         qwen3, gemma, gemma2, gemma3_text, phi3, olmo2, olmo3, smollm3, glm,
-        glm4, ministral, mixtral, qwen2_moe, qwen3_moe, olmoe or flex_olmo
-        checkpoint, or of the gemma3, got_ocr2 or
+        glm4, ministral, mixtral, qwen2_moe, qwen3_moe, olmoe, flex_olmo,
+        deepseek_v2 or deepseek_v3 checkpoint, or of the gemma3, got_ocr2 or
         emu3 wrapper (its text_config) -> config, as the JAX package's
         family branch builds it; a gpt2 (or gpt-sw3), gpt_neox, falcon,
         starcoder2, stablelm, granite, cohere, gptj, codegen, gpt_neo,
@@ -311,6 +338,7 @@ class TransformerConfig:
                 "gemma3 use_bidirectional_attention is not implemented (this decoder is causal)"
             )
         rs = hf.get("rope_scaling")
+        deepseek = mt in ("deepseek_v2", "deepseek_v3")
         if mt == "phi3":
             if rs is not None and rs.get("rope_type", rs.get("type")) != "longrope":
                 raise ValueError(
@@ -355,8 +383,10 @@ class TransformerConfig:
             if rtype == "llama3":
                 rope_llama3 = _llama3_scaling(rs)
             elif rtype == "yarn":
+                # DeepSeek's decoupled rope head is the only rotated part
+                yarn_dim = int(hf.get("qk_rope_head_dim", 64)) if deepseek else rot_dim
                 rope_yarn = yarn_parameters(
-                    rot_dim, theta, rs, int(hf.get("max_position_embeddings", 4096))
+                    yarn_dim, theta, rs, int(hf.get("max_position_embeddings", 4096))
                 )
             elif rtype == "linear":
                 # position interpolation: every inverse frequency divided by
@@ -401,7 +431,8 @@ class TransformerConfig:
         # norm_topk_prob, size experts by moe_intermediate_size and choose
         # sparse layers by decoder_sparse_step / mlp_only_layers, Qwen2-MoE
         # with its gated shared expert; OLMoE and FlexOlmo route as Mixtral
-        # but renormalize by norm_topk_prob, every layer sparse
+        # but renormalize by norm_topk_prob, every layer sparse; DeepSeek's
+        # (``_deepseek_moe``) add their routing and latent attention
         moe: dict[str, Any] = {}
         if mt == "mixtral":
             moe = dict(n_experts=int(hf["num_local_experts"]),
@@ -422,6 +453,9 @@ class TransformerConfig:
                        n_experts_per_tok=int(hf.get("num_experts_per_tok", 8)),
                        norm_topk_prob=bool(hf.get("norm_topk_prob", False)),
                        moe_hidden_dim=int(hf["intermediate_size"]))
+        mla: dict[str, Any] = {}
+        if deepseek:
+            moe, mla = _deepseek_moe(hf, mt), _deepseek_mla(hf, rs)
 
         return TransformerConfig(
             vocab_size=int(hf["vocab_size"]),
@@ -467,10 +501,14 @@ class TransformerConfig:
             rope_partial_factor=(
                 float(hf.get("partial_rotary_factor", 0.5)) if mt in ("glm", "glm4") else None
             ),
-            rope_interleaved=mt in ("glm", "glm4"),
+            # v3 configs carry rope_interleave (default true); v2's complex
+            # pairs are always interleaved
+            rope_interleaved=(mt in ("glm", "glm4")
+                              or (deepseek and bool(hf.get("rope_interleave", True)))),
             clip_qkv=opt_float("clip_qkv"),
             dtype=dtype,
             **moe,
+            **mla,
             remat=remat,
         )
 
@@ -863,6 +901,60 @@ def _explicit_head_dim(hf: dict) -> Optional[int]:
     if hd is None or int(hd) * int(hf["num_attention_heads"]) == int(hf["hidden_size"]):
         return None
     return int(hd)
+
+
+def _deepseek_moe(hf: dict, mt: str) -> dict[str, Any]:
+    """DeepSeek-V2 / V3's MoE and routing fields, as the JAX package's
+    branch reads them (HF DeepseekV2MoEGate / DeepseekV3TopkRouter): the
+    first ``first_k_dense_replace`` layers dense (``mlp_only_layers``), an
+    ungated shared expert of ``moe_intermediate_size * n_shared_experts``;
+    v3 scores by sigmoid with the correction bias and top-2-sum groups, v2's
+    ``group_limited_greedy`` by softmax with max groups, and any other v2
+    ``topk_method`` than ``greedy`` is refused."""
+    moe_hidden = int(hf["moe_intermediate_size"])
+    moe: dict[str, Any] = dict(
+        n_experts=int(hf["n_routed_experts"]),
+        # HF's default DeepseekV2Config holds num_experts_per_tok None
+        n_experts_per_tok=int(hf.get("num_experts_per_tok") or 8),
+        norm_topk_prob=bool(hf.get("norm_topk_prob", False)),
+        moe_hidden_dim=moe_hidden,
+        mlp_only_layers=tuple(range(int(hf.get("first_k_dense_replace", 0)))),
+        shared_expert_hidden_dim=moe_hidden * int(hf.get("n_shared_experts") or 1),
+        shared_expert_gated=False,
+        routed_scaling_factor=float(hf.get("routed_scaling_factor", 1.0)),
+    )
+    if mt == "deepseek_v3":
+        moe.update(router_score_func="sigmoid", router_group_top2_sum=True,
+                   router_correction_bias=True, router_n_group=int(hf.get("n_group", 1)),
+                   router_topk_group=int(hf.get("topk_group", 1)))
+    elif hf.get("topk_method") == "group_limited_greedy":
+        moe.update(router_n_group=int(hf.get("n_group", 1)),
+                   router_topk_group=int(hf.get("topk_group", 1)))
+    elif hf.get("topk_method", "greedy") != "greedy":
+        raise ValueError(
+            f"deepseek topk_method={hf.get('topk_method')!r} is not implemented, as in the JAX "
+            "package"
+        )
+    return moe
+
+
+def _deepseek_mla(hf: dict, rs: Optional[dict]) -> dict[str, Any]:
+    """The latent-attention fields; with yarn past factor 1 the softmax
+    scale gains mscale^2, mscale = 0.1 * mscale_all_dim * ln(factor) + 1
+    (HF DeepseekV2/V3Attention)."""
+    scale = None
+    if rs is not None and rs.get("mscale_all_dim"):
+        factor = float(rs["factor"])
+        if factor > 1:
+            scale = (0.1 * float(rs["mscale_all_dim"]) * math.log(factor) + 1.0) ** 2
+    return dict(
+        q_lora_rank=int(hf["q_lora_rank"]) if hf.get("q_lora_rank") is not None else None,
+        kv_lora_rank=int(hf["kv_lora_rank"]),
+        qk_rope_head_dim=int(hf.get("qk_rope_head_dim", 64)),
+        qk_nope_head_dim=int(hf.get("qk_nope_head_dim", 128)),
+        v_head_dim=int(hf.get("v_head_dim", 128)),
+        mla_softmax_scale=scale,
+    )
 
 
 def _llama_lineage(hf: dict, dtype: torch.dtype, remat: bool, **knobs: Any) -> TransformerConfig:
@@ -1899,6 +1991,96 @@ class DiffAttention(torch.nn.Module):
         return self.o_proj(self.attend(q, k, v, valid))
 
 
+class MLAttention(torch.nn.Module):
+    """DeepSeek-V2 / V3 multi-head latent attention (the JAX package's
+    ``MLAttention``, transformer.py:4668-4820; HF's parameter names).
+    Queries come from ``q_proj``, or through the bottleneck ``q_a_proj`` ->
+    ``q_a_layernorm`` -> ``q_b_proj``; ``kv_a_proj_with_mqa`` gives a
+    kv_lora_rank latent and one rope head shared by all heads, the latent
+    is normed by ``kv_a_layernorm`` and expanded per head by ``kv_b_proj``
+    into qk_nope key dims and v_head value dims.  Only the rope dims
+    rotate, pair-interleaved in place (JAX's convention), with yarn over
+    them; the scale is qk_head^-0.5 times ``mla_softmax_scale``.  Both lora
+    norms keep eps 1e-6 whatever ``rms_norm_eps`` is, as HF builds them.
+    The attention is a plain causal f32 softmax (no flash: two head dims),
+    cast to the activation dtype before the value products.  Field order
+    is the JAX module's, so the walk visits the sites in its order."""
+
+    def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
+        super().__init__()
+        kw = {"bias": False, "dtype": cfg.dtype, "device": device}
+        h, nope, rope_d, v_d = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        lat = cfg.kv_lora_rank
+        self.kv_a_proj_with_mqa = torch.nn.Linear(cfg.dim, lat + rope_d, **kw)
+        self.kv_a_layernorm = RMSNorm(lat, 1e-6, cfg.dtype, device)
+        self.kv_b_proj = torch.nn.Linear(lat, h * (nope + v_d), **kw)
+        self.o_proj = torch.nn.Linear(h * v_d, cfg.dim, **kw)
+        q_out = h * (nope + rope_d)
+        if cfg.q_lora_rank is None:
+            self.q_proj = torch.nn.Linear(cfg.dim, q_out, **kw)
+            self.q_a_proj = self.q_a_layernorm = self.q_b_proj = None
+        else:
+            self.q_proj = None
+            self.q_a_proj = torch.nn.Linear(cfg.dim, cfg.q_lora_rank, **kw)
+            self.q_a_layernorm = RMSNorm(cfg.q_lora_rank, 1e-6, cfg.dtype, device)
+            self.q_b_proj = torch.nn.Linear(cfg.q_lora_rank, q_out, **kw)
+        self.n_heads = h
+        self.qk_nope_head_dim, self.qk_rope_head_dim, self.v_head_dim = nope, rope_d, v_d
+        self.kv_lora_rank = lat
+        self.rope_theta = cfg.rope_theta
+        self.rope_interleaved = cfg.rope_interleaved
+        self.rope_yarn = cfg.rope_yarn
+        self.softmax_scale_mult = (
+            cfg.mla_softmax_scale if cfg.mla_softmax_scale is not None else 1.0)
+
+    def scale(self) -> float:
+        return (self.qk_nope_head_dim + self.qk_rope_head_dim) ** -0.5 * self.softmax_scale_mult
+
+    def project(
+        self, x: torch.Tensor, positions: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q_nope (b, s, heads, nope), q_pe (b, s, heads, rope) rotated at
+        ``positions``, the normed latent (b, s, kv_lora_rank) and the shared
+        rope head (b, s, rope) rotated; the cached form (``serving.py``)
+        caches the last two."""
+        b, s, _ = x.shape
+        if self.q_a_proj is not None:
+            q = self.q_b_proj(self.q_a_layernorm(self.q_a_proj(x)))
+        else:
+            q = self.q_proj(x)
+        q = q.reshape(b, s, self.n_heads, -1)
+        q_nope, q_pe = q[..., : self.qk_nope_head_dim], q[..., self.qk_nope_head_dim:]
+        ckv = self.kv_a_proj_with_mqa(x)
+        lat = self.kv_a_layernorm(ckv[..., : self.kv_lora_rank])
+        k_pe = ckv[..., self.kv_lora_rank:][:, :, None, :]
+        q_pe, k_pe = (_rope(t, positions, self.rope_theta, yarn=self.rope_yarn,
+                            interleaved=self.rope_interleaved) for t in (q_pe, k_pe))
+        return q_nope, q_pe, lat, k_pe[:, :, 0]
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        b, s, _ = x.shape
+        if positions is None:
+            positions = _positions(b, s, 0, x.device)
+        q_nope, q_pe, lat, k_pe = self.project(x, positions)
+        kv = self.kv_b_proj(lat).reshape(b, s, self.n_heads, -1)
+        k_nope, v = kv[..., : self.qk_nope_head_dim], kv[..., self.qk_nope_head_dim:]
+        qf = torch.cat([q_nope, q_pe], dim=-1).to(torch.float32)
+        kf = torch.cat([k_nope, k_pe[:, :, None].expand(-1, -1, self.n_heads, -1)], dim=-1)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf.to(torch.float32)) * self.scale()
+        valid = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()[None, None]
+        if attn_mask is not None:
+            valid = valid & attn_mask[:, None, None, :].to(torch.bool)
+        logits = logits.masked_fill(~valid, torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32), v.to(torch.float32))
+        return self.o_proj(out.to(x.dtype).reshape(b, s, -1))
+
+
 def _qk_norm(cfg: TransformerConfig, width: int, device: Any) -> torch.nn.Module:
     """A q or k norm (the JAX package's ``_make_qk_norm``): RMSNorm, or with
     ``qk_norm_type`` "layernorm" a LayerNorm with a bias (Persimmon's)."""
@@ -2051,27 +2233,81 @@ def _use_int8_kernel(x: torch.Tensor) -> bool:
     return x.is_cuda and x.dtype == torch.bfloat16
 
 
+def router_scores(mod: "MoEMLP", x: torch.Tensor) -> torch.Tensor:
+    """The layer's f32 router scores over all experts: the router logits in
+    f32 through a softmax, or a sigmoid (DeepSeek-V3)."""
+    logits = mod.gate(x).to(torch.float32)
+    if mod.score_func == "sigmoid":
+        return torch.sigmoid(logits)
+    return torch.softmax(logits, dim=-1)
+
+
+def _top_k_ids(t: torch.Tensor, k: int) -> torch.Tensor:
+    """The ids of the k largest entries of the last axis, in descending
+    order, equal entries in index order (``lax.top_k``'s rule; the group
+    limit zeroes many choices, so ties are real there)."""
+    return torch.sort(t, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def _moe_select(mod: "MoEMLP", scores: torch.Tensor) -> torch.Tensor:
+    """The top-k expert ids (the JAX package's ``_moe_routing``,
+    transformer.py:4989-5008): the choice is the scores plus the
+    selection-only ``gate_correction_bias``; with ``n_group`` > 1 only the
+    best ``topk_group`` groups (scored by their max, or their top-2 sum)
+    stay eligible, every other expert's choice set to 0.0, not -inf (JAX's
+    and HF's rule: under negative biases a masked expert can outrank an
+    eligible one)."""
+    choice = scores
+    if mod.gate_correction_bias is not None:
+        choice = choice + mod.gate_correction_bias.to(torch.float32)
+    if mod.n_group <= 1:
+        return torch.topk(choice, mod.top_k, dim=-1).indices
+    g = choice.reshape(*choice.shape[:-1], mod.n_group, -1)
+    group_scores = (torch.topk(g, 2, dim=-1).values.sum(dim=-1) if mod.group_top2_sum
+                    else g.amax(dim=-1))
+    keep = torch.zeros_like(group_scores, dtype=torch.bool).scatter_(
+        -1, _top_k_ids(group_scores, mod.topk_group), True)
+    choice = torch.where(keep.repeat_interleave(g.shape[-1], dim=-1), choice, 0.0)
+    return _top_k_ids(choice, mod.top_k)
+
+
+def moe_combine_weights(mod: "MoEMLP", scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The f32 combine weights of experts ``idx`` (..., k) from the layer's
+    raw ``scores`` (never the biased choice): renormalized where the layer's
+    ``norm_topk`` is set (1e-20 added to the sum under sigmoid scores, HF
+    V3's epsilon), then scaled by ``routed_scaling`` in f32."""
+    vals = torch.gather(scores, -1, idx)
+    if mod.norm_topk:
+        denom = torch.sum(vals, dim=-1, keepdim=True)
+        if mod.score_func == "sigmoid":
+            denom = denom + 1e-20
+        vals = vals / denom
+    if mod.routed_scaling != 1.0:
+        vals = vals * torch.tensor(mod.routed_scaling, dtype=torch.float32)
+    return vals
+
+
 def _moe_routing(
     mod: "MoEMLP", x: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k expert weights (f32) and ids (the JAX package's ``_moe_routing``,
-    its softmax branch): router logits in f32, softmax over all experts,
-    top-k, renormalized where the layer's ``norm_topk`` is set (Mixtral;
-    Qwen-MoE and OLMoE by ``norm_topk_prob``)."""
-    scores = torch.softmax(mod.gate(x).to(torch.float32), dim=-1)
-    top_vals, top_idx = torch.topk(scores, mod.top_k, dim=-1)
-    if mod.norm_topk:
-        top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
-    return top_vals, top_idx
+    """Top-k expert weights (f32) and ids (the JAX package's ``_moe_routing``
+    but for its sparsemixer, llama4 and gpt_oss branches): the scores
+    (``router_scores``), the ids (``_moe_select``) and their weights
+    (``moe_combine_weights``).  Mixtral renormalizes; Qwen-MoE, OLMoE and
+    DeepSeek by ``norm_topk_prob``."""
+    scores = router_scores(mod, x)
+    idx = _moe_select(mod, scores)
+    return moe_combine_weights(mod, scores, idx), idx
 
 
 class MoEMLP(torch.nn.Module):
     """Top-k routed mixture of SwiGLU experts (Mixtral, Qwen2-/Qwen3-MoE,
-    OLMoE), with the router at ``gate`` and experts at
+    OLMoE, DeepSeek), with the router at ``gate`` and experts at
     ``experts.E.{gate,up,down}_proj``; Qwen2-MoE's always-on
     ``shared_expert`` (an ``MLP``) adds its output scaled by
     sigmoid(``shared_expert_gate``(x)), a Linear from dim to 1, on every
-    route.
+    route, DeepSeek's unscaled.  ``_moe_routing`` picks the experts
+    (DeepSeek-V3's f32 ``gate_correction_bias`` shifts the choice only).
 
     Three dispatch routes for the routed experts, as in the JAX package:
 
@@ -2106,8 +2342,21 @@ class MoEMLP(torch.nn.Module):
             if cfg.shared_expert_gated:
                 self.shared_expert_gate = torch.nn.Linear(
                     cfg.dim, 1, bias=False, dtype=cfg.dtype, device=device)
+        # DeepSeek-V3: the selection-only per-expert bias, held in f32 whatever
+        # the model's dtype (a bf16 copy would change which experts win;
+        # JAX transformer.py:5445-5451)
+        self.gate_correction_bias = (
+            torch.nn.Parameter(torch.zeros(cfg.n_experts, dtype=torch.float32, device=device))
+            if cfg.router_correction_bias else None
+        )
+        if cfg.router_score_func not in ("softmax", "sigmoid"):
+            raise ValueError(f"router_score_func={cfg.router_score_func!r}")
         self.top_k = cfg.n_experts_per_tok
         self.norm_topk = cfg.norm_topk_prob
+        self.score_func = cfg.router_score_func
+        self.n_group, self.topk_group = cfg.router_n_group, cfg.router_topk_group
+        self.group_top2_sum = cfg.router_group_top2_sum
+        self.routed_scaling = cfg.routed_scaling_factor
 
     def _experts_are_pristine(self) -> bool:
         ok = (torch.nn.Linear, QuantLinear)
@@ -2238,13 +2487,16 @@ class Block(torch.nn.Module):
     mlp(h)) (:5610-5613); with ``residual_scales`` (doge) h =
     ``input_residual`` * x + attn, then ``post_attention_residual`` * h +
     mlp(norm(h)) (:5651-5655).  ``diff_attention`` (diffllama) makes the
-    mixer a ``DiffAttention``.  Norms are RMSNorm or LayerNorm by
-    ``norm_type``."""
+    mixer a ``DiffAttention``, ``kv_lora_rank`` (DeepSeek) an
+    ``MLAttention``.  Norms are RMSNorm or LayerNorm by ``norm_type``."""
 
     def __init__(self, cfg: TransformerConfig, device: Any, layer_idx: int = 0) -> None:
         super().__init__()
         self.input_layernorm = None if cfg.post_norm_only else _block_norm(cfg, device)
-        self.self_attn = (DiffAttention if cfg.diff_attention else Attention)(
+        # the JAX rule (transformer.py:5710-5714): latent attention wherever
+        # kv_lora_rank is set
+        self.self_attn = (MLAttention if cfg.kv_lora_rank is not None
+                          else DiffAttention if cfg.diff_attention else Attention)(
             cfg, device, layer_idx)
         self.post_attention_layernorm = (
             None if cfg.parallel_residual == "one_norm" else _block_norm(cfg, device)

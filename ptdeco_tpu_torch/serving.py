@@ -39,13 +39,15 @@ Counterpart of the llama-family part of ``ptdeco_tpu/serving.py``:
 
   * doge's layers cache their keys' f32 bias beside k and v, diffllama's
     differential attention has a cached form of its own
-    (``CachedDiffAttention``), and mllama's skipped layers have no entry:
+    (``CachedDiffAttention``), DeepSeek's latent attention caches its normed
+    latent and its shared rope head (``CachedMLAttention``, the absorbed
+    form), and mllama's skipped layers have no entry:
     ``layer_cache_tensors`` is the one place that reads an entry's layout.
-    Neither doge nor diffllama takes flash, as in the JAX package; a
-    block-pruned attention is refused, as there.
+    None of doge, diffllama and DeepSeek takes flash, as in the JAX package;
+    a block-pruned attention is refused, as there.
 
-Not ported: the cached mixers of the other model families (MLA, state-space
-and mixture-of-attention layers, which the port does not have), serving on a
+Not ported: the cached mixers of the other model families (state-space and
+mixture-of-attention layers, which the port does not have), serving on a
 device mesh, and capturing the decode step in a CUDA graph.
 """
 
@@ -58,7 +60,15 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .models.transformer import Attention, Block, CausalLM, DiffAttention, SkipBlock, _positions
+from .models.transformer import (
+    Attention,
+    Block,
+    CausalLM,
+    DiffAttention,
+    MLAttention,
+    SkipBlock,
+    _positions,
+)
 from .ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
 __all__ = [
@@ -81,24 +91,35 @@ logger = logging.getLogger(__name__)
 
 # per layer: (k_cache, v_cache), each (b, max_len, n_kv_heads, head_dim);
 # doge's layers add their keys' f32 bias (b, max_len, n_kv_heads) as a third
-# tensor; a SkipBlock's entry is None
+# tensor; an MLA layer's is (latent, rope head), (b, max_len, kv_lora_rank)
+# and (b, max_len, qk_rope_head_dim); a SkipBlock's entry is None
 KVCache = tuple
+
+# an entry's layout by its tensors' ranks
+_LAYOUTS = {(4, 4): "kv", (4, 4, 3): "doge", (3, 3): "mla"}
+
+
+def _cache_layout(entry: Any, idx: int) -> str:
+    """Layer ``idx``'s cache layout: "skip" (a SkipBlock's None), "kv",
+    "doge" or "mla" by its tensors' ranks; any other is refused."""
+    layout = "skip" if entry is None else (
+        _LAYOUTS.get(tuple(t.ndim for t in entry))
+        if isinstance(entry, tuple) and all(isinstance(t, torch.Tensor) for t in entry) else None)
+    if layout is None:
+        raise ValueError(
+            f"layer {idx}'s cache entry is not (k, v), doge's (k, v, key bias), MLA's (latent, "
+            "rope head) or None: the port wires no other cache layout (ROADMAP.md)"
+        )
+    return layout
 
 
 def layer_cache_tensors(entry: Any, idx: int) -> tuple:
     """The tensors of one layer's cache entry: () for a SkipBlock's None,
-    else its (k, v) or doge's (k, v, key bias).  Every copy or reorder of
-    the caches (beams, the batcher's slots) goes through this, so a layout
-    the port does not wire is refused here, not mis-indexed."""
-    if entry is None:
-        return ()
-    if (isinstance(entry, tuple) and len(entry) in (2, 3)
-            and all(isinstance(t, torch.Tensor) for t in entry)):
-        return entry
-    raise ValueError(
-        f"layer {idx}'s cache entry is not (k, v), doge's (k, v, key bias) or None: the port "
-        "wires no other cache layout (ROADMAP.md)"
-    )
+    else its (k, v), doge's (k, v, key bias) or MLA's (latent, rope head).
+    Every copy or reorder of the caches (beams, the batcher's slots) goes
+    through this, so a layout the port does not wire is refused here, not
+    mis-indexed."""
+    return () if _cache_layout(entry, idx) == "skip" else entry
 
 
 def map_caches(caches: KVCache, fn: Any) -> KVCache:
@@ -304,15 +325,91 @@ class CachedDiffAttention:
         return a.o_proj(a.attend(q, self.k_cache, self.v_cache, valid))
 
 
+def _check_absorbable(m: torch.nn.Module, what: str) -> None:
+    """Refuse a projection that cannot be absorbed into the latent
+    contraction (JAX serving.py:345-366): a biased Linear, a biased factor
+    pair and every other module (a fused pair, an int8 ``QuantLinear``).
+    A plain ``nn.Linear`` or a bias-free pair of them passes; nothing is
+    multiplied."""
+    if type(m) is torch.nn.Linear:
+        if m.bias is not None:
+            raise ValueError(f"{what}: cannot absorb a biased Linear")
+        return
+    if (type(m) is torch.nn.Sequential and len(m) == 2
+            and all(type(f) is torch.nn.Linear for f in m)):
+        if any(f.bias is not None for f in m):
+            raise ValueError(f"{what}: cannot absorb a biased factor pair")
+        return
+    raise ValueError(f"{what}: cannot absorb a {type(m).__name__} into the MLA cache contraction")
+
+
+def _dense_linear_kernel(m: torch.nn.Module, what: str) -> torch.Tensor:
+    """The bias-free (in, out) kernel of a projection that
+    ``_check_absorbable`` passes: a Linear's weight, or a decomposed factor
+    pair's product, computed at each call."""
+    _check_absorbable(m, what)
+    if type(m) is torch.nn.Linear:
+        return m.weight.t()
+    return (m[1].weight @ m[0].weight).t()
+
+
+class CachedMLAttention:
+    """Stands in for a block's ``MLAttention`` for one cached step, the
+    absorbed form (JAX serving.py:369-462): the cache holds the normed
+    latent (b, max_len, kv_lora_rank) and the rotated shared rope head (b,
+    max_len, qk_rope_head_dim), nothing per head.  ``kv_b_proj``'s key half
+    is folded into the query (q_nope @ W_k per head) and its value half
+    applied after the probability-weighted latent sum; the scores equal the
+    expanded form's up to rounding order.  It never takes flash."""
+
+    def __init__(
+        self,
+        inner: MLAttention,
+        lat_cache: torch.Tensor,
+        pe_cache: torch.Tensor,
+        cache_pos: Any,
+        kv_mask: Optional[torch.Tensor] = None,
+    ) -> None:
+        self.inner = inner
+        self.lat_cache = lat_cache
+        self.pe_cache = pe_cache
+        self.cache_pos = cache_pos
+        self.kv_mask = kv_mask
+
+    def __call__(
+        self, x: torch.Tensor, attn_mask: Optional[torch.Tensor], positions: torch.Tensor
+    ) -> torch.Tensor:
+        a = self.inner
+        b, s, _ = x.shape
+        f32 = torch.float32
+        q_nope, q_pe, lat, k_pe = a.project(x, positions)
+        _cache_write(self.lat_cache, lat, self.cache_pos)
+        _cache_write(self.pe_cache, k_pe, self.cache_pos)
+        w = _dense_linear_kernel(a.kv_b_proj, "kv_b_proj").reshape(
+            a.kv_lora_rank, a.n_heads, a.qk_nope_head_dim + a.v_head_dim)
+        w_k, w_v = w[..., : a.qk_nope_head_dim], w[..., a.qk_nope_head_dim:]
+        q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope.to(f32), w_k.to(f32)).to(x.dtype)
+        lat_cache, pe_cache = self.lat_cache.to(f32), self.pe_cache.to(f32)
+        logits = (torch.einsum("bqhl,bkl->bhqk", q_eff.to(f32), lat_cache)
+                  + torch.einsum("bqhr,bkr->bhqk", q_pe.to(f32), pe_cache)) * a.scale()
+        valid = _valid_keys(positions, self.lat_cache.shape[1], self.cache_pos, s, self.kv_mask)
+        logits = logits.masked_fill(~valid[:, None], torch.finfo(f32).min)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out_lat = torch.einsum("bhqk,bkl->bqhl", probs.to(f32), lat_cache).to(x.dtype)
+        out = torch.einsum("bqhl,lhv->bqhv", out_lat.to(f32), w_v.to(f32)).to(x.dtype)
+        return a.o_proj(out.reshape(b, s, -1))
+
+
 def _model_layers(lm: CausalLM) -> Any:
     return lm.model.layers
 
 
 def _layer_attention(layer: Any, idx: int) -> Optional[Any]:
-    """The layer's cached mixer (``Attention`` or ``DiffAttention``), or None
-    for a ``SkipBlock``, which has no cache entry (JAX serving.py:644-689).
-    Raises for anything else, a ``PrunedSublayer`` attention included, as
-    the JAX package does."""
+    """The layer's cached mixer (``Attention``, ``DiffAttention`` or
+    ``MLAttention``), or None for a ``SkipBlock``, which has no cache entry
+    (JAX serving.py:644-689).  Raises for anything else, a
+    ``PrunedSublayer`` attention included, and for an MLA layer whose
+    ``kv_b_proj`` cannot be absorbed, as the JAX package does."""
     if isinstance(layer, SkipBlock):
         return None
     if not isinstance(layer, Block):
@@ -320,9 +417,13 @@ def _layer_attention(layer: Any, idx: int) -> Optional[Any]:
             f"KV-cache decoding supports Block layer stacks; layer {idx} is "
             f"{type(layer).__name__}"
         )
+    if isinstance(layer.self_attn, MLAttention):
+        # refused here, before any step, where kv_b_proj cannot be absorbed
+        _check_absorbable(layer.self_attn.kv_b_proj, f"layer {idx} kv_b_proj")
+        return layer.self_attn
     if not isinstance(layer.self_attn, (Attention, DiffAttention)):
         raise ValueError(
-            f"KV-cache decoding supports Attention and DiffAttention; layer {idx} uses "
+            f"KV-cache decoding supports Attention, DiffAttention and MLAttention; layer {idx} uses "
             f"{type(layer.self_attn).__name__} (its state caching is not implemented, as in the "
             "JAX package; ROADMAP.md)"
         )
@@ -341,7 +442,8 @@ def init_cache(
     """Zero-filled per-layer KV cache on the model's device, in ``dtype``
     (the embedding's when None); doge's key-bias tensor is f32, and a cache
     longer than its ``keep_window_size`` is refused (JAX
-    serving.py:861-870)."""
+    serving.py:861-870); an MLA layer's entry is its latent and rope head
+    (JAX serving.py:839-845)."""
     emb = lm.model.embed_tokens.weight
     dtype = emb.dtype if dtype is None else dtype
     caches = []
@@ -349,6 +451,11 @@ def init_cache(
         a = _layer_attention(layer, i)
         if a is None:
             caches.append(None)
+            continue
+        if isinstance(a, MLAttention):
+            caches.append(tuple(
+                torch.zeros((batch_size, max_len, n), dtype=dtype, device=emb.device)
+                for n in (a.kv_lora_rank, a.qk_rope_head_dim)))
             continue
         shape = (batch_size, max_len, a.n_kv_heads, a.head_dim)
         entry = (torch.zeros(shape, dtype=dtype, device=emb.device),
@@ -370,6 +477,8 @@ def _cached_mixer(mixer: Any, entry: tuple, cache_pos: Any, kv_mask: Optional[to
     """The cached stand-in of a layer's mixer over its cache entry."""
     if isinstance(mixer, DiffAttention):
         return CachedDiffAttention(mixer, *entry, cache_pos, kv_mask=kv_mask)
+    if isinstance(mixer, MLAttention):
+        return CachedMLAttention(mixer, *entry, cache_pos, kv_mask=kv_mask)
     k_cache, v_cache, *dyn = entry
     return CachedAttention(mixer, k_cache, v_cache, cache_pos, kv_mask=kv_mask,
                            prefill_causal=prefill_causal, dyn_cache=dyn[0] if dyn else None)
@@ -397,14 +506,14 @@ def forward_with_cache(
     x = lm.model.embed_inputs(input_ids, positions)
     for i, (layer, entry) in enumerate(zip(_model_layers(lm), caches)):
         mixer = _layer_attention(layer, i)
-        want = 0 if mixer is None else 3 if getattr(mixer, "dt_proj", None) is not None else 2
-        tensors = layer_cache_tensors(entry, i)
-        if len(tensors) != want:
+        want = ("skip" if mixer is None else "mla" if isinstance(mixer, MLAttention)
+                else "doge" if getattr(mixer, "dt_proj", None) is not None else "kv")
+        if _cache_layout(entry, i) != want:
             raise ValueError(f"layer {i}'s cache entry does not fit its mixer (see init_cache)")
         if mixer is None:  # a SkipBlock
             continue
         x = layer(x, positions=positions,
-                  self_attn=_cached_mixer(mixer, tensors, cache_pos, kv_mask, prefill0))
+                  self_attn=_cached_mixer(mixer, entry, cache_pos, kv_mask, prefill0))
     if last_pos is not None:
         idx = torch.as_tensor(last_pos, device=x.device).to(torch.int64)
         x = torch.gather(x, 1, idx[:, None, None].expand(b, 1, x.shape[-1]))

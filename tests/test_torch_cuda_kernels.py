@@ -35,7 +35,10 @@ def dev():
     # and one block a tile summing several 4096-row chunks
     + [(5000, 512), (5000, 600), (70000, 130), (9000, 2048)]
     # Moshi's gated MLP (11264) and Mllama's (14336)
-    + [(1024, 11264), (1024, 14336)],
+    + [(1024, 11264), (1024, 14336)]
+    # DeepSeek-V3's width (7168) and q_lora (1536), DeepSeek-V2-Lite's dense
+    # MLP (10944, off the 128 grid) and the latent plus rope head (576)
+    + [(1024, 7168), (1024, 10944), (1024, 1536), (1024, 576)],
 )
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_syrk_gram(dev, n, d, dtype):
@@ -267,7 +270,13 @@ def test_flash_attention_rejects_unsupported(dev):
     # Moshi's (4096 <-> 11264) and Mllama's (4096 <-> 14336) MLP pairs, a
     # prefill and a decode step
     + [(1024, 4096, 32, 11264, False), (1024, 11264, 32, 4096, False),
-       (1024, 4096, 32, 14336, False), (4, 14336, 32, 4096, False)],
+       (1024, 4096, 32, 14336, False), (4, 14336, 32, 4096, False)]
+    # DeepSeek's pairs at their walks' ranks off the 16 grid: V3's q_a / q_b
+    # at 24, kv_a_proj_with_mqa at 18, o_proj at 28; V2-Lite's dense MLP
+    # (10944) at 32; a prefill and a decode step
+    + [(1024, 7168, 24, 1536, False), (4, 1536, 24, 24576, False), (1024, 7168, 18, 576, False),
+       (1024, 16384, 28, 7168, False), (4, 10944, 32, 2048, False),
+       (1024, 2048, 32, 10944, False)],
 )
 def test_lowrank_matmul(dev, n, d_in, r, d_out, bias):
     x = torch.randn(n, d_in, device=dev, dtype=torch.bfloat16)

@@ -1,5 +1,5 @@
 """The port's llama-family decoders beyond llama (mistral, qwen2, qwen3,
-gemma) against the JAX package's, on the CPU: a tiny HF ``config.json`` of
+gemma, the MoE decoders and DeepSeek's) against the JAX package's, on the CPU: a tiny HF ``config.json`` of
 each family goes through both ``from_hf_config``s, the JAX model's weights
 (norm weights moved off their initial values) are carried into the port's
 with ``utils.state_dict`` -> ``load_numpy_state_dict``, and the f32 logits
@@ -45,6 +45,15 @@ FAMILIES = {
     "olmoe": tiny_hf("olmoe", num_experts=4, num_experts_per_tok=2),
     "qwen3_moe": tiny_hf("qwen3_moe", head_dim=8, num_experts=4, num_experts_per_tok=2,
                          moe_intermediate_size=16),
+    # the latent-attention decoders (tests/test_torch_deepseek.py has their
+    # routing branches and cached forms)
+    "deepseek_v2": tiny_hf("deepseek_v2", n_routed_experts=4, num_experts_per_tok=2,
+                           moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
+                           qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8),
+    "deepseek_v3": tiny_hf("deepseek_v3", n_routed_experts=4, num_experts_per_tok=2,
+                           moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
+                           qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8,
+                           n_group=1, topk_group=1),
 }
 
 
@@ -150,17 +159,9 @@ REFUSED_BY_BOTH = {
                        num_hidden_layers=2, num_attention_heads=4, hidden_act="gelu"),
 }
 REFUSED_BY_PORT = {
-    # the MoE and latent-attention types still to come (ROADMAP.md Queue 1
-    # item 6): attention sinks and biased experts, latent attention with
-    # grouped routing, granite's MoE
+    # the MoE types still to come (ROADMAP.md Queue 1 item 6): attention
+    # sinks and biased experts, granite's MoE
     "gpt_oss": tiny_hf("gpt_oss", head_dim=8, num_local_experts=4, num_experts_per_tok=2),
-    "deepseek_v2": tiny_hf("deepseek_v2", n_routed_experts=4, num_experts_per_tok=2,
-                           moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
-                           qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8),
-    "deepseek_v3": tiny_hf("deepseek_v3", n_routed_experts=4, num_experts_per_tok=2,
-                           moe_intermediate_size=16, kv_lora_rank=8, q_lora_rank=None,
-                           qk_rope_head_dim=4, qk_nope_head_dim=4, v_head_dim=8,
-                           n_group=1, topk_group=1),
     "granitemoe": tiny_hf("granitemoe", num_local_experts=4, num_experts_per_tok=2),
     # dense types the port does not build yet: the bert lineage, as a causal
     # decoder (post-LN blocks, learned positions) and ModernBERT's decoder

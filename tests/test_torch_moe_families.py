@@ -9,11 +9,12 @@ two routed experts and a shared expert must write the JAX package's
 ``decompose_config.json`` byte for byte, and ``quantize_for_serving`` must
 quantize the same sites to the same grids.  Then the grouped kernels'
 routes at 60-128 experts, and the int8-vs-bf16 difference of each package
-layer by layer (ROADMAP.md, Queue 3 item 2).  One JAX compile per model
-and route (a fresh ``jax.jit`` each, so no route reuses another's
-program)."""
+layer by layer (ROADMAP.md, Queue 3 item 2).  Each JAX model is built
+once (``_jax_model``); one JAX compile per model and route (a fresh
+``jax.jit`` each, so no route reuses another's program)."""
 
 import copy
+import functools
 import json
 
 import jax
@@ -89,13 +90,31 @@ def moe_weights(model: torch.nn.Module, seed: int) -> dict[str, np.ndarray]:
     return sd
 
 
-def pair(case: str, seed: int = 0, jdtype=jnp.float32, tdtype=torch.float32, hf=None):
-    """The JAX model of the case and the port's, with the same weights."""
-    hf = CASES[case] if hf is None else hf
-    tm = tmodels.CausalLM(tmodels.TransformerConfig.from_hf_config(hf, dtype=tdtype), device="cpu")
+@functools.lru_cache(maxsize=None)
+def _jax_model(hf_json: str, seed: int, jdtype) -> tuple:
+    """The JAX model of a config and its numpy weights, built once a module
+    for each config, seed and dtype (the JAX models are immutable, so the
+    tests share them)."""
+    hf = json.loads(hf_json)
+    tm = tmodels.CausalLM(tmodels.TransformerConfig.from_hf_config(hf, dtype=torch.float32),
+                          device="cpu")
     sd = moe_weights(tm, seed)
-    tutils.load_numpy_state_dict(tm, sd)
-    return jax_twin(hf, sd, jdtype), tm
+    return jax_twin(hf, sd, jdtype), sd
+
+
+def pair(case: str, seed: int = 0, jdtype=jnp.float32, tdtype=torch.float32, hf=None):
+    """The JAX model of the case and a fresh port model, with the same
+    weights."""
+    hf = CASES[case] if hf is None else hf
+    jm, sd = _jax_model(json.dumps(hf, sort_keys=True), seed, jdtype)
+    tm = tmodels.CausalLM(tmodels.TransformerConfig.from_hf_config(hf, dtype=tdtype), device="cpu")
+    return jm, tutils.load_numpy_state_dict(tm, sd)
+
+
+def jax_quantized(jm, **kw):
+    """``quantize_for_serving`` of the JAX package as one program (its
+    eager ops compile one by one, seconds a model)."""
+    return jax.jit(functools.partial(jquant.quantize_for_serving, **kw))(jm)
 
 
 def logits(jm, ids: np.ndarray) -> np.ndarray:
@@ -163,7 +182,7 @@ def test_shared_expert_logits_match_jax_on_each_route(monkeypatch, route):
     the JAX package's grids, its kernel in interpret mode."""
     jm, tm = pair("qwen2_moe")
     if route == "int8":
-        jm = jquant.quantize_for_serving(jm)
+        jm = jax_quantized(jm)
         tquant.quantize_for_serving(tm)
     calls = force_route(monkeypatch, route)
     ids = probe_ids(128, (2, 9), seed=5)
@@ -273,7 +292,7 @@ def test_quantize_for_serving_skips_gates_and_small_linears_as_jax(min_features)
     ``min_features`` 40 the 24-wide expert projections and the 32-wide k/v
     projections stay too.  The same sites take the same grids."""
     jm, tm = pair("qwen2_moe")
-    jq = jquant.quantize_for_serving(jm, skip_names=["lm_head"], min_features=min_features)
+    jq = jax_quantized(jm, skip_names=["lm_head"], min_features=min_features)
     tquant.quantize_for_serving(tm, skip_names=["lm_head"], min_features=min_features)
     ours = {n for n, m in tm.named_modules() if isinstance(m, tquant.QuantLinear)}
     theirs = {n for n, m in jnn.named_modules(jq) if type(m) is jquant.QuantLinear}
@@ -367,10 +386,8 @@ def _torch_layer_outputs(tm, tq, ids: np.ndarray) -> list[float]:
             return vals, idx
 
         def forced(x, moe=lq.mlp):
-            scores = torch.softmax(moe.gate(x).to(torch.float32), dim=-1)
             idx = seen["ids"].reshape(*x.shape[:-1], moe.top_k)
-            vals = torch.gather(scores, -1, idx)
-            return (vals / vals.sum(-1, keepdim=True) if moe.norm_topk else vals), idx
+            return ttf.moe_combine_weights(moe, ttf.router_scores(moe, x), idx), idx
 
         lb.mlp._routing, lq.mlp._routing = record, forced
         y = lb(h)
@@ -393,7 +410,7 @@ def test_int8_against_bf16_per_layer_is_the_jax_packages(monkeypatch, capsys):
     monkeypatch.setattr(jtf, "_INT8_GMM_INTERPRET", True)
     monkeypatch.setattr(ttf, "_use_int8_kernel", lambda x: True)
     jm, tm = pair("mixtral", seed=11, jdtype=jnp.bfloat16, tdtype=torch.bfloat16, hf=MIXTRAL_HF)
-    jq = jquant.quantize_for_serving(jm)
+    jq = jax_quantized(jm)
     tq = tquant.quantize_for_serving(copy.deepcopy(tm))
     ids = probe_ids(128, (2, 16), seed=12)
     with torch.no_grad():
